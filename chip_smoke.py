@@ -1,0 +1,601 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py [--out report.json]
+
+Phases, each of which fails the run (non-zero exit) on any fault:
+
+1. build every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
+   compiler process per source, all at once;
+2. each kernel against its plain version on the card at the main
+   path's shapes, uci-highk's group shape, Hamerly at D = 128, K = 1024,
+   and a ragged N at mask densities 0, 0.3 and 1; times of the kernel,
+   the plain version and the library call, beside the least time the
+   card could take;
+3. the main path at the paper suite's ``uci-xlarge`` problem
+   (N = 2^20, D = 32, K = 256, G = 25): ``KMeans(algorithm="yinyang",
+   engine="auto").fit`` and ``predict`` on the same points, with every
+   kernel's launch count reset just before and read just after;
+4. the same fit with every kernel swapped for its plain PyTorch version,
+   on the card: labels and ``n_iters`` equal, centroids and inertia and
+   ``distance_evals`` within the stated tolerances;
+5. determinism: two kernel fits bit-identical, and weights of 1.0
+   bit-identical to no weights;
+6. a small fit on the card against the same fit on the CPU;
+7. one kernel fit under ``torch.profiler``: device busy time by kernel
+   and the device's idle share.
+
+The last lines are a ``kernels`` JSON line, the card's name and power
+limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``. The
+script exits non-zero, printing no result, where CUDA is missing or the
+port's sources are not beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# uci-xlarge of the paper suite (repro/configs/kpynq.py), copied
+XLARGE = dict(n=1 << 20, d=32, k=256, max_iters=50, tol=1e-4)
+# device peaks by card name: (bytes/s, fp32 FLOP/s without tensor
+# cores), from NVIDIA's data sheets; SXM figures unless the name says
+# otherwise
+PEAKS = {"H100 PCIe": (2.0e12, 51.2e12), "H100 NVL": (3.9e12, 60.0e12),
+         "H200": (4.8e12, 67.0e12), "H100": (3.35e12, 67.0e12)}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0 and out.stdout.strip() != "",
+          f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    for key, val in PEAKS.items():
+        if key in name:
+            return val
+    fail(f"no peak figures for card {name!r}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the full report as JSON here")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}")
+    sys.path.insert(0, str(ROOT / "src"))
+
+    from repro_torch.core import engine
+    from repro_torch.core.api import KMeans
+    from repro_torch.core.kmeans import group_centroids
+    from repro_torch.data import make_points
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import centroid_update as cu_mod
+    from repro_torch.kernels import grouped_assign as ga_mod
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    bw, fp32 = peaks(name)
+    report = {"card": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    log(f"card: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}; peaks used for bounds: "
+        f"{bw / 1e12:.2f} TB/s, {fp32 / 1e12:.1f} TFLOP/s fp32")
+
+    # -- 1. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    report["build_s"] = build_s
+    log(f"build: {len(logs)} sources in {build_s:.2f} s")
+    for src, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+
+    kernels = {"grouped_assign": ga_mod.grouped_assign,
+               "centroid_update": cu_mod.centroid_update}
+
+    def reset_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    @contextlib.contextmanager
+    def plain_versions():
+        saved = (ga_mod.grouped_assign, cu_mod.centroid_update)
+        ga_mod.grouped_assign = ga_mod.grouped_assign_plain
+        cu_mod.centroid_update = cu_mod.centroid_update_plain
+        try:
+            yield
+        finally:
+            ga_mod.grouped_assign, cu_mod.centroid_update = saved
+
+    def sync():
+        torch.cuda.synchronize()
+
+    # -- the problem: uci-xlarge ------------------------------------------
+    n, d, k = XLARGE["n"], XLARGE["d"], XLARGE["k"]
+    t0 = time.perf_counter()
+    pts_np, centers_np, blob_np = make_points(n, d, k, seed=0)
+    points = torch.from_numpy(pts_np).to(dev)
+    sync()
+    log(f"data: uci-xlarge N={n} D={d} K={k}, "
+        f"{points.numel() * 4 / 2**20:.0f} MiB on the card, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # -- 2. kernels against their plain versions -----------------------------
+    def cuda_ms(fn, reps=10):
+        fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        sync()
+        return start.elapsed_time(stop) / reps
+
+    def bound(nbytes, flops):
+        t_b, t_f = nbytes / bw * 1e3, flops / fp32 * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def ga_case(label, x, centroids, n_groups, density, timed=False):
+        tile_n = 256
+        cents = centroids.contiguous()
+        groups, members, gsize = engine.build_assign_tables(cents, n_groups)
+        g, lmax = members.shape
+        mem_s = members.clamp_min(0).long()
+        c_grouped = cents[mem_s].contiguous()
+        c2 = (cents * cents).sum(-1)
+        c2g = c2[mem_s].contiguous()
+        x2 = (x * x).sum(-1)
+        gn = -(-x.shape[0] // tile_n)
+        mask = (torch.rand((gn, g), generator=gen, device=dev)
+                < density).contiguous()
+        args = (x, c_grouped, members, mask)
+        kw = dict(tile_n=tile_n, x2=x2, c2g=c2g)
+        got = ga_mod.grouped_assign(*args, **kw)
+        want = ga_mod.grouped_assign_plain(*args, **kw)
+        sync()
+        # the expanded form loses bits to cancellation against the norms
+        atol = 1e-5 * (float(x2.max()) + float(c2.max()))
+        err = 0.0
+        for nm_, a, b in zip(("best", "gmin", "gmin2"),
+                             (got[0], got[2], got[4]),
+                             (want[0], want[2], want[4])):
+            fa, fb = torch.isfinite(a), torch.isfinite(b)
+            check(torch.equal(fa, fb), f"{label}: {nm_} inf pattern differs")
+            if bool(fa.any()):
+                err = max(err, float((a[fa] - b[fb]).abs().max()))
+        check(err <= atol, f"{label}: float outputs differ by {err:.3g} > "
+              f"atol {atol:.3g}")
+        ties = 0
+        for nm_, ia, ib, va in (("idx", got[1], want[1], want[0]),
+                                ("garg", got[3], want[3], want[2])):
+            bad = ia != ib
+            nbad = int(bad.sum())
+            if nbad:
+                # a differing id is allowed only at a tie: both ids'
+                # exact distances within atol of the reported minimum
+                rows = bad.nonzero()[:, 0].long()
+                xa = x[rows].double()
+                for ids_ in (ia[bad], ib[bad]):
+                    check(bool((ids_ >= 0).all()), f"{label}: {nm_} -1 "
+                          f"where the plain version found a centroid")
+                    dd = ((xa - cents[ids_.long()].double()) ** 2).sum(-1)
+                    check(bool(((dd - va[bad].double()).abs()
+                                <= 2 * atol).all()),
+                          f"{label}: {nm_} differs off a tie")
+            ties += nbad
+        live = mask.long().repeat_interleave(tile_n, 0)[:x.shape[0]]
+        pairs = int((live * gsize[None, :]).sum())
+        entry = dict(case=label, n=x.shape[0], d=x.shape[1],
+                     k=cents.shape[0], g=g, lmax=lmax, density=density,
+                     max_abs_err=err, atol=atol, tie_diffs=ties)
+        if timed:
+            n_, d_ = x.shape
+            nbytes = 4 * (n_ * d_ + n_ + g * lmax * (d_ + 2)) + gn * g \
+                + 8 * n_ + 12 * n_ * g
+            bound_ms, by = bound(nbytes, 2.0 * d_ * pairs)
+            entry.update(ms=cuda_ms(lambda: ga_mod.grouped_assign(*args,
+                                                                  **kw)),
+                         plain_ms=cuda_ms(
+                             lambda: ga_mod.grouped_assign_plain(*args,
+                                                                 **kw),
+                             reps=3),
+                         bound_ms=bound_ms, bound_by=by, library_ms=None)
+        log(f"grouped_assign {label}: {json.dumps(entry)}")
+        return entry
+
+    def cu_case(label, x, labels, kk, weights=None, timed=False):
+        got = cu_mod.centroid_update(x, labels, kk, weights)
+        want = cu_mod.centroid_update_plain(x, labels, kk, weights)
+        absx = cu_mod.centroid_update_plain(x.abs(), labels, kk,
+                                            None if weights is None
+                                            else weights.abs())[0]
+        sync()
+        err = float((got[0] - want[0]).abs().max())
+        # fp32 sums in two orders: each within N*eps of the abs-sum
+        tol = (1e-5 * absx + 1e-6)
+        check(bool(((got[0] - want[0]).abs() <= tol).all()),
+              f"{label}: sums differ beyond 1e-5 of the abs-sum")
+        if weights is None:
+            check(torch.equal(got[1], want[1]), f"{label}: counts differ")
+        else:
+            check(bool(torch.allclose(got[1], want[1], rtol=1e-5)),
+                  f"{label}: weighted counts differ beyond rtol 1e-5")
+        err = max(err, float((got[1] - want[1]).abs().max()))
+        entry = dict(case=label, n=x.shape[0], d=x.shape[1], k=kk,
+                     weighted=weights is not None, max_abs_err=err)
+        if timed:
+            n_, d_ = x.shape
+            nbytes = 4 * (n_ * d_ + n_ + kk * d_ + kk) \
+                + (4 * n_ if weights is not None else 0)
+            bound_ms, by = bound(nbytes, float(n_ * d_ + n_))
+            lab64 = labels.long()
+            entry.update(
+                ms=cuda_ms(lambda: cu_mod.centroid_update(x, labels, kk,
+                                                          weights)),
+                plain_ms=cuda_ms(lambda: cu_mod.centroid_update_plain(
+                    x, labels, kk, weights)),
+                bound_ms=bound_ms, bound_by=by,
+                library_ms=cuda_ms(lambda: torch.zeros(
+                    (kk, d_), device=dev).index_add_(0, lab64, x)))
+        log(f"centroid_update {label}: {json.dumps(entry)}")
+        return entry
+
+    # uci-xlarge: the blob centres as centroids, the true blob labels
+    centers = torch.from_numpy(centers_np).to(dev)
+    blob = torch.from_numpy(blob_np.astype(np.int32)).to(dev)
+    ga_main = ga_case("uci-xlarge all live", points, centers, 25, 1.0,
+                      timed=True)
+    ga_case("uci-xlarge density 0.3", points, centers, 25, 0.3, timed=True)
+    cu_main = cu_case("uci-xlarge", points, blob, k, timed=True)
+    cu_case("uci-xlarge weighted", points, blob, k,
+            torch.rand(n, generator=gen, device=dev))
+
+    hk_np, hk_c, _ = make_points(262_144, 32, 1024, seed=1)
+    hk = torch.from_numpy(hk_np).to(dev)
+    hk_cent = hk[:: 262_144 // 1024][:1024].contiguous()
+    for dens in (1.0, 0.3):
+        ga_case(f"uci-highk K=1024 G=102 density {dens}", hk, hk_cent, 102,
+                dens)
+    hk_lab = torch.randint(-1, 1024, (262_144,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cu_case("uci-highk K=1024 with -1 labels", hk, hk_lab, 1024)
+
+    hm_np, _, _ = make_points(65_536, 128, 1024, seed=2)
+    hm = torch.from_numpy(hm_np).to(dev)
+    ga_case("hamerly D=128 K=1024 G=1", hm, hm[::64][:1024].contiguous(),
+            1, 1.0)
+    hm_lab = torch.randint(0, 1024, (65_536,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cu_case("D=128 K=1024", hm, hm_lab, 1024)
+
+    rg_np, _, _ = make_points(100_003, 33, 77, seed=4)
+    rg = torch.from_numpy(rg_np).to(dev)
+    rg_cent = rg[:77].contiguous()
+    for dens in (0.0, 0.3, 1.0):
+        ga_case(f"ragged N=100003 D=33 K=77 G=7 density {dens}", rg, rg_cent,
+                7, dens)
+    rg_lab = torch.randint(-1, 77, (100_003,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cu_case("ragged N=100003 D=33 K=77 weighted, -1 labels", rg, rg_lab, 77,
+            torch.rand(100_003, generator=gen, device=dev))
+
+    # -- 3. the main path ------------------------------------------------
+    km = KMeans(k, algorithm="yinyang", engine="auto",
+                max_iters=XLARGE["max_iters"], tol=XLARGE["tol"], seed=0,
+                device=dev)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    km.fit(points)
+    sync()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = km.predict(points)
+    sync()
+    predict_s = time.perf_counter() - t0
+    launches = {nm: fn.launches for nm, fn in kernels.items()}
+
+    res, stats = km.result_, km.stats_
+    n_iters = int(res.n_iters)
+    evals = int(res.distance_evals)
+    work = evals / (n * k * n_iters)
+    log(f"fit: backend={stats.backend} {fit_s:.3f} s, n_iters={n_iters}, "
+        f"distance_evals={evals}, work vs Lloyd's N*K*iters={work:.4f} "
+        f"({1 / work:.2f}x fewer), host_syncs={stats.host_syncs}, "
+        f"inertia={float(res.inertia):.6g}")
+    log(f"predict: {predict_s:.3f} s, {n / predict_s:.4g} points/s")
+    log(f"launches on the main path: {launches}")
+    check(stats.backend == "kernel", f"auto resolved to {stats.backend}")
+    for nm, cnt in launches.items():
+        check(cnt >= n_iters, f"{nm} launched {cnt} times on the main "
+              f"path, fewer than n_iters={n_iters}")
+    c_fit = res.centroids
+    check(tuple(c_fit.shape) == (k, d) and bool(torch.isfinite(c_fit).all())
+          and math.isfinite(float(res.inertia)),
+          "fit produced non-finite or misshapen centroids/inertia")
+    check(pred.shape == (n,) and pred.min() >= 0 and pred.max() < k,
+          "predict labels out of range")
+    fit_labels = res.assignments.cpu().numpy()
+    mism = np.nonzero(pred != fit_labels)[0]
+    if len(mism):
+        # allowed only where the two centroids tie to fp32 rounding
+        x64 = pts_np[mism].astype(np.float64)
+        c64 = c_fit.cpu().numpy().astype(np.float64)
+        da = np.linalg.norm(x64 - c64[pred[mism]], axis=1)
+        db = np.linalg.norm(x64 - c64[fit_labels[mism]], axis=1)
+        check(np.all(np.abs(da - db) <= 1e-4 * np.maximum(da, 1.0)),
+              f"predict disagrees with fit labels on {len(mism)} points "
+              f"that are not ties")
+    log(f"predict vs fit labels: {len(mism)} differ (ties only)")
+    report["main"] = dict(fit_s=fit_s, predict_s=predict_s, n_iters=n_iters,
+                          distance_evals=evals, work_vs_lloyd=work,
+                          host_syncs=stats.host_syncs,
+                          inertia=float(res.inertia), launches=launches,
+                          predict_points_per_s=n / predict_s)
+
+    # -- 4. plain versions on the card: in lockstep, then a whole fit -----
+    # In lockstep every pass runs twice on the same carry, once through
+    # the kernels and once through their plain versions, and the fit
+    # advances on the kernels' result. Two whole fits cannot be held to
+    # each other label for label: the fit stops at max_iters before it
+    # converges, and one summation order against another moves a
+    # centroid by an ulp, flips a boundary point and sets the two
+    # trajectories apart (ROADMAP, Queue 3).
+    init = km._init_centroids(points)
+    n_groups = max(k // 10, 1)
+    groups = group_centroids(init, n_groups)
+    members, gsize = engine.build_group_tables(groups.cpu().numpy(),
+                                               n_groups, dev)
+    core = engine.PassCore(backend="kernel", k=k, n_groups=n_groups)
+    body = engine._loop_body(core, points, None, groups, members, gsize)
+    cond = engine._loop_cond(max_iters=XLARGE["max_iters"],
+                             tol=XLARGE["tol"])
+    carry = engine._init_carry(points, init, groups, n_groups=n_groups)
+    x64 = points.double()
+    x2max = float(carry.x2.max())
+    lock = dict(passes=0, label_ties=0, lb_flips=0, centroid_err=0.0,
+                pairs=0)
+
+    def compare_pass(c):
+        args = (points, c.centroids, c.assignments, c.ub, c.lb, c.need,
+                groups, members, gsize)
+        out_k = core.candidate_pass(*args, x2=c.x2, c2=c.c2)
+        # squared distances in the expanded form are good to about 1e-5
+        # of the norms they are computed from
+        atol2 = 1e-5 * (x2max + float(c.c2.max()))
+        with plain_versions():
+            out_p = core.candidate_pass(*args, x2=c.x2, c2=c.c2)
+        check(int(out_k[3]) == int(out_p[3]),
+              f"pass {lock['passes']}: pair counts differ")
+        lock["pairs"] += int(out_k[3])
+        bad = out_k[0] != out_p[0]
+        if bool(bad.any()):
+            rows = bad.nonzero()[:, 0]
+            cents = c.centroids.double()
+            dk = ((x64[rows] - cents[out_k[0][rows].long()]) ** 2).sum(-1)
+            dp = ((x64[rows] - cents[out_p[0][rows].long()]) ** 2).sum(-1)
+            check(bool(((dk - dp).abs() <= 2 * atol2).all()),
+                  f"pass {lock['passes']}: labels differ off a tie")
+            lock["label_ties"] += int(bad.sum())
+        check(bool(((out_k[1] ** 2 - out_p[1] ** 2).abs() <= atol2).all()),
+              f"pass {lock['passes']}: upper bounds differ")
+        # lower bounds may differ only where the two `changed` flags of a
+        # point that kept its centroid differ (the old group's cap)
+        fk, fp = torch.isfinite(out_k[2]), torch.isfinite(out_p[2])
+        close = (out_k[2] == out_p[2]) | (fk & fp & (
+            (out_k[2] ** 2 - out_p[2] ** 2).abs() <= atol2))
+        kept = out_k[0] == c.assignments
+        flip = torch.zeros_like(close)
+        flip[kept.nonzero()[:, 0], groups.long()[c.assignments.long()][kept]] \
+            = True
+        check(bool((close | flip).all()),
+              f"pass {lock['passes']}: lower bounds differ off a flip")
+        lock["lb_flips"] += int((~close).sum())
+        lock["passes"] += 1
+
+    shift = math.inf
+    t0 = time.perf_counter()
+    while cond(carry.iteration, shift):
+        compare_pass(carry)
+        new_as, new_ub, new_lb, _ = core.candidate_pass(
+            points, carry.centroids, carry.assignments, carry.ub, carry.lb,
+            carry.need, groups, members, gsize, x2=carry.x2, c2=carry.c2)
+        mv = [engine.move_and_bounds(points, carry.centroids, new_as,
+                                     new_ub, new_lb, groups, k=k,
+                                     n_groups=n_groups, x2=carry.x2)]
+        with plain_versions():
+            mv.append(engine.move_and_bounds(
+                points, carry.centroids, new_as, new_ub, new_lb, groups,
+                k=k, n_groups=n_groups, x2=carry.x2))
+        err = float((mv[0].centroids - mv[1].centroids).abs().max())
+        lock["centroid_err"] = max(lock["centroid_err"], err)
+        check(err <= 1e-5 * float(mv[1].centroids.abs().max()),
+              f"iteration {carry.iteration}: centroid move differs beyond "
+              f"rtol 1e-5")
+        carry = body(carry)
+        shift = float(carry.shift)
+    compare_pass(carry)                                   # the epilogue
+    lock_s = time.perf_counter() - t0
+    ep_as, ep_evals, ep_inertia = engine._epilogue_pass(
+        core, points, None, carry, groups, members, gsize)
+    check(torch.equal(ep_as, res.assignments) and int(ep_evals) == evals
+          and carry.iteration == n_iters
+          and torch.equal(carry.centroids, res.centroids),
+          "the lockstep run did not retrace the main fit bit for bit")
+    # pairs scored over pairs a pass with every block live would score
+    live = lock["pairs"] / (lock["passes"] * -(-n // 256) * 256 * k)
+    log(f"lockstep: live (tile, group) blocks carry {live:.4f} of the "
+        f"pairs of an all-live pass, over {lock['passes']} passes")
+    log(f"lockstep kernel vs plain, {lock['passes']} passes and "
+        f"{carry.iteration} moves on the same inputs ({lock_s:.2f} s): "
+        f"pair counts equal, labels equal but {lock['label_ties']} ties, "
+        f"{lock['lb_flips']} lower bounds apart at self-flips, centroid "
+        f"move max err {lock['centroid_err']:.3g}")
+
+    fit_kw = dict(max_iters=XLARGE["max_iters"], tol=XLARGE["tol"],
+                  backend="auto", device=dev)
+    t0 = time.perf_counter()
+    r_k = engine.fit(points, init, **fit_kw)
+    sync()
+    kfit_s = time.perf_counter() - t0
+    with plain_versions():
+        t0 = time.perf_counter()
+        r_p = engine.fit(points, init, **fit_kw)
+        sync()
+        pfit_s = time.perf_counter() - t0
+    n_lab = int((r_k.assignments != r_p.assignments).sum())
+    ev_k, ev_p = int(r_k.distance_evals), int(r_p.distance_evals)
+    c_err = float((r_k.centroids - r_p.centroids).abs().max())
+    in_k, in_p = float(r_k.inertia), float(r_p.inertia)
+    log(f"whole fits: kernel {kfit_s:.3f} s, plain {pfit_s:.3f} s; "
+        f"n_iters {r_k.n_iters}/{r_p.n_iters}, {n_lab} labels differ, "
+        f"distance_evals {ev_k}/{ev_p}, centroid max err {c_err:.3g}, "
+        f"inertia {in_k:.9g}/{in_p:.9g}")
+    check(r_k.n_iters == r_p.n_iters, "kernel and plain n_iters differ")
+    check(abs(in_k - in_p) <= 1e-5 * abs(in_p),
+          "whole-fit inertia differs beyond rtol 1e-5")
+    report["plain"] = dict(lockstep=lock, lockstep_s=lock_s, live_share=live,
+                           kernel_fit_s=kfit_s, plain_fit_s=pfit_s,
+                           labels_differ=n_lab, evals_kernel=ev_k,
+                           evals_plain=ev_p, centroid_err=c_err,
+                           inertia_kernel=in_k, inertia_plain=in_p)
+
+    # -- 5. determinism ------------------------------------------------------
+    same = (torch.equal(r_k.centroids, res.centroids)
+            and torch.equal(r_k.assignments, res.assignments)
+            and r_k.n_iters == res.n_iters
+            and int(r_k.distance_evals) == evals
+            and float(r_k.inertia) == float(res.inertia))
+    check(same, "two kernel fits from one init are not bit-identical")
+    r_w = engine.fit(points, init, sample_weight=torch.ones(n, device=dev),
+                     **fit_kw)
+    same_w = (torch.equal(r_w.centroids, r_k.centroids)
+              and torch.equal(r_w.assignments, r_k.assignments)
+              and r_w.n_iters == r_k.n_iters
+              and float(r_w.inertia) == float(r_k.inertia))
+    check(same_w, "weights of 1.0 are not bit-identical to no weights")
+    log("determinism: repeat fit bit-identical, uniform weights "
+        "bit-identical")
+
+    # -- 6. small fit, card against CPU --------------------------------------
+    sp, _, _ = make_points(4096, 16, 64, seed=3)
+    sinit = torch.from_numpy(sp[:: 4096 // 64][:64].copy())
+    s_gpu = engine.fit(sp, sinit, n_groups=6, backend="kernel", tol=1e-5,
+                       device=dev)
+    s_cpu = engine.fit(sp, sinit, n_groups=6, backend="kernel", tol=1e-5,
+                       device="cpu")
+    check(np.array_equal(s_gpu.assignments.cpu().numpy(),
+                         s_cpu.assignments.numpy())
+          and s_gpu.n_iters == s_cpu.n_iters,
+          "small fit: card and CPU disagree on labels or n_iters")
+    check(abs(float(s_gpu.inertia) - float(s_cpu.inertia))
+          <= 1e-5 * float(s_cpu.inertia), "small fit: inertia differs")
+    log(f"small fit (N=4096, D=16, K=64): card = CPU in labels and "
+        f"n_iters={s_gpu.n_iters}; distance_evals "
+        f"{int(s_gpu.distance_evals)}/{int(s_cpu.distance_evals)}")
+
+    # -- 7. where a fit's time goes: one traced kernel fit ----------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.fit(points, init, **fit_kw)
+        sync()
+        traced_s = time.perf_counter() - t0
+    dev_ms = {}
+    for ev in prof.key_averages():
+        # device-side events only: a CPU op's entry repeats the time of
+        # the kernels it launched
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t_us = ev.self_device_time_total
+        if t_us > 0:
+            dev_ms[ev.key] = dev_ms.get(ev.key, 0.0) + t_us / 1e3
+    busy_ms = sum(dev_ms.values())
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
+    if busy_ms > 0:
+        idle = 1 - busy_ms / (traced_s * 1e3)
+        log(f"traced fit: {traced_s * 1e3:.1f} ms wall, device busy "
+            f"{busy_ms:.1f} ms, idle share {idle:.3f}")
+        for key, ms in top:
+            log(f"  {ms:9.3f} ms  {key[:90]}")
+    else:
+        log("traced fit: the profiler saw no device time (not measured)")
+    report["trace"] = dict(wall_ms=traced_s * 1e3, busy_ms=busy_ms,
+                           top=[[k_, v_] for k_, v_ in top])
+
+    def row(nm, entry, source, replaces):
+        return {"name": nm, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[nm],
+                "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
+                "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+                "bound_by": entry["bound_by"],
+                "library_ms": entry["library_ms"]}
+
+    line = {"kernels": [
+        row("grouped_assign", ga_main,
+            "src/repro_torch/kernels/csrc/grouped_assign.cu",
+            "src/repro/kernels/grouped_assign.py:83"),
+        row("centroid_update", cu_main,
+            "src/repro_torch/kernels/csrc/centroid_update.cu",
+            "src/repro/kernels/centroid_update.py:39"),
+    ]}
+    report["kernels"] = line["kernels"]
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, indent=1))
+    log(json.dumps(line))
+    log(nvidia_smi_line())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

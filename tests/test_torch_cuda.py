@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here is marked ``cuda`` and skips where
+``torch.cuda.is_available()`` is false. This file imports neither JAX
+nor the JAX package, so it also runs on a machine with a card and no
+JAX: ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
+tests/test_torch_cuda.py`` (``--noconftest`` because ``conftest.py``
+sets up the JAX package's tuning cache). It also holds the kernel cases
+that ``test_torch_kernels.py`` runs against the Pallas kernels on the
+CPU.
+
+Tolerances: float outputs rtol 1e-5 / atol 1e-5, sums atol 1e-3 (the
+card adds in another order than the CPU); ids, pair counts and counts
+exact; repeat and uniform-weight fits bit-identical.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine
+from repro_torch.data import make_points
+from repro_torch.kernels import centroid_update as cu
+from repro_torch.kernels import grouped_assign as ga
+
+GA_CASES = [  # the shapes of tests/test_kernels.py::test_grouped_assign_*
+    (300, 7, 17, 4, 128),         # ragged N/K, partial skip
+    (512, 16, 64, 8, 256),        # aligned
+    (1000, 12, 40, 5, 256),       # ragged tail tile
+    (130, 3, 6, 6, 64),           # tiny
+]
+CU_SHAPES = [(256, 16, 128), (1000, 48, 300), (130, 7, 17), (512, 128, 128)]
+
+
+def _members(groups, g):
+    lmax = max(int(np.bincount(groups, minlength=g).max()), 1)
+    members = np.full((g, lmax), -1, np.int32)
+    for gg in range(g):
+        ids = np.nonzero(groups == gg)[0]
+        members[gg, :len(ids)] = ids
+    return members
+
+
+def ga_inputs(n, d, k, g, tile_n, density, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    members = _members(rng.integers(0, g, size=k), g)
+    c_grouped = c[np.maximum(members, 0)]
+    mask = rng.random((-(-n // tile_n), g)) < density
+    return x, c_grouped, members, mask
+
+
+def assert_outputs(got, want):
+    for name, a, b in zip(("best", "idx", "gmin", "garg", "gmin2"),
+                          got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, name
+        if a.dtype.kind == "f":
+            finite = np.isfinite(b)
+            assert (np.isfinite(a) == finite).all(), name
+            np.testing.assert_allclose(a[finite], b[finite], rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("n,d,k,g,tile_n", GA_CASES + [
+    (4099, 128, 1024, 1, 256),    # Hamerly: one group of 1024 slots
+    (2000, 33, 300, 30, 256)])
+def test_grouped_assign_kernel_matches_plain(n, d, k, g, tile_n, density):
+    _need_card()
+    x, c_grouped, members, mask = ga_inputs(n, d, k, g, tile_n, density,
+                                             seed=n)
+    args = [torch.from_numpy(a).cuda() for a in (x, c_grouped, members,
+                                                 mask)]
+    before = ga.grouped_assign.launches
+    got = ga.grouped_assign(*args, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert ga.grouped_assign.launches == before + 1
+    want = ga.grouped_assign_plain(*args, tile_n=tile_n)
+    assert_outputs([t.cpu().numpy() for t in got],
+                    [t.cpu().numpy() for t in want])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", CU_SHAPES + [(100_003, 33, 1024)])
+def test_centroid_update_kernel_matches_plain(n, d, k):
+    _need_card()
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(-1, k, size=n).astype(np.int32))
+    w = torch.from_numpy(rng.random(n).astype(np.float32))
+    for weights in (None, w):
+        wc = None if weights is None else weights.cuda()
+        s, c = cu.centroid_update(x.cuda(), a.cuda(), k, wc)
+        s_ref, c_ref = cu.centroid_update_plain(x, a, k, weights)
+        np.testing.assert_allclose(s.cpu().numpy(), s_ref.numpy(),
+                                   rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(c.cpu().numpy(), c_ref.numpy(),
+                                   rtol=1e-5)
+    s1, c1 = cu.centroid_update(x.cuda(), a.cuda(), k,
+                                torch.ones(n, device="cuda"))
+    s0, c0 = cu.centroid_update(x.cuda(), a.cuda(), k)
+    assert torch.equal(s0, s1) and torch.equal(c0, c1)
+
+
+@pytest.mark.cuda
+def test_kernel_fit_on_card_matches_cpu_and_repeats():
+    _need_card()
+    pts, _, _ = make_points(4096, 16, 64, seed=3)
+    init = pts[:: 4096 // 64][:64].copy()
+    kw = dict(n_groups=6, tol=1e-5, backend="kernel")
+    before = (ga.grouped_assign.launches, cu.centroid_update.launches)
+    r_gpu = engine.fit(pts, init, device="cuda", **kw)
+    assert ga.grouped_assign.launches > before[0]
+    assert cu.centroid_update.launches > before[1]
+    r_cpu = engine.fit(pts, init, device="cpu", **kw)
+    np.testing.assert_array_equal(r_gpu.assignments.cpu().numpy(),
+                                  r_cpu.assignments.numpy())
+    assert r_gpu.n_iters == r_cpu.n_iters
+    np.testing.assert_allclose(float(r_gpu.inertia), float(r_cpu.inertia),
+                               rtol=1e-5)
+    again = engine.fit(pts, init, device="cuda", **kw)
+    ones = engine.fit(pts, init, device="cuda",
+                      sample_weight=np.ones(4096, np.float32), **kw)
+    for r in (again, ones):
+        assert torch.equal(r.centroids, r_gpu.centroids)
+        assert torch.equal(r.assignments, r_gpu.assignments)
+        assert float(r.inertia) == float(r_gpu.inertia)

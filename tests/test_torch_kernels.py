@@ -1,0 +1,134 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper takes its kernel's plain version, so these
+tests hold the plain versions against the Pallas kernels run with
+``interpret=True`` and against ``repro.kernels.ref``. The CUDA kernels
+themselves are held against the plain versions by the ``cuda``-marked
+tests in ``test_torch_cuda.py`` (and by ``chip_smoke.py``), which skip
+where there is no card. Inputs are made with numpy.
+
+Tolerances: float outputs rtol 1e-5 / atol 1e-5 (the sums and dot
+products run in another order than XLA's); ids and counts exact.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.kmeans import centroid_sums as jax_centroid_sums
+from repro.kernels import (build_group_block_mask as jax_block_mask,
+                           centroid_update as jax_centroid_update,
+                           grouped_assign as jax_grouped_assign)
+from repro.kernels.ref import grouped_assign_ref
+from repro_torch.kernels import _build, build_group_block_mask
+from repro_torch.kernels import centroid_update as cu
+from repro_torch.kernels import grouped_assign as ga
+from test_torch_cuda import (CU_SHAPES, GA_CASES, assert_outputs,
+                             ga_inputs)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("n,d,k,g,tile_n", GA_CASES)
+def test_grouped_assign_plain_matches_pallas(n, d, k, g, tile_n, density):
+    x, c_grouped, members, mask = ga_inputs(n, d, k, g, tile_n, density,
+                                             seed=n + k)
+    got = ga.grouped_assign(torch.from_numpy(x),
+                            torch.from_numpy(c_grouped),
+                            torch.from_numpy(members),
+                            torch.from_numpy(mask), tile_n=tile_n)
+    got = [t.numpy() for t in got]
+    jargs = (jnp.asarray(x), jnp.asarray(c_grouped), jnp.asarray(members),
+             jnp.asarray(mask))
+    assert_outputs(got, jax_grouped_assign(*jargs, tile_n=tile_n,
+                                            interpret=True))
+    assert_outputs(got, grouped_assign_ref(*jargs, tile_n))
+    assert got[1].dtype == np.int32 and got[3].dtype == np.int32
+
+
+def test_grouped_assign_cpu_takes_plain_and_counts_no_launch():
+    x, c_grouped, members, mask = ga_inputs(300, 5, 11, 3, 256, 0.7, 1)
+    args = [torch.from_numpy(a) for a in (x, c_grouped, members, mask)]
+    before = ga.grouped_assign.launches
+    got = ga.grouped_assign(*args)
+    want = ga.grouped_assign_plain(*args)
+    assert ga.grouped_assign.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_grouped_assign_ties_go_to_first_slot_and_earlier_group():
+    # centroids 0 and 2 are the same point, in groups 0 and 1: the
+    # global winner is id 0 (earlier group); inside group 1, ids 2 and 3
+    # tie and id 2 (first slot) wins
+    c = np.array([[1.0, 0.0], [5.0, 5.0], [1.0, 0.0], [1.0, 0.0]],
+                 np.float32)
+    members = np.array([[0, 1], [2, 3]], np.int32)
+    x = np.zeros((3, 2), np.float32)
+    mask = np.ones((1, 2), bool)
+    best, idx, gmin, garg, gmin2 = ga.grouped_assign(
+        torch.from_numpy(x), torch.from_numpy(c[members]),
+        torch.from_numpy(members), torch.from_numpy(mask), tile_n=256)
+    assert idx.tolist() == [0, 0, 0]
+    assert garg[:, 1].tolist() == [2, 2, 2]
+    assert gmin2[:, 1].tolist() == [1.0, 1.0, 1.0]
+
+
+@pytest.mark.parametrize("n,d,k", CU_SHAPES)
+def test_centroid_update_plain_matches_pallas(n, d, k):
+    rng = np.random.default_rng(n + d)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    a = rng.integers(-1, k, size=n).astype(np.int32)     # -1: no cluster
+    sums, counts = cu.centroid_update(torch.from_numpy(x),
+                                      torch.from_numpy(a), k)
+    s_ref, c_ref = jax_centroid_update(jnp.asarray(x), jnp.asarray(a), k=k,
+                                       interpret=True)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(s_ref), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(c_ref))
+
+
+@pytest.mark.parametrize("n,d,k", CU_SHAPES)
+def test_centroid_update_weighted_matches_segment_sum(n, d, k):
+    rng = np.random.default_rng(n * d)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    a = rng.integers(0, k, size=n).astype(np.int32)
+    w = rng.random(n).astype(np.float32)
+    sums, counts = cu.centroid_update(torch.from_numpy(x),
+                                      torch.from_numpy(a), k,
+                                      torch.from_numpy(w))
+    s_ref, c_ref = jax_centroid_sums(jnp.asarray(x), jnp.asarray(a), k,
+                                     weights=jnp.asarray(w))
+    np.testing.assert_allclose(sums.numpy(), np.asarray(s_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(counts.numpy(), np.asarray(c_ref), rtol=1e-5)
+
+
+def test_centroid_update_unit_weights_bit_identical():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((777, 9)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(-1, 13, size=777).astype(np.int32))
+    s0, c0 = cu.centroid_update(x, a, 13)
+    s1, c1 = cu.centroid_update(x, a, 13, torch.ones(777))
+    assert torch.equal(s0, s1) and torch.equal(c0, c1)
+
+
+@pytest.mark.parametrize("n,tile_n", [(600, 256), (512, 256), (130, 64)])
+def test_group_block_mask_matches_jax(n, tile_n):
+    need = np.random.default_rng(n).random((n, 5)) < 0.01
+    got = build_group_block_mask(torch.from_numpy(need), tile_n=tile_n)
+    want = jax_block_mask(jnp.asarray(need), tile_n=tile_n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_kernel_sources_export_the_wrappers_entry_points():
+    """Each wrapper binds ``<name>_launch`` and ``<name>_error_string``
+    from ``csrc/<name>.cu``; the build keys on the source's hash."""
+    assert set(_build.sources()) == {"centroid_update", "grouped_assign"}
+    for name in _build.sources():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert f"int {name}_launch(" in text
+        assert f"const char* {name}_error_string(int code)" in text
+        path = _build.library_path(name)
+        assert path.name == f"lib{name}.so" and path.parent.parent == \
+            _build.BUILD_ROOT
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
