@@ -3,25 +3,48 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Phases, each of which fails the run (non-zero exit) on any fault:
+Phases, each of which fails the run (non-zero exit) on any fault, in
+the order they run:
 
 1. build every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
    compiler process per source, all at once;
-2. each kernel against its plain version on the card at the main
-   path's shapes, uci-highk's group shape, Hamerly at D = 128, K = 1024,
-   and a ragged N at mask densities 0, 0.3 and 1; times of the kernel,
-   the plain version and the library call, beside the least time the
-   card could take;
+2. ``grouped_assign`` and ``centroid_update`` against their plain
+   versions on the card at the main path's shapes, uci-highk's group
+   shape, Hamerly at D = 128, K = 1024, and a ragged N at mask
+   densities 0, 0.3 and 1; times of the kernel, the plain version and
+   the library call, beside the least time the card could take;
+2b. ``pairwise_sq_dists`` (uci-xlarge in fp32 and bf16, a ragged
+   N = 100,003, D = 33, K = 77) and ``filtered_assign`` (uci-highk and
+   uci-xlarge, tiles 256x128, 64x16 and 64x8, mask densities 0, 0.35
+   and 1; the ragged input at tiles 16x128 and 4x8, fewer points per
+   tile than centroids per staged chunk) against their plain versions:
+   minima within rtol 1e-5 (atol 1e-5 of the norms), argmin ids equal
+   but at fp32 ties, which are counted;
 3. the main path at the paper suite's ``uci-xlarge`` problem
    (N = 2^20, D = 32, K = 256, G = 25): ``KMeans(algorithm="yinyang",
    engine="auto").fit`` and ``predict`` on the same points, with every
    kernel's launch count reset just before and read just after;
 4. the same fit with every kernel swapped for its plain PyTorch version,
-   on the card: labels and ``n_iters`` equal, centroids and inertia and
-   ``distance_evals`` within the stated tolerances;
+   on the card: in lockstep pass by pass, then as whole fits (``n_iters``
+   equal, inertia within rtol 1e-5);
+4b. ``filtered_assign`` on the block masks that fit really makes
+   (``build_block_mask`` of the pass's group filter at iteration 5, at
+   the last pass, and at iteration 5 of a Hamerly fit), at the three
+   tile pairs, against its plain version;
+4c. the block-skip entry point as a user calls it
+   (``repro_torch.kernels.pairwise_sq_dists`` and
+   ``filtered_assign_auto`` on the fitted uci-xlarge state), counts
+   reset just before and read just after, each kernel timed at those
+   inputs;
 5. determinism: two kernel fits bit-identical, and weights of 1.0
    bit-identical to no weights;
 6. a small fit on the card against the same fit on the CPU;
+8. ``engine.fit(..., backend="compact")`` at uci-xlarge, counts reset
+   and read around it: ``n_iters`` and inertia (rtol 1e-5) as the
+   kernel backend's;
+9. a converging fit, uci-wide (N = 32,768, D = 128, K = 64): the
+   ``kernel``, ``compact`` and ``oracle`` backends give the same
+   ``n_iters`` and the same labels but at fp32 ties;
 7. one kernel fit under ``torch.profiler``: device busy time by kernel
    and the device's idle share.
 
@@ -45,13 +68,17 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# uci-xlarge of the paper suite (repro/configs/kpynq.py), copied
+# uci-xlarge and uci-wide of the paper suite (repro/configs/kpynq.py),
+# copied
 XLARGE = dict(n=1 << 20, d=32, k=256, max_iters=50, tol=1e-4)
+WIDE = dict(n=32_768, d=128, k=64, max_iters=50, tol=1e-4)
 # device peaks by card name: (bytes/s, fp32 FLOP/s without tensor
-# cores), from NVIDIA's data sheets; SXM figures unless the name says
-# otherwise
-PEAKS = {"H100 PCIe": (2.0e12, 51.2e12), "H100 NVL": (3.9e12, 60.0e12),
-         "H200": (4.8e12, 67.0e12), "H100": (3.35e12, 67.0e12)}
+# cores, dense bf16 tensor-core FLOP/s), from NVIDIA's data sheets; SXM
+# figures unless the name says otherwise
+PEAKS = {"H100 PCIe": (2.0e12, 51.2e12, 756e12),
+         "H100 NVL": (3.9e12, 60.0e12, 835e12),
+         "H200": (4.8e12, 67.0e12, 989e12),
+         "H100": (3.35e12, 67.0e12, 989e12)}
 
 
 def fail(msg: str) -> None:
@@ -98,13 +125,24 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
 
+    import importlib
+
+    import repro_torch.kernels as kernels
     from repro_torch.core import engine
     from repro_torch.core.api import KMeans
     from repro_torch.core.kmeans import group_centroids
     from repro_torch.data import make_points
     from repro_torch.kernels import _build
-    from repro_torch.kernels import centroid_update as cu_mod
-    from repro_torch.kernels import grouped_assign as ga_mod
+
+    # the package exports each wrapper under its kernel's name; the
+    # modules, with the plain versions, come from importlib
+    def module(name):
+        return importlib.import_module(f"repro_torch.kernels.{name}")
+
+    cu_mod = module("centroid_update")
+    ga_mod = module("grouped_assign")
+    psd_mod = module("distance")
+    fa_mod = module("filtered_assign")
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -112,7 +150,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    bw, fp32 = peaks(name)
+    bw, fp32, bf16 = peaks(name)
     report = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     log(f"card: {smi}")
@@ -131,22 +169,29 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
-    kernels = {"grouped_assign": ga_mod.grouped_assign,
-               "centroid_update": cu_mod.centroid_update}
+    wrappers = {"grouped_assign": kernels.grouped_assign,
+                "centroid_update": kernels.centroid_update,
+                "pairwise_sq_dists": kernels.pairwise_sq_dists,
+                "filtered_assign": kernels.filtered_assign}
 
     def reset_counts():
-        for fn in kernels.values():
+        for fn in wrappers.values():
             fn.launches = 0
+
+    def read_counts():
+        return {nm: fn.launches for nm, fn in wrappers.items()}
 
     @contextlib.contextmanager
     def plain_versions():
-        saved = (ga_mod.grouped_assign, cu_mod.centroid_update)
-        ga_mod.grouped_assign = ga_mod.grouped_assign_plain
-        cu_mod.centroid_update = cu_mod.centroid_update_plain
+        # the port calls its kernels through the package, so one swap
+        # there reaches every caller
+        kernels.grouped_assign = ga_mod.grouped_assign_plain
+        kernels.centroid_update = cu_mod.centroid_update_plain
         try:
             yield
         finally:
-            ga_mod.grouped_assign, cu_mod.centroid_update = saved
+            kernels.grouped_assign = wrappers["grouped_assign"]
+            kernels.centroid_update = wrappers["centroid_update"]
 
     def sync():
         torch.cuda.synchronize()
@@ -174,8 +219,8 @@ def main() -> None:
         sync()
         return start.elapsed_time(stop) / reps
 
-    def bound(nbytes, flops):
-        t_b, t_f = nbytes / bw * 1e3, flops / fp32 * 1e3
+    def bound(nbytes, flops, peak=None):
+        t_b, t_f = nbytes / bw * 1e3, flops / (peak or fp32) * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -195,7 +240,7 @@ def main() -> None:
                 < density).contiguous()
         args = (x, c_grouped, members, mask)
         kw = dict(tile_n=tile_n, x2=x2, c2g=c2g)
-        got = ga_mod.grouped_assign(*args, **kw)
+        got = kernels.grouped_assign(*args, **kw)
         want = ga_mod.grouped_assign_plain(*args, **kw)
         sync()
         # the expanded form loses bits to cancellation against the norms
@@ -238,8 +283,8 @@ def main() -> None:
             nbytes = 4 * (n_ * d_ + n_ + g * lmax * (d_ + 2)) + gn * g \
                 + 8 * n_ + 12 * n_ * g
             bound_ms, by = bound(nbytes, 2.0 * d_ * pairs)
-            entry.update(ms=cuda_ms(lambda: ga_mod.grouped_assign(*args,
-                                                                  **kw)),
+            entry.update(ms=cuda_ms(lambda: kernels.grouped_assign(*args,
+                                                                   **kw)),
                          plain_ms=cuda_ms(
                              lambda: ga_mod.grouped_assign_plain(*args,
                                                                  **kw),
@@ -249,7 +294,7 @@ def main() -> None:
         return entry
 
     def cu_case(label, x, labels, kk, weights=None, timed=False):
-        got = cu_mod.centroid_update(x, labels, kk, weights)
+        got = kernels.centroid_update(x, labels, kk, weights)
         want = cu_mod.centroid_update_plain(x, labels, kk, weights)
         absx = cu_mod.centroid_update_plain(x.abs(), labels, kk,
                                             None if weights is None
@@ -275,8 +320,8 @@ def main() -> None:
             bound_ms, by = bound(nbytes, float(n_ * d_ + n_))
             lab64 = labels.long()
             entry.update(
-                ms=cuda_ms(lambda: cu_mod.centroid_update(x, labels, kk,
-                                                          weights)),
+                ms=cuda_ms(lambda: kernels.centroid_update(x, labels, kk,
+                                                           weights)),
                 plain_ms=cuda_ms(lambda: cu_mod.centroid_update_plain(
                     x, labels, kk, weights)),
                 bound_ms=bound_ms, bound_by=by,
@@ -324,6 +369,132 @@ def main() -> None:
     cu_case("ragged N=100003 D=33 K=77 weighted, -1 labels", rg, rg_lab, 77,
             torch.rand(100_003, generator=gen, device=dev))
 
+    # -- 2b. the block-skip entry point's kernels ------------------------
+    def norm_atol(x, c):
+        # the expanded form loses bits to cancellation against the norms
+        xf, cf = x.float(), c.float()
+        return 1e-5 * (float((xf * xf).sum(1).max())
+                       + float((cf * cf).sum(1).max()))
+
+    def tie_rows(label, x, c, ia, ib, atol):
+        """Rows whose argmin ids differ; fails unless both ids are real
+        and their exact squared distances lie within fp32 rounding of
+        each other (2 * atol). Returns the count."""
+        bad = (ia != ib).nonzero()[:, 0]
+        if len(bad) == 0:
+            return 0
+        check(bool((ia[bad] >= 0).all() and (ib[bad] >= 0).all()),
+              f"{label}: an argmin is -1 where the other found a centroid")
+        xa = x[bad].double()
+        da = ((xa - c[ia[bad].long()].double()) ** 2).sum(-1)
+        db = ((xa - c[ib[bad].long()].double()) ** 2).sum(-1)
+        check(bool(((da - db).abs() <= 2 * atol).all()),
+              f"{label}: argmin differs off a tie")
+        return len(bad)
+
+    def psd_case(label, x, c, timed=False):
+        got = kernels.pairwise_sq_dists(x, c)
+        want = psd_mod.pairwise_sq_dists_plain(x, c)
+        sync()
+        atol = norm_atol(x, c)
+        diff = (got - want).abs()
+        err = float(diff.max())
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool((got >= 0).all()), f"{label}: bad shape or sign")
+        check(bool((diff <= 1e-5 * want.abs() + atol).all()),
+              f"{label}: distances differ beyond rtol 1e-5, atol {atol:.3g}")
+        ties = tie_rows(label, x, c, got.argmin(1), want.argmin(1), atol)
+        n_, d_ = x.shape
+        k_ = c.shape[0]
+        entry = dict(case=label, n=n_, d=d_, k=k_, dtype=str(x.dtype),
+                     max_abs_err=err, atol=atol, argmin_tie_rows=ties)
+        del got, want, diff
+        if timed:
+            es = x.element_size()
+            nbytes = es * (n_ * d_ + k_ * d_) + 4 * n_ * k_
+            flops = 2.0 * n_ * k_ * d_ + 2.0 * (n_ + k_) * d_
+            peak = fp32 if x.dtype == torch.float32 else bf16
+            bound_ms, by = bound(nbytes, flops, peak)
+            entry.update(
+                ms=cuda_ms(lambda: kernels.pairwise_sq_dists(x, c)),
+                plain_ms=cuda_ms(
+                    lambda: psd_mod.pairwise_sq_dists_plain(x, c), reps=3),
+                bound_ms=bound_ms, bound_by=by,
+                # returns the square root; fp32 inputs only
+                library_ms=cuda_ms(lambda: torch.cdist(
+                    x, c, compute_mode="use_mm_for_euclid_dist"))
+                if x.dtype == torch.float32 else None)
+        log(f"pairwise_sq_dists {label}: {json.dumps(entry)}")
+        return entry
+
+    def fa_case(label, x, c, mask, tile_n, tile_k, x2=None, c2=None,
+                timed=False):
+        kw = dict(tile_n=tile_n, tile_k=tile_k, x2=x2, c2=c2)
+        got = kernels.filtered_assign(x, c, mask, **kw)
+        want = fa_mod.filtered_assign_plain(x, c, mask, **kw)
+        sync()
+        fin = torch.isfinite(want[0])
+        check(torch.equal(torch.isfinite(got[0]), fin)
+              and torch.equal(got[1] == -1, ~fin),
+              f"{label}: inf / -1 pattern differs")
+        atol = norm_atol(x, c)
+        err = 0.0
+        if bool(fin.any()):
+            diff = (got[0][fin] - want[0][fin]).abs()
+            err = float(diff.max())
+            check(bool((diff <= 1e-5 * want[0][fin].abs() + atol).all()),
+                  f"{label}: minima differ beyond rtol 1e-5, "
+                  f"atol {atol:.3g}")
+        ties = tie_rows(label, x, c, got[1], want[1], atol)
+        n_, d_ = x.shape
+        k_ = c.shape[0]
+        gn, gk = mask.shape
+        rows = torch.full((gn,), tile_n, device=dev)
+        rows[-1] = n_ - (gn - 1) * tile_n
+        cols = torch.full((gk,), tile_k, device=dev)
+        cols[-1] = k_ - (gk - 1) * tile_k
+        pairs = int((mask.long() * rows[:, None] * cols[None, :]).sum())
+        entry = dict(case=label, n=n_, d=d_, k=k_, tile_n=tile_n,
+                     tile_k=tile_k, density=float(mask.float().mean()),
+                     live_pairs=pairs, max_abs_err=err, atol=atol,
+                     argmin_tie_rows=ties)
+        if timed:
+            nbytes = 4 * (n_ * d_ + n_ + k_ * d_ + k_) + gn * gk + 8 * n_
+            bound_ms, by = bound(nbytes, 2.0 * d_ * pairs)
+            entry.update(
+                ms=cuda_ms(lambda: kernels.filtered_assign(x, c, mask, **kw)),
+                plain_ms=cuda_ms(lambda: fa_mod.filtered_assign_plain(
+                    x, c, mask, **kw), reps=3),
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
+        log(f"filtered_assign {label}: {json.dumps(entry)}")
+        return entry
+
+    def rand_mask(nn, kk, tile_n, tile_k, density):
+        return (torch.rand((-(-nn // tile_n), -(-kk // tile_k)),
+                           generator=gen, device=dev) < density)
+
+    # the tile pairs the reference's filter study sweeps
+    # (benchmarks/filter_efficiency.py)
+    tiles = ((256, 128), (64, 16), (64, 8))
+    psd_case("uci-xlarge, blob centres", points, centers, timed=True)
+    psd_case("uci-xlarge bf16", points.bfloat16(), centers.bfloat16(),
+             timed=True)
+    psd_case("ragged N=100003 D=33 K=77", rg, rg_cent)
+    for tn, tk in tiles:
+        for dens in (0.0, 0.35, 1.0):
+            # timed where the bound is set: uci-highk, every block live
+            fa_case(f"uci-highk {tn}x{tk} density {dens}", hk, hk_cent,
+                    rand_mask(262_144, 1024, tn, tk, dens), tn, tk,
+                    timed=dens == 1.0)
+            fa_case(f"uci-xlarge {tn}x{tk} density {dens}", points, centers,
+                    rand_mask(n, k, tn, tk, dens), tn, tk)
+    # tiles of fewer points than the kernel stages centroids per chunk
+    for tn, tk in ((16, 128), (4, 8)):
+        for dens in (0.35, 1.0):
+            fa_case(f"ragged {tn}x{tk} density {dens}", rg, rg_cent,
+                    rand_mask(rg.shape[0], rg_cent.shape[0], tn, tk, dens),
+                    tn, tk)
+
     # -- 3. the main path ------------------------------------------------
     km = KMeans(k, algorithm="yinyang", engine="auto",
                 max_iters=XLARGE["max_iters"], tol=XLARGE["tol"], seed=0,
@@ -338,7 +509,7 @@ def main() -> None:
     pred = km.predict(points)
     sync()
     predict_s = time.perf_counter() - t0
-    launches = {nm: fn.launches for nm, fn in kernels.items()}
+    launches = read_counts()
 
     res, stats = km.result_, km.stats_
     n_iters = int(res.n_iters)
@@ -351,9 +522,9 @@ def main() -> None:
     log(f"predict: {predict_s:.3f} s, {n / predict_s:.4g} points/s")
     log(f"launches on the main path: {launches}")
     check(stats.backend == "kernel", f"auto resolved to {stats.backend}")
-    for nm, cnt in launches.items():
-        check(cnt >= n_iters, f"{nm} launched {cnt} times on the main "
-              f"path, fewer than n_iters={n_iters}")
+    for nm in ("grouped_assign", "centroid_update"):
+        check(launches[nm] >= n_iters, f"{nm} launched {launches[nm]} "
+              f"times on the main path, fewer than n_iters={n_iters}")
     c_fit = res.centroids
     check(tuple(c_fit.shape) == (k, d) and bool(torch.isfinite(c_fit).all())
           and math.isfinite(float(res.inertia)),
@@ -442,7 +613,7 @@ def main() -> None:
     t0 = time.perf_counter()
     while cond(carry.iteration, shift):
         compare_pass(carry)
-        new_as, new_ub, new_lb, _ = core.candidate_pass(
+        new_as, new_ub, new_lb, _, _ = core.candidate_pass(
             points, carry.centroids, carry.assignments, carry.ub, carry.lb,
             carry.need, groups, members, gsize, x2=carry.x2, c2=carry.c2)
         mv = [engine.move_and_bounds(points, carry.centroids, new_as,
@@ -459,6 +630,8 @@ def main() -> None:
               f"rtol 1e-5")
         carry = body(carry)
         shift = float(carry.shift)
+        if carry.iteration == 5:
+            carry5 = carry
     compare_pass(carry)                                   # the epilogue
     lock_s = time.perf_counter() - t0
     ep_as, ep_evals, ep_inertia = engine._epilogue_pass(
@@ -476,6 +649,86 @@ def main() -> None:
         f"pair counts equal, labels equal but {lock['label_ties']} ties, "
         f"{lock['lb_flips']} lower bounds apart at self-flips, centroid "
         f"move max err {lock['centroid_err']:.3g}")
+
+    # -- 4b. filtered_assign on the masks a fit really makes -------------
+    # build_block_mask of the group_need that kernel_candidate_pass forms,
+    # at iteration 5 and for the last pending pass of the fit above, and
+    # at iteration 5 of a Hamerly (one group) kernel fit from the same
+    # start; the kernel takes the fit's cached norms as the pass does
+    def group_need(c):
+        return c.need[:, None] & (c.lb < c.ub[:, None])
+
+    groups1 = group_centroids(init, 1)
+    members1, gsize1 = engine.build_group_tables(groups1.cpu().numpy(), 1,
+                                                 dev)
+    body1 = engine._loop_body(
+        engine.PassCore(backend="kernel", k=k, n_groups=1), points, None,
+        groups1, members1, gsize1)
+    hamerly5 = engine._init_carry(points, init, groups1, n_groups=1)
+    for _ in range(5):
+        hamerly5 = body1(hamerly5)
+    real = []
+    for label, c, grp in (("yinyang iteration 5", carry5, groups),
+                          (f"yinyang last pass (iteration "
+                           f"{carry.iteration})", carry, groups),
+                          ("hamerly iteration 5", hamerly5, groups1)):
+        gneed = group_need(c)
+        for tn, tk in tiles:
+            mask = kernels.build_block_mask(gneed, grp, tile_n=tn,
+                                            tile_k=tk).contiguous()
+            real.append(fa_case(f"uci-xlarge {label}, {tn}x{tk}", points,
+                                c.centroids, mask, tn, tk, x2=c.x2,
+                                c2=c.c2))
+    del hamerly5
+
+    # -- 4c. the block-skip entry point, as a user calls it --------------
+    # repro_torch.kernels on the fitted uci-xlarge state: the dense
+    # squared distances to the fitted centroids, and one block-skip
+    # assignment of the filter decisions of the fit's last pending pass
+    # at the reference's default tiles
+    final_need = group_need(carry)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    ep_d2 = kernels.pairwise_sq_dists(points, carry.centroids)
+    ep_best, ep_idx, ep_density = kernels.filtered_assign_auto(
+        points, carry.centroids, final_need, groups)
+    sync()
+    entry_s = time.perf_counter() - t0
+    entry_launches = read_counts()
+    log(f"entry point: pairwise_sq_dists + filtered_assign_auto at "
+        f"uci-xlarge in {entry_s:.3f} s, block density "
+        f"{float(ep_density):.4f}; launches {entry_launches}")
+    for nm in ("pairwise_sq_dists", "filtered_assign"):
+        check(entry_launches[nm] >= 1, f"{nm} was not launched on the "
+              f"entry point's path")
+    check(tuple(ep_d2.shape) == (n, k) and bool(torch.isfinite(ep_d2).all())
+          and bool((ep_d2 >= 0).all()), "entry point: bad distances")
+    live_rows = ep_idx >= 0
+    check(torch.equal(live_rows, torch.isfinite(ep_best))
+          and bool((ep_idx < k).all()), "entry point: bad argmin")
+    # the block-skip min over a row's live blocks is the dense min over
+    # the same columns
+    live_cols = kernels.build_block_mask(
+        final_need, groups, tile_n=256, tile_k=128).repeat_interleave(
+        256, 0)[:n].repeat_interleave(128, 1)[:, :k]
+    dense_min = torch.where(live_cols, ep_d2, math.inf).min(1).values
+    check(torch.equal(torch.isfinite(dense_min), live_rows)
+          and bool(((ep_best - dense_min)[live_rows].abs()
+                    <= 1e-5 * dense_min[live_rows] + norm_atol(
+                        points, carry.centroids)).all()),
+          "entry point: block-skip minima disagree with the dense ones")
+    del ep_d2, live_cols, dense_min
+    psd_main = psd_case("entry point, uci-xlarge fitted centroids", points,
+                        carry.centroids, timed=True)
+    fa_main = fa_case(
+        "entry point, uci-xlarge last pass 256x128", points,
+        carry.centroids, kernels.build_block_mask(
+            final_need, groups, tile_n=256, tile_k=128).contiguous(),
+        256, 128, timed=True)
+    report["entry_point"] = dict(seconds=entry_s, launches=entry_launches,
+                                 density=float(ep_density),
+                                 real_masks=real)
 
     fit_kw = dict(max_iters=XLARGE["max_iters"], tol=XLARGE["tol"],
                   backend="auto", device=dev)
@@ -539,6 +792,81 @@ def main() -> None:
         f"n_iters={s_gpu.n_iters}; distance_evals "
         f"{int(s_gpu.distance_evals)}/{int(s_cpu.distance_evals)}")
 
+    # -- 8. the compact backend at uci-xlarge ----------------------------
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    r_c, s_c = engine.fit(points, init, max_iters=XLARGE["max_iters"],
+                          tol=XLARGE["tol"], backend="compact", device=dev,
+                          return_stats=True)
+    sync()
+    cfit_s = time.perf_counter() - t0
+    compact_launches = read_counts()
+    ev_c, in_c = int(r_c.distance_evals), float(r_c.inertia)
+    log(f"compact fit: {cfit_s:.3f} s, n_iters={r_c.n_iters}, "
+        f"distance_evals={ev_c} ({ev_c / (n * k * r_c.n_iters):.4f} of "
+        f"Lloyd's), host_syncs={s_c.host_syncs}, bucket_switches="
+        f"{s_c.bucket_switches}, caps_history={s_c.caps_history}, "
+        f"use_groups={s_c.use_groups}, inertia {in_c:.9g} (kernel "
+        f"{in_k:.9g}), {int((r_c.assignments != r_k.assignments).sum())} "
+        f"labels apart from the kernel fit; launches {compact_launches}")
+    check(s_c.backend == "compact", "compact fit ran another backend")
+    check(compact_launches["centroid_update"] >= r_c.n_iters,
+          "the compact fit did not run the centroid_update kernel")
+    check(r_c.n_iters == r_k.n_iters, "compact and kernel n_iters differ")
+    check(abs(in_c - in_k) <= 1e-5 * abs(in_k),
+          "compact and kernel inertia differ beyond rtol 1e-5")
+    check(tuple(r_c.centroids.shape) == (k, d)
+          and bool(torch.isfinite(r_c.centroids).all()),
+          "compact fit: non-finite centroids")
+    report["compact"] = dict(fit_s=cfit_s, n_iters=r_c.n_iters,
+                             distance_evals=ev_c, inertia=in_c,
+                             host_syncs=s_c.host_syncs,
+                             bucket_switches=s_c.bucket_switches,
+                             caps_history=s_c.caps_history,
+                             use_groups=s_c.use_groups,
+                             launches=compact_launches)
+
+    # -- 9. a converging fit: kernel, compact and oracle agree -----------
+    # uci-wide of the paper suite (N = 32,768, D = 128, K = 64) converges
+    # well before max_iters, so its labels do not hang on the summation
+    # order of an unfinished trajectory
+    wn, wd, wk = WIDE["n"], WIDE["d"], WIDE["k"]
+    w_np, _, _ = make_points(wn, wd, wk, seed=0)
+    wpts = torch.from_numpy(w_np).to(dev)
+    winit = KMeans(wk, seed=0, device=dev)._init_centroids(wpts)
+    wfits = {}
+    for b in ("kernel", "compact", "oracle"):
+        t0 = time.perf_counter()
+        wfits[b] = engine.fit(wpts, winit, max_iters=WIDE["max_iters"],
+                              tol=WIDE["tol"], backend=b, device=dev)
+        sync()
+        log(f"uci-wide {b}: {time.perf_counter() - t0:.3f} s, n_iters="
+            f"{wfits[b].n_iters}, distance_evals "
+            f"{int(wfits[b].distance_evals)}, inertia "
+            f"{float(wfits[b].inertia):.9g}")
+    wk_fit = wfits["kernel"]
+    check(wk_fit.n_iters < WIDE["max_iters"], "uci-wide did not converge")
+    w_atol = norm_atol(wpts, wk_fit.centroids)
+    conv = {}
+    for b in ("compact", "oracle"):
+        other = wfits[b]
+        check(other.n_iters == wk_fit.n_iters,
+              f"uci-wide: {b} n_iters {other.n_iters} != kernel "
+              f"{wk_fit.n_iters}")
+        check(abs(float(other.inertia) - float(wk_fit.inertia))
+              <= 1e-5 * float(wk_fit.inertia),
+              f"uci-wide: {b} inertia differs beyond rtol 1e-5")
+        conv[b] = tie_rows(f"uci-wide {b}", wpts, wk_fit.centroids,
+                           other.assignments, wk_fit.assignments, w_atol)
+    log(f"uci-wide: kernel, compact and oracle converge in "
+        f"{wk_fit.n_iters} iterations to the same labels, but "
+        f"{conv} fp32 ties")
+    report["converging"] = dict(
+        config="uci-wide", n_iters=wk_fit.n_iters, tie_rows=conv,
+        evals={b: int(r.distance_evals) for b, r in wfits.items()})
+    del wpts, wfits
+
     # -- 7. where a fit's time goes: one traced kernel fit ----------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -570,9 +898,9 @@ def main() -> None:
     report["trace"] = dict(wall_ms=traced_s * 1e3, busy_ms=busy_ms,
                            top=[[k_, v_] for k_, v_ in top])
 
-    def row(nm, entry, source, replaces):
+    def row(nm, entry, source, replaces, path_launches):
         return {"name": nm, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[nm],
+                "replaces": replaces, "launches": path_launches[nm],
                 "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
                 "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
                 "bound_by": entry["bound_by"],
@@ -581,10 +909,17 @@ def main() -> None:
     line = {"kernels": [
         row("grouped_assign", ga_main,
             "src/repro_torch/kernels/csrc/grouped_assign.cu",
-            "src/repro/kernels/grouped_assign.py:83"),
+            "src/repro/kernels/grouped_assign.py:83", launches),
         row("centroid_update", cu_main,
             "src/repro_torch/kernels/csrc/centroid_update.cu",
-            "src/repro/kernels/centroid_update.py:39"),
+            "src/repro/kernels/centroid_update.py:39", launches),
+        # launched by the block-skip entry point's path (phase 4c)
+        row("pairwise_sq_dists", psd_main,
+            "src/repro_torch/kernels/csrc/pairwise_sq_dists.cu",
+            "src/repro/kernels/distance.py:35", entry_launches),
+        row("filtered_assign", fa_main,
+            "src/repro_torch/kernels/csrc/filtered_assign.cu",
+            "src/repro/kernels/filtered_assign.py:61", entry_launches),
     ]}
     report["kernels"] = line["kernels"]
     if args.out:

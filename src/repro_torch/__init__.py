@@ -3,15 +3,19 @@
 The counterpart of the JAX package ``repro``: the same filtered Yinyang
 fit and predict, with the candidate pass (``kernels.grouped_assign``)
 and the centroid sums (``kernels.centroid_update``) as CUDA kernels
-written for ``sm_90a``. Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``; the kernels are built with ``nvcc`` at first
-use, so importing this package needs neither a card nor a compiler.
+written for ``sm_90a``, the engine's compact backend, and the
+``repro.kernels`` entry point (``kernels.pairwise_sq_dists``,
+``kernels.filtered_assign`` and their glue). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; the kernels are
+built with ``nvcc`` at first use, so importing this package needs
+neither a card nor a compiler.
 """
 from .core.api import KMeans, NotFittedError
 from .core.engine import EngineConfig, EngineStats, fit as engine_fit
+from .core.compact import yinyang_compact
 from .core.kmeans import KMeansResult, lloyd, yinyang
 from .device import resolve_device
 
 __all__ = ["KMeans", "NotFittedError", "EngineConfig", "EngineStats",
            "engine_fit", "KMeansResult", "lloyd", "yinyang",
-           "resolve_device"]
+           "yinyang_compact", "resolve_device"]

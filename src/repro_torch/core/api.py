@@ -27,7 +27,8 @@ class KMeans:
     n_groups : group count for 'yinyang' (default K//10).
     init : 'k-means++' | 'random' (drawn from a ``torch.Generator``
         seeded with ``seed`` on ``device``).
-    engine : None | 'auto' | 'oracle' | 'kernel' | 'pallas' | 'lloyd'
+    engine : None | 'auto' | 'oracle' | 'compact' | 'kernel' | 'pallas'
+        | 'lloyd'
         None runs the reference loop (:mod:`repro_torch.core.kmeans`);
         any other value routes the filtered algorithms through
         :mod:`repro_torch.core.engine`. 'pallas' is an alias of

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels import centroid_update as _cu
+from .. import kernels as _kernels
 from .distances import (pairwise_dists, pairwise_sq_dists, row_norms_sq,
                         rowwise_dists)
 
@@ -34,8 +34,8 @@ def centroid_sums(points, assignments, k: int, weights=None):
     labels = assignments if assignments.dtype == torch.int32 \
         else assignments.int()
     w = None if weights is None else weights.float().contiguous()
-    return _cu.centroid_update(points.float().contiguous(),
-                               labels.contiguous(), k, w)
+    return _kernels.centroid_update(points.float().contiguous(),
+                                    labels.contiguous(), k, w)
 
 
 def centroids_from_sums(sums, counts, prev_centroids):

@@ -1,7 +1,23 @@
-"""Hand-written CUDA kernels of the port, each module with its kernel's
-wrapper, its plain PyTorch version and a launch counter
-(``grouped_assign.grouped_assign.launches``). Built at first use
-(``_build``); callers look the wrappers up on their modules."""
-from .ops import build_group_block_mask
+"""Hand-written CUDA kernels of the port and their glue (the
+counterpart of ``repro.kernels``, without its LM kernels).
 
-__all__ = ["build_group_block_mask"]
+Each kernel module holds its kernel's wrapper, its plain PyTorch
+version and a launch counter on the wrapper
+(``repro_torch.kernels.grouped_assign.launches``). The package exports
+the wrappers under the names ``repro.kernels`` uses, so the package
+attribute ``grouped_assign`` is the function; reach a module itself
+with ``importlib.import_module("repro_torch.kernels.grouped_assign")``.
+Kernels are built at first use (``_build``). Callers in the port call
+them through this package (``kernels.grouped_assign(...)``), so that a
+check can swap a wrapper for its plain version in one place.
+"""
+from .centroid_update import centroid_update
+from .distance import pairwise_sq_dists
+from .filtered_assign import filtered_assign
+from .grouped_assign import grouped_assign
+from .ops import (build_block_mask, build_group_block_mask, compact_indices,
+                  filtered_assign_auto)
+
+__all__ = ["pairwise_sq_dists", "filtered_assign", "centroid_update",
+           "build_block_mask", "build_group_block_mask", "compact_indices",
+           "filtered_assign_auto", "grouped_assign"]

@@ -119,7 +119,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         KMeans(n_clusters=2, device="cuda")
 
 
-@pytest.mark.parametrize("backend", ["kernel", "oracle", "lloyd"])
+@pytest.mark.parametrize("backend", ["kernel", "oracle", "compact",
+                                     "lloyd"])
 def test_uniform_weights_bit_identical(backend):
     pts, _ = _blobs(1000, 8, 12)
     init = pts[:: 1000 // 12][:12].copy()
@@ -141,4 +142,4 @@ def test_later_slices_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KMeans(n_clusters=2, obs=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KMeans(n_clusters=2, engine="compact", device="cpu")
+        KMeans(n_clusters=2, engine="ladder", device="cpu")

@@ -10,17 +10,29 @@ that ``test_torch_kernels.py`` runs against the Pallas kernels on the
 CPU.
 
 Tolerances: float outputs rtol 1e-5 / atol 1e-5, sums atol 1e-3 (the
-card adds in another order than the CPU); ids, pair counts and counts
-exact; repeat and uniform-weight fits bit-identical.
+card adds in another order than the CPU); squared distances of the
+expanded form within 1e-5 of the norms they come from, bf16 inputs as
+fp32 (both sides widen the same bf16 values); ids, pair counts and
+counts exact; repeat and uniform-weight fits bit-identical. An argmin
+id may differ from the plain version's only at a tie: both ids'
+distances within the distance tolerance of each other.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.kernels as kernels
 from repro_torch.core import engine
 from repro_torch.data import make_points
-from repro_torch.kernels import centroid_update as cu
-from repro_torch.kernels import grouped_assign as ga
+
+# the package exports the wrappers under the kernels' names: the
+# modules themselves, with the plain versions, come from importlib
+cu = importlib.import_module("repro_torch.kernels.centroid_update")
+fa = importlib.import_module("repro_torch.kernels.filtered_assign")
+ga = importlib.import_module("repro_torch.kernels.grouped_assign")
+psd = importlib.import_module("repro_torch.kernels.distance")
 
 GA_CASES = [  # the shapes of tests/test_kernels.py::test_grouped_assign_*
     (300, 7, 17, 4, 128),         # ragged N/K, partial skip
@@ -29,6 +41,12 @@ GA_CASES = [  # the shapes of tests/test_kernels.py::test_grouped_assign_*
     (130, 3, 6, 6, 64),           # tiny
 ]
 CU_SHAPES = [(256, 16, 128), (1000, 48, 300), (130, 7, 17), (512, 128, 128)]
+# tile pairs of benchmarks/filter_efficiency.py for the block-skip
+# kernels, which take the shapes of CU_SHAPES (tests/test_kernels.py's)
+BS_TILES = [(256, 128), (64, 16)]
+# tiles of fewer points than centroid slots per staged chunk: the
+# kernel's CTA has fewer threads than the chunk it stages
+SMALL_TILES = [(16, 128), (4, 8)]
 
 
 def _members(groups, g):
@@ -48,6 +66,14 @@ def ga_inputs(n, d, k, g, tile_n, density, seed):
     c_grouped = c[np.maximum(members, 0)]
     mask = rng.random((-(-n // tile_n), g)) < density
     return x, c_grouped, members, mask
+
+
+def fa_inputs(n, d, k, tile_n, tile_k, density, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    mask = rng.random((-(-n // tile_n), -(-k // tile_k))) < density
+    return x, c, mask
 
 
 def assert_outputs(got, want):
@@ -135,3 +161,105 @@ def test_kernel_fit_on_card_matches_cpu_and_repeats():
         assert torch.equal(r.centroids, r_gpu.centroids)
         assert torch.equal(r.assignments, r_gpu.assignments)
         assert float(r.inertia) == float(r_gpu.inertia)
+
+
+def _norm_atol(x, c):
+    x, c = x.float(), c.float()
+    return 1e-5 * float((x * x).sum(1).max() + (c * c).sum(1).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k", CU_SHAPES + [(100_003, 33, 77)])
+def test_pairwise_sq_dists_kernel_matches_plain(n, d, k, dtype):
+    _need_card()
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    x, c = x.to("cuda", dtype), c.to("cuda", dtype)
+    before = kernels.pairwise_sq_dists.launches
+    got = kernels.pairwise_sq_dists(x, c)
+    torch.cuda.synchronize()
+    assert kernels.pairwise_sq_dists.launches == before + 1
+    want = psd.pairwise_sq_dists_plain(x, c)
+    assert got.shape == (n, k) and got.dtype == torch.float32
+    assert bool((got >= 0).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=_norm_atol(x, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_n,tile_k",
+                         BS_TILES + [(64, 8)] + SMALL_TILES)
+@pytest.mark.parametrize("density", [0.0, 0.35, 1.0])
+@pytest.mark.parametrize("n,d,k", CU_SHAPES)
+def test_filtered_assign_kernel_matches_plain(n, d, k, density, tile_n,
+                                              tile_k):
+    _need_card()
+    x, c, mask = (torch.from_numpy(a).cuda() for a in
+                  fa_inputs(n, d, k, tile_n, tile_k, density, seed=n * k))
+    before = kernels.filtered_assign.launches
+    best, idx = kernels.filtered_assign(x, c, mask, tile_n=tile_n,
+                                        tile_k=tile_k)
+    torch.cuda.synchronize()
+    assert kernels.filtered_assign.launches == before + 1
+    wbest, widx = fa.filtered_assign_plain(x, c, mask, tile_n=tile_n,
+                                           tile_k=tile_k)
+    fin = torch.isfinite(wbest)
+    assert torch.equal(torch.isfinite(best), fin)
+    assert torch.equal(idx == -1, ~fin)
+    atol = _norm_atol(x, c)
+    np.testing.assert_allclose(best[fin].cpu().numpy(),
+                               wbest[fin].cpu().numpy(), rtol=1e-5,
+                               atol=atol)
+    bad = (idx != widx).nonzero()[:, 0]
+    if len(bad):                  # only at ties of the two ids
+        dd = ((x[bad, None, :].double() - c[torch.stack(
+            [idx[bad], widx[bad]], 1).long()].double()) ** 2).sum(-1)
+        assert bool(((dd[:, 0] - dd[:, 1]).abs() <= 2 * atol).all())
+
+
+@pytest.mark.cuda
+def test_block_skip_entry_point_on_card_matches_cpu():
+    _need_card()
+    rng = np.random.default_rng(4)
+    n, d, k, g = 4099, 16, 96, 6
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    groups = (np.arange(k) % g).astype(np.int32)
+    need = rng.random((n, g)) < 0.1
+    args = [torch.from_numpy(a) for a in (x, c, need, groups)]
+    before = kernels.filtered_assign.launches
+    got = kernels.filtered_assign_auto(*[a.cuda() for a in args],
+                                       tile_n=64, tile_k=16)
+    assert kernels.filtered_assign.launches == before + 1
+    want = kernels.filtered_assign_auto(*args, tile_n=64, tile_k=16)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    # the density is a mean of the same mask, summed in another order
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-6)
+    idx, valid, count = kernels.compact_indices(args[2][:, 0].cuda(),
+                                                capacity=512)
+    w_idx, w_valid, w_count = kernels.compact_indices(args[2][:, 0],
+                                                      capacity=512)
+    assert torch.equal(idx.cpu(), w_idx) and torch.equal(valid.cpu(),
+                                                         w_valid)
+    assert int(count) == int(w_count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refresh_in_pass", [False, True])
+def test_compact_fit_on_card_matches_cpu(refresh_in_pass):
+    _need_card()
+    pts, _, _ = make_points(6000, 8, 24, seed=3)
+    init = pts[:: 6000 // 24][:24].copy()
+    kw = dict(n_groups=8, tol=1e-5, backend="compact",
+              config=engine.EngineConfig(refresh_in_pass=refresh_in_pass),
+              return_stats=True)
+    r_gpu, s_gpu = engine.fit(pts, init, device="cuda", **kw)
+    r_cpu, s_cpu = engine.fit(pts, init, device="cpu", **kw)
+    np.testing.assert_array_equal(r_gpu.assignments.cpu().numpy(),
+                                  r_cpu.assignments.numpy())
+    assert r_gpu.n_iters == r_cpu.n_iters
+    np.testing.assert_allclose(float(r_gpu.inertia), float(r_cpu.inertia),
+                               rtol=1e-5)
+    assert len(s_gpu.caps_history) >= 2

@@ -163,18 +163,25 @@ def test_one_candidate_pass_counts_exactly():
         t["lb"], tg, t_members, t_gsize, t["need"], x2=t["x2"], c2=t["c2"])
     assert int(pairs_t) == int(float(pairs_j)) > 0
     np.testing.assert_array_equal(a_t.numpy(), np.asarray(a_j))
-    # bounds are square roots of the expanded form, whose error is
-    # relative to the norms: compare squares, atol 1e-5 of the norms
-    atol = 1e-5 * float(t["x2"].max() + t["c2"].max())
+    assert_pass_bounds(ub_t, lb_t, ub_j, lb_j, a_t, carry.assignments,
+                       groups, atol=1e-5 * float(t["x2"].max()
+                                                 + t["c2"].max()))
+
+
+def assert_pass_bounds(ub_t, lb_t, ub_j, lb_j, a_new, a_old, groups, *,
+                       atol):
+    """The bounds one candidate pass leaves, port against JAX. They are
+    square roots of the expanded form, whose error is relative to the
+    norms: squares are compared, ``atol`` 1e-5 of the norms. Lower
+    bounds may also differ where the two sides' ``changed`` flag differs
+    for a point whose best candidate is its own centroid: there one
+    side caps the old group's bound at ub_t (ROADMAP, Queue 3)."""
     np.testing.assert_allclose(ub_t.numpy() ** 2, np.asarray(ub_j) ** 2,
                                rtol=0, atol=atol)
-    # lower bounds agree except where the two sides' ``changed`` flag
-    # differs for a point whose best candidate is its own centroid: there
-    # one side caps the old group's bound at ub_t (ROADMAP, Queue 3)
     lb_j, lb_t = np.asarray(lb_j), lb_t.numpy()
-    a_old = np.asarray(carry.assignments)
+    a_old = np.asarray(a_old)
     flip = np.zeros(lb_j.shape, bool)
-    rows = np.nonzero(a_t.numpy() == a_old)[0]
+    rows = np.nonzero(a_new.numpy() == a_old)[0]
     flip[rows, np.asarray(groups)[a_old[rows]]] = True
     both = np.isfinite(lb_j) & np.isfinite(lb_t)
     close = np.zeros(lb_j.shape, bool)
@@ -196,9 +203,11 @@ def test_backend_resolution():
     _, st = engine.fit(pts, init, backend="pallas", max_iters=3,
                        device="cpu", return_stats=True)
     assert st.backend == "kernel"
-    for name in ("compact", "ladder"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.fit(pts, init, backend=name, device="cpu")
+    _, st = engine.fit(pts, init, backend="compact", max_iters=3,
+                       device="cpu", return_stats=True)
+    assert st.backend == "compact"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.fit(pts, init, backend="ladder", device="cpu")
     with pytest.raises(ValueError):
         engine.fit(pts, init, backend="nope", device="cpu")
     with pytest.raises(NotImplementedError):

@@ -10,6 +10,8 @@ where there is no card. Inputs are made with numpy.
 Tolerances: float outputs rtol 1e-5 / atol 1e-5 (the sums and dot
 products run in another order than XLA's); ids and counts exact.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,10 +23,13 @@ from repro.kernels import (build_group_block_mask as jax_block_mask,
                            grouped_assign as jax_grouped_assign)
 from repro.kernels.ref import grouped_assign_ref
 from repro_torch.kernels import _build, build_group_block_mask
-from repro_torch.kernels import centroid_update as cu
-from repro_torch.kernels import grouped_assign as ga
 from test_torch_cuda import (CU_SHAPES, GA_CASES, assert_outputs,
                              ga_inputs)
+
+# the package exports the wrappers under the kernels' names: the
+# modules themselves, with the plain versions, come from importlib
+cu = importlib.import_module("repro_torch.kernels.centroid_update")
+ga = importlib.import_module("repro_torch.kernels.grouped_assign")
 
 
 @pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
@@ -123,7 +128,8 @@ def test_group_block_mask_matches_jax(n, tile_n):
 def test_kernel_sources_export_the_wrappers_entry_points():
     """Each wrapper binds ``<name>_launch`` and ``<name>_error_string``
     from ``csrc/<name>.cu``; the build keys on the source's hash."""
-    assert set(_build.sources()) == {"centroid_update", "grouped_assign"}
+    assert set(_build.sources()) == {"centroid_update", "filtered_assign",
+                                     "grouped_assign", "pairwise_sq_dists"}
     for name in _build.sources():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert f"int {name}_launch(" in text
