@@ -46,7 +46,30 @@ the order they run:
    ``kernel``, ``compact`` and ``oracle`` backends give the same
    ``n_iters`` and the same labels but at fp32 ties;
 7. one kernel fit under ``torch.profiler``: device busy time by kernel
-   and the device's idle share.
+   and the device's idle share;
+2c. ``flash_attention`` and ``ssd_intra`` against their plain versions
+   (after phase 7, so the LM's allocations follow the k-means ones): the
+   entry points at the reference's contract and at hymba-1.5b's heads,
+   the model's attention launch at hymba-1.5b's prefill (B = 2,
+   S = 2048, 25/5 heads of 64, bf16), at a ragged S and in fp32, the
+   model's SSD launch at hymba-1.5b's prefill and mamba2-780m's cell
+   (Q = 128, N = 128, P = 64), also with decays that overflow above the
+   diagonal; the path's shapes timed beside the bound and, for
+   attention, ``scaled_dot_product_attention``;
+10. hymba-1.5b serving at full width and depth (32 layers, d_model
+   1600, bf16 weights from a seeded generator on the card): 2 prompts
+   of 2048 tokens through ``make_prefill_step``, then 32 greedy decode
+   steps through ``make_serve_step``, counts reset just before and read
+   just after (32 launches of each LM kernel); the same prefill with
+   both LM kernels swapped for their plain versions, and the first
+   decode step against a prefill of one more token: in bf16 each within
+   3e-2 of the logits' max abs, or within 1.5 times the farthest that
+   two other correct attentions (PyTorch's SDPA, and one in float64)
+   land from the plain route, whichever is larger (over 32 random bf16
+   layers any two correct attentions part by about 3e-2); with the
+   same weights in fp32 each within 1e-4; prefill and decode times,
+   tokens/s, peak memory, one traced prefill and one traced decode
+   step.
 
 The last lines are a ``kernels`` JSON line, the card's name and power
 limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``. The
@@ -57,8 +80,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import importlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -72,6 +98,8 @@ ROOT = Path(__file__).resolve().parent
 # copied
 XLARGE = dict(n=1 << 20, d=32, k=256, max_iters=50, tol=1e-4)
 WIDE = dict(n=32_768, d=128, k=64, max_iters=50, tol=1e-4)
+# the LM serving path: hymba-1.5b at full width and depth, 2 prompts
+SERVE = dict(arch="hymba-1.5b", batch=2, prompt=2048, steps=32)
 # device peaks by card name: (bytes/s, fp32 FLOP/s without tensor
 # cores, dense bf16 tensor-core FLOP/s), from NVIDIA's data sheets; SXM
 # figures unless the name says otherwise
@@ -112,6 +140,445 @@ def peaks(name: str):
     fail(f"no peak figures for card {name!r}")
 
 
+def sync() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
+def median_ms(fn, reps: int = 7, inner: int = 5) -> float:
+    """Median over ``reps`` CUDA-event timings, after a warm-up call, of
+    ``inner`` back-to-back calls each (per call): back to back, the
+    host's launch work overlaps the previous call's device time."""
+    import torch
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / inner)
+    return statistics.median(times)
+
+
+def roof(nbytes: float, flops: float, bw: float, peak: float):
+    """(least ms, "bytes" or "operations"): the larger of the two."""
+    t_b, t_f = nbytes / bw * 1e3, flops / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def kernel_module(name: str):
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+@contextlib.contextmanager
+def lm_route(attention, ssd_chunks):
+    """Swap the model's two LM kernel launches (attention, SSD) in the
+    package, where the model looks them up."""
+    import repro_torch.kernels as kernels
+    saved = kernels.flash_attention_gqa, kernels.ssd_intra_chunks
+    kernels.flash_attention_gqa, kernels.ssd_intra_chunks = attention, \
+        ssd_chunks
+    try:
+        yield
+    finally:
+        kernels.flash_attention_gqa, kernels.ssd_intra_chunks = saved
+
+
+def plain_route():
+    fla, ssd = kernel_module("flash_attention"), kernel_module("ssd_intra")
+    return lm_route(fla.flash_attention_gqa_plain, ssd.ssd_intra_chunks_plain)
+
+
+def sdpa_gqa(q, k, v):
+    """PyTorch's causal attention in the model's (B, S, H, D) layout: a
+    yardstick of what another correct attention gives, never the
+    port's."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def exact_gqa(q, k, v):
+    """Causal attention in float64, rounded once to q's dtype: the most
+    exact correct attention, a yardstick like :func:`sdpa_gqa`."""
+    import torch
+    rep = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).double()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(rep, 1).double()
+              for t in (k, v))
+    s = q.shape[1]
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    sc = (qh @ kh.transpose(-1, -2) / math.sqrt(q.shape[-1])).masked_fill(
+        ~causal, -math.inf)
+    return (torch.softmax(sc, -1) @ vh).transpose(1, 2).to(q.dtype)
+
+
+def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
+    """Phase 2c: the LM kernels against their plain versions, at the
+    shapes ``cfg`` gives them for ``batch`` prompts of ``prompt``
+    tokens. Returns the timed entries of the serving path's shapes
+    (attention, SSD)."""
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    fla, ssd = kernel_module("flash_attention"), kernel_module("ssd_intra")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def attn_case(label, q, k, v, entry_point=False, timed=False):
+        if entry_point:
+            got = kernels.flash_attention(q, k, v)
+            want = fla.flash_attention_plain(q, k, v)
+        else:
+            got = kernels.flash_attention_gqa(q, k, v)
+            want = fla.flash_attention_gqa_plain(q, k, v)
+        sync()
+        # fp32: summation order; bf16: one rounding of the same result
+        tol = 1e-5 if q.dtype == torch.float32 else 3e-2
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+              and bool((diff <= tol + tol * want.float().abs()).all()),
+              f"flash_attention {label}: differs from the plain version "
+              f"by {err:.3g} (rtol = atol = {tol})")
+        entry = dict(case=label, q=list(q.shape), kv=list(k.shape),
+                     dtype=str(q.dtype), max_abs_err=err, tol=tol)
+        del got, want, diff
+        if timed:
+            b, s, h, d = q.shape
+            kvh = k.shape[2]
+            nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d)
+            # QK^T and P.V over the causal half: s(s+1)/2 pairs a head
+            flops = 4.0 * d * b * h * s * (s + 1) / 2
+            peak = fp32 if q.dtype == torch.float32 else bf16
+            bound_ms, by = roof(nbytes, flops, bw, peak)
+            lib = sdpa_gqa(q, k, v)
+            ref = fla.flash_attention_gqa_plain(q, k, v)
+            entry.update(
+                ms=median_ms(lambda: kernels.flash_attention_gqa(q, k, v)),
+                plain_ms=median_ms(
+                    lambda: fla.flash_attention_gqa_plain(q, k, v), reps=3,
+                    inner=1),
+                bound_ms=bound_ms, bound_by=by,
+                library_ms=median_ms(lambda: sdpa_gqa(q, k, v)),
+                library_vs_plain_max_abs=float(
+                    (lib.float() - ref.float()).abs().max()))
+            del lib, ref
+        log(f"flash_attention {label}: {json.dumps(entry)}")
+        return entry
+
+    def ssd_case(label, args, chunks=False, timed=False):
+        fn = kernels.ssd_intra_chunks if chunks else kernels.ssd_intra
+        plain = ssd.ssd_intra_chunks_plain if chunks else ssd.ssd_intra_plain
+        got, want = fn(*args), plain(*args)
+        # the sum of |terms| bounds what fp32 rounding can move
+        abs_sum = plain(*(a.abs() if i < 3 else a for i, a in
+                          enumerate(args)))
+        sync()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+              and bool((diff <= 1e-5 * (1.0 + abs_sum)).all()),
+              f"ssd_intra {label}: differs from the plain version by "
+              f"{err:.3g} (1e-5 of the sum of |terms|)")
+        entry = dict(case=label, shapes=[list(a.shape) for a in args],
+                     max_abs_err=err)
+        del got, want, diff, abs_sum
+        if timed:
+            x = args[2]         # (G, Q, P), or (b, nc, Q, H, P)
+            q, p = x.shape[2 if chunks else 1], x.shape[-1]
+            n = args[0].shape[-1]
+            cells = x.numel() // (q * p)
+            nbytes = 4 * sum(a.numel() for a in args) + 4 * x.numel()
+            flops = cells * q * (q + 1) / 2 * 2.0 * (n + p)
+            bound_ms, by = roof(nbytes, flops, bw, fp32)
+            entry.update(ms=median_ms(lambda: fn(*args)),
+                         plain_ms=median_ms(lambda: plain(*args), reps=3,
+                                            inner=1),
+                         bound_ms=bound_ms, bound_by=by, library_ms=None)
+        log(f"ssd_intra {label}: {json.dumps(entry)}")
+        return entry
+
+    def cum_of(shape, axis, steep=False):
+        step = F.softplus(randn(*shape))
+        if steep:       # exp(cum_i - cum_j) above the diagonal overflows
+            step = step * 40 + 5
+        return torch.cumsum(-step, dim=axis)
+
+    b, s = batch, prompt
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+    # the entry point, (B, H, S, D) at the reference's contract
+    attn_case(f"entry point ({b}, {h}, {s}, {d}) bf16",
+              *(randn(b, h, s, d, dtype=bf) for _ in range(3)),
+              entry_point=True)
+    attn_case("entry point (2, 3, 128, 32) fp32",
+              *(randn(2, 3, 128, 32) for _ in range(3)), entry_point=True)
+    # the model's launch: the prefill's shape (timed), ragged S, fp32
+    q = randn(b, s, h, d, dtype=bf)
+    kv = [randn(b, s, kvh, d, dtype=bf) for _ in range(2)]
+    attn_main = attn_case(f"{cfg.name} prefill B={b} S={s}", q, *kv,
+                          timed=True)
+    del q, kv
+    attn_case(f"ragged S={s + 1} bf16",
+              randn(b, s + 1, h, d, dtype=bf),
+              *(randn(b, s + 1, kvh, d, dtype=bf) for _ in range(2)))
+    attn_case("ragged S=1000 fp32, 28/4 heads of 128",
+              randn(1, 1000, 28, 128), randn(1, 1000, 4, 128),
+              randn(1, 1000, 4, 128))
+
+    m = cfg.ssm
+    nc = s // m.chunk
+    ssd_main = ssd_case(
+        f"{cfg.name} prefill B={b} S={s} (chunk launch)",
+        [randn(b, nc, m.chunk, m.n_groups, m.d_state) for _ in range(2)]
+        + [randn(b, nc, m.chunk, m.n_heads, m.head_dim),
+           cum_of((b, nc, m.chunk, m.n_heads), 2)], chunks=True, timed=True)
+    m2 = get_config("mamba2-780m").ssm
+    cells = b * nc * m2.n_heads
+    ssd_case("mamba2-780m cells (entry point, timed)",
+             [randn(cells, m2.chunk, m2.d_state) for _ in range(2)]
+             + [randn(cells, m2.chunk, m2.head_dim),
+                cum_of((cells, m2.chunk), 1)], timed=True)
+    ssd_case("steep decays, Q=256 N=33 P=100",
+             [randn(64, 256, 33) for _ in range(2)]
+             + [randn(64, 256, 100), cum_of((64, 256), 1, steep=True)])
+    return attn_main, ssd_main
+
+
+def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
+    """Phase 10: the LM serving path of ``cfg``: ``batch`` prompts of
+    ``prompt`` tokens, then ``steps`` greedy decode steps. Returns the
+    report, with the launches of the main path (prefill + decode)."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    b, s = batch, prompt
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device=dev)
+    sync()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, ssm d_inner "
+        f"{cfg.ssm.d_inner}), {n_params} params, {n_bytes / 2**30:.3f} GiB "
+        f"in {cfg.dtype}, made in {time.perf_counter() - t0:.2f} s")
+    prefill = make_prefill_step(cfg)
+    serve_step = make_serve_step(cfg)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+
+    def greedy(logits):
+        return logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+
+    # the main path: one prefill, then greedy decode steps
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync()
+    t0 = time.perf_counter()
+    logits, pcache = prefill(params, {"tokens": tokens})
+    # one position more than the path uses, for the traced step below
+    cache = decode_cache(cfg, pcache, s + steps + 1, dev)
+    del pcache
+    tok = greedy(logits)
+    first_tok = tok
+    step_ms = []
+    for t in range(steps):
+        sync()
+        t1 = time.perf_counter()
+        dlogits, cache = serve_step(params, cache, tok, s + t)
+        tok = greedy(dlogits)
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if t == 0:
+            first_dec = dlogits
+    path_s = time.perf_counter() - t0
+    launches = {nm: fn.launches for nm, fn in wrappers.items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"serve: main path (prefill + {steps} decode steps) "
+        f"{path_s:.3f} s; launches {launches}; peak memory "
+        f"{peak_gib:.3f} GiB")
+    check(tuple(logits.shape) == (b, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(dlogits).all()),
+          "serve: non-finite or misshapen logits")
+    for nm in ("flash_attention", "ssd_intra"):
+        check(launches[nm] == cfg.n_layers,
+              f"serve: {nm} launched {launches[nm]} times on the main path, "
+              f"not once per layer ({cfg.n_layers})")
+    for nm, cnt in launches.items():
+        if nm not in ("flash_attention", "ssd_intra"):
+            check(cnt == 0, f"serve: {nm} launched on the LM path")
+
+    # prefill time: median of 3 after the main path's warm-up call
+    pre_ms = []
+    for _ in range(3):
+        sync()
+        t1 = time.perf_counter()
+        again, _c = prefill(params, {"tokens": tokens})
+        sync()
+        pre_ms.append((time.perf_counter() - t1) * 1e3)
+        del _c
+    check(torch.equal(again, logits), "serve: a repeat prefill differs")
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    # The served dtype, bf16: over 32 layers of random weights the bf16
+    # roundings of any two correct attentions part the logits by about
+    # 3e-2 of scale (scripts/lm_bf16_floor.py), so the bound is 3e-2 or
+    # 1.5 times the farthest that two other correct attentions, PyTorch's
+    # SDPA and one in float64, land from the plain route on the same
+    # prompts, whichever is larger
+    ssd_plain = kernel_module("ssd_intra").ssd_intra_chunks_plain
+    with plain_route():
+        plain_logits, _c = prefill(params, {"tokens": tokens})
+        del _c
+    floors = {}
+    for nm, attention in (("sdpa", sdpa_gqa), ("float64", exact_gqa)):
+        with lm_route(attention, ssd_plain):
+            other, _c = prefill(params, {"tokens": tokens})
+        floors[nm] = rel(other, plain_logits)
+        del _c, other
+    plain_err = rel(logits, plain_logits)
+    floor = max(floors.values())
+    # decode continuation: position s decoded from the cache against the
+    # last position of a prefill of s + 1 tokens
+    longer, _c = prefill(params, {"tokens": torch.cat([tokens, first_tok],
+                                                      1)})
+    cont_err = rel(first_dec, longer)
+    del _c, longer
+    bound = max(1.5 * floor, 3e-2)
+    log(f"serve bf16: kernel vs plain prefill logits {plain_err:.4g} of "
+        f"scale; SDPA vs plain {floors['sdpa']:.4g}, float64 attention vs "
+        f"plain {floors['float64']:.4g}; decode continuation "
+        f"{cont_err:.4g}; bound {bound:.4g}")
+    check(plain_err <= bound, f"serve: bf16 kernel prefill is "
+          f"{plain_err:.3g} of scale from the plain one, beyond {bound:.3g}")
+    check(cont_err <= bound, f"serve: bf16 decode continuation "
+          f"{cont_err:.3g} of scale, beyond {bound:.3g}")
+    del plain_logits
+
+    # the same weights widened to fp32: kernel against plain prefill and
+    # the decode continuation, each within 1e-4 of scale
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _widen(params)
+    prefill32 = make_prefill_step(cfg32)
+    lg32, pc32 = prefill32(params32, {"tokens": tokens})
+    with plain_route():
+        plain32, _c = prefill32(params32, {"tokens": tokens})
+        del _c
+    plain_err32 = rel(lg32, plain32)
+    cache32 = decode_cache(cfg32, pc32, s + 1, dev)
+    del pc32
+    tok32 = greedy(lg32)
+    dec32, _c = make_serve_step(cfg32)(params32, cache32, tok32, s)
+    del _c, cache32
+    longer32, _c = prefill32(params32, {"tokens": torch.cat([tokens, tok32],
+                                                            1)})
+    del _c
+    cont_err32 = rel(dec32, longer32)
+    log(f"serve fp32: kernel vs plain prefill logits {plain_err32:.4g} of "
+        f"scale; decode continuation {cont_err32:.4g}")
+    check(plain_err32 <= 1e-4, f"serve: fp32 kernel and plain prefill "
+          f"logits differ by {plain_err32:.3g} of scale > 1e-4")
+    check(cont_err32 <= 1e-4, f"serve: fp32 decode continuation "
+          f"{cont_err32:.3g} of scale > 1e-4")
+    del params32, lg32, plain32, dec32, longer32
+    prefill_ms = statistics.median(pre_ms)
+    decode_ms = statistics.median(step_ms[1:])
+    rep = dict(arch=cfg.name, batch=b, prompt=s, steps=steps,
+               params=n_params, param_gib=n_bytes / 2**30,
+               launches=launches, main_path_s=path_s,
+               prefill_ms=pre_ms, prefill_ms_median=prefill_ms,
+               prefill_tokens_per_s=b * s / (prefill_ms / 1e3),
+               decode_step_ms=step_ms, decode_ms_per_step_median=decode_ms,
+               decode_tokens_per_s=b / (decode_ms / 1e3),
+               peak_gib=peak_gib, plain_logits_err=plain_err,
+               other_attention_logits_err=floors, bf16_bound=bound,
+               continuation_err=cont_err,
+               plain_logits_err_fp32=plain_err32,
+               continuation_err_fp32=cont_err32)
+    log(f"serve: prefill {prefill_ms:.2f} ms median of {pre_ms} "
+        f"({rep['prefill_tokens_per_s']:.4g} tokens/s); decode "
+        f"{decode_ms:.3f} ms per step median ({rep['decode_tokens_per_s']:.4g}"
+        f" tokens/s, first step {step_ms[0]:.2f} ms)")
+    rep["trace"] = traced(lambda: prefill(params, {"tokens": tokens}),
+                          "traced prefill")
+    rep["trace_decode"] = traced(
+        lambda: serve_step(params, cache, tok, s + steps),
+        "traced decode step")
+    return rep
+
+
+def decode_cache(cfg, pcache, max_len, dev):
+    """A decode cache of ``max_len`` positions holding a prefill's."""
+    from repro_torch.models import init_cache
+    some = next(iter(pcache.values()))
+    cache = init_cache(cfg, some.shape[1], max_len, device=dev)
+    for k_, v_ in pcache.items():
+        if k_ in ("k", "v"):
+            cache[k_][:, :, :v_.shape[2]] = v_
+        else:
+            cache[k_].copy_(v_)
+    return cache
+
+
+def _widen(tree):
+    return {k: _widen(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def traced(fn, label):
+    """Run ``fn`` once under ``torch.profiler``: wall ms, device busy ms
+    and the ten kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, calls = {}, {}
+    for ev in prof.key_averages():
+        # device-side events only: a CPU op's entry repeats the time of
+        # the kernels it launched
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t_us = ev.self_device_time_total
+        if t_us > 0:
+            dev_ms[ev.key] = dev_ms.get(ev.key, 0.0) + t_us / 1e3
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count
+    busy_ms = sum(dev_ms.values())
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
+    if busy_ms > 0:
+        log(f"{label}: {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms, "
+            f"idle share {1 - busy_ms / wall_ms:.3f}")
+        for key, ms in top:
+            log(f"  {ms:9.3f} ms  {calls[key]:6d} calls  {key[:90]}")
+    else:
+        log(f"{label}: the profiler saw no device time (not measured)")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                top=[[k_, v_, calls[k_]] for k_, v_ in top])
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -125,8 +592,6 @@ def main() -> None:
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
 
-    import importlib
-
     import repro_torch.kernels as kernels
     from repro_torch.core import engine
     from repro_torch.core.api import KMeans
@@ -136,13 +601,10 @@ def main() -> None:
 
     # the package exports each wrapper under its kernel's name; the
     # modules, with the plain versions, come from importlib
-    def module(name):
-        return importlib.import_module(f"repro_torch.kernels.{name}")
-
-    cu_mod = module("centroid_update")
-    ga_mod = module("grouped_assign")
-    psd_mod = module("distance")
-    fa_mod = module("filtered_assign")
+    cu_mod = kernel_module("centroid_update")
+    ga_mod = kernel_module("grouped_assign")
+    psd_mod = kernel_module("distance")
+    fa_mod = kernel_module("filtered_assign")
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -156,7 +618,8 @@ def main() -> None:
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}; peaks used for bounds: "
-        f"{bw / 1e12:.2f} TB/s, {fp32 / 1e12:.1f} TFLOP/s fp32")
+        f"{bw / 1e12:.2f} TB/s, {fp32 / 1e12:.1f} TFLOP/s fp32, "
+        f"{bf16 / 1e12:.0f} TFLOP/s bf16")
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -172,7 +635,11 @@ def main() -> None:
     wrappers = {"grouped_assign": kernels.grouped_assign,
                 "centroid_update": kernels.centroid_update,
                 "pairwise_sq_dists": kernels.pairwise_sq_dists,
-                "filtered_assign": kernels.filtered_assign}
+                "filtered_assign": kernels.filtered_assign,
+                # each counts both its wrappers' launches (the entry
+                # point's and the model's)
+                "flash_attention": kernels.flash_attention,
+                "ssd_intra": kernels.ssd_intra}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -192,9 +659,6 @@ def main() -> None:
         finally:
             kernels.grouped_assign = wrappers["grouped_assign"]
             kernels.centroid_update = wrappers["centroid_update"]
-
-    def sync():
-        torch.cuda.synchronize()
 
     # -- the problem: uci-xlarge ------------------------------------------
     n, d, k = XLARGE["n"], XLARGE["d"], XLARGE["k"]
@@ -220,8 +684,7 @@ def main() -> None:
         return start.elapsed_time(stop) / reps
 
     def bound(nbytes, flops, peak=None):
-        t_b, t_f = nbytes / bw * 1e3, flops / (peak or fp32) * 1e3
-        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+        return roof(nbytes, flops, bw, peak or fp32)
 
     gen = torch.Generator(device=dev).manual_seed(7)
 
@@ -868,35 +1331,21 @@ def main() -> None:
     del wpts, wfits
 
     # -- 7. where a fit's time goes: one traced kernel fit ----------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.fit(points, init, **fit_kw)
-        sync()
-        traced_s = time.perf_counter() - t0
-    dev_ms = {}
-    for ev in prof.key_averages():
-        # device-side events only: a CPU op's entry repeats the time of
-        # the kernels it launched
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        t_us = ev.self_device_time_total
-        if t_us > 0:
-            dev_ms[ev.key] = dev_ms.get(ev.key, 0.0) + t_us / 1e3
-    busy_ms = sum(dev_ms.values())
-    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
-    if busy_ms > 0:
-        idle = 1 - busy_ms / (traced_s * 1e3)
-        log(f"traced fit: {traced_s * 1e3:.1f} ms wall, device busy "
-            f"{busy_ms:.1f} ms, idle share {idle:.3f}")
-        for key, ms in top:
-            log(f"  {ms:9.3f} ms  {key[:90]}")
-    else:
-        log("traced fit: the profiler saw no device time (not measured)")
-    report["trace"] = dict(wall_ms=traced_s * 1e3, busy_ms=busy_ms,
-                           top=[[k_, v_] for k_, v_ in top])
+    report["trace"] = traced(lambda: engine.fit(points, init, **fit_kw),
+                             "traced fit")
+
+    # -- 2c. the LM kernels against their plain versions -----------------
+    from repro_torch.configs import get_config
+    lm_cfg = get_config(SERVE["arch"])
+    attn_main, ssd_main = lm_kernel_phase(dev, gen, bw, fp32, bf16, lm_cfg,
+                                          SERVE["batch"], SERVE["prompt"])
+
+    # -- 10. the LM serving path: hymba-1.5b at full width and depth -----
+    del points
+    serve_rep = serve_phase(dev, torch.Generator(device=dev).manual_seed(0),
+                            wrappers, lm_cfg, SERVE["batch"], SERVE["prompt"],
+                            SERVE["steps"])
+    report["serve"] = serve_rep
 
     def row(nm, entry, source, replaces, path_launches):
         return {"name": nm, "route": "cuda", "source": source,
@@ -920,6 +1369,13 @@ def main() -> None:
         row("filtered_assign", fa_main,
             "src/repro_torch/kernels/csrc/filtered_assign.cu",
             "src/repro/kernels/filtered_assign.py:61", entry_launches),
+        # launched by the LM serving path (phase 10)
+        row("flash_attention", attn_main,
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:77", serve_rep["launches"]),
+        row("ssd_intra", ssd_main,
+            "src/repro_torch/kernels/csrc/ssd_intra.cu",
+            "src/repro/kernels/ssd_intra.py:44", serve_rep["launches"]),
     ]}
     report["kernels"] = line["kernels"]
     if args.out:

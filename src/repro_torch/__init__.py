@@ -5,7 +5,10 @@ fit and predict, with the candidate pass (``kernels.grouped_assign``)
 and the centroid sums (``kernels.centroid_update``) as CUDA kernels
 written for ``sm_90a``, the engine's compact backend, and the
 ``repro.kernels`` entry point (``kernels.pairwise_sq_dists``,
-``kernels.filtered_assign`` and their glue). Entry points run on
+``kernels.filtered_assign`` and their glue), and the LM serving path
+(``configs``, ``models``, ``train``: prefill and decode of every config
+without MLA or MoE) on the ``kernels.flash_attention`` and
+``kernels.ssd_intra`` kernels. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; the kernels are
 built with ``nvcc`` at first use, so importing this package needs
 neither a card nor a compiler.

@@ -1,17 +1,27 @@
-"""Carry fitted state across from the JAX package.
+"""Carry fitted state and weights across from the JAX package.
 
 A JAX ``KMeansResult`` whose fields went through ``np.asarray`` holds
 plain numpy arrays; :func:`kmeans_state_from_numpy` turns it into the
 port's :class:`~repro_torch.core.kmeans.KMeansResult` on a device, and
 ``KMeans.from_state`` wraps that into a fitted estimator.
+
+An LM's parameter tree and a prefill cache, leaves as numpy arrays
+(bf16 leaves as the numpy ``bfloat16`` type that ``np.asarray`` of a JAX
+array gives), become the port's trees with
+:func:`lm_params_from_numpy` and :func:`lm_cache_from_numpy`. Each
+leaf goes through float32, which holds every bf16 value exactly, so
+nothing here needs the package that defines that numpy type.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .configs.base import ArchConfig
 from .core.kmeans import KMeansResult
 from .device import resolve_device
+from .models.transformer import (check_supported, flatten_with_path,
+                                 leaf_dtype, param_shapes, rebuild)
 
 
 def kmeans_state_from_numpy(result, device=None) -> KMeansResult:
@@ -26,3 +36,44 @@ def kmeans_state_from_numpy(result, device=None) -> KMeansResult:
         torch.tensor(int(evals), dtype=torch.int64, device=dev),
         torch.tensor(float(np.asarray(result.inertia, np.float32)),
                      dtype=torch.float32, device=dev))
+
+
+def _leaf(a, dtype, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
+
+
+def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
+    """JAX's parameter tree for ``cfg`` (``repro.models.init_params``),
+    leaves as numpy arrays, -> the port's tree on ``device`` (``None``:
+    ``cuda``), each leaf cast to ``cfg``'s dtype for it. Raises
+    ``ValueError`` where a path or a shape differs from
+    :func:`~repro_torch.models.param_shapes`."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shapes = dict(flatten_with_path(param_shapes(cfg)))
+    given = dict(flatten_with_path(tree))
+    if set(given) != set(shapes):
+        raise ValueError(f"parameter paths differ from {cfg.name}'s: "
+                         f"missing {sorted(set(shapes) - set(given))}, "
+                         f"extra {sorted(set(given) - set(shapes))}")
+    leaves = {}
+    for path, shape in shapes.items():
+        if tuple(np.shape(given[path])) != tuple(shape):
+            raise ValueError(f"{path}: shape {np.shape(given[path])}, "
+                             f"{cfg.name} has {shape}")
+        leaves[path] = _leaf(given[path], leaf_dtype(path, cfg), dev)
+    return rebuild(param_shapes(cfg), leaves)
+
+
+def lm_cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
+    """A prefill or decode cache of JAX's (``k``, ``v``, ``ssm``,
+    ``conv`` stacked on L), leaves as numpy arrays, -> the port's on
+    ``device`` (``None``: ``cuda``): ``ssm`` in float32, the others in
+    ``cfg``'s compute dtype."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    known = ("k", "v", "ssm", "conv")
+    if not set(tree) <= set(known):
+        raise ValueError(f"unknown cache leaves {sorted(set(tree) - set(known))}")
+    return {k: _leaf(a, torch.float32 if k == "ssm" else cfg.compute_dtype,
+                     dev) for k, a in tree.items()}

@@ -1,6 +1,6 @@
-"""Plain PyTorch oracles for the block-skip kernel entry point (port of
-``repro.kernels.ref``: ``pairwise_sq_dists_ref`` and
-``filtered_assign_ref``).
+"""Plain PyTorch oracles of the kernels (port of ``repro.kernels.ref``:
+``pairwise_sq_dists_ref``, ``filtered_assign_ref``,
+``flash_attention_ref`` and ``ssd_intra_ref``).
 
 Each mirrors one kernel of this package with the same output semantics.
 The kernels' modules use them as their plain versions, which take
@@ -8,6 +8,8 @@ precomputed squared norms (``x2`` rows, ``c2`` centroids) as given, as
 the kernels do; ``None`` computes them, as the reference does.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -43,3 +45,26 @@ def filtered_assign_ref(x, c, block_mask, tile_n: int, tile_k: int,
     best, idx = torch.min(d2, dim=1)             # first index wins ties
     idx = torch.where(torch.isfinite(best), idx, -1)
     return best, idx.int()
+
+
+def flash_attention_ref(q, k, v):
+    """Causal softmax attention oracle: q, k, v (B, H, S, D) of any
+    float type, fp32 scores and softmax, output in q's dtype."""
+    s, d = q.shape[2], q.shape[3]
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    sc = torch.where(mask, sc, -math.inf)
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def ssd_intra_ref(c, b, x, cum):
+    """Intra-chunk SSD oracle. c, b: (G, Q, N); x: (G, Q, P); cum:
+    (G, Q) -> (G, Q, P) fp32. The decay above the diagonal is selected
+    to 0, never multiplied (its exp may be inf)."""
+    scores = torch.einsum("gin,gjn->gij", c.float(), b.float())
+    diff = cum[:, :, None] - cum[:, None, :]
+    q = c.shape[1]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=c.device))
+    decay = torch.where(mask[None], torch.exp(diff.float()), 0.0)
+    return torch.einsum("gij,gjp->gip", scores * decay, x.float())

@@ -9,7 +9,10 @@ sets up the JAX package's tuning cache). It also holds the kernel cases
 that ``test_torch_kernels.py`` runs against the Pallas kernels on the
 CPU.
 
-Tolerances: float outputs rtol 1e-5 / atol 1e-5, sums atol 1e-3 (the
+Tolerances: float outputs rtol 1e-5 / atol 1e-5 (attention in bf16:
+3e-2, one bf16 rounding of the same fp32 result, as
+``tests/test_kernels.py`` has it; the LM prefill: 1e-4 of the logits'
+scale), sums atol 1e-3 (the
 card adds in another order than the CPU); squared distances of the
 expanded form within 1e-5 of the norms they come from, bf16 inputs as
 fp32 (both sides widen the same bf16 values); ids, pair counts and
@@ -33,6 +36,8 @@ cu = importlib.import_module("repro_torch.kernels.centroid_update")
 fa = importlib.import_module("repro_torch.kernels.filtered_assign")
 ga = importlib.import_module("repro_torch.kernels.grouped_assign")
 psd = importlib.import_module("repro_torch.kernels.distance")
+fla = importlib.import_module("repro_torch.kernels.flash_attention")
+ssd = importlib.import_module("repro_torch.kernels.ssd_intra")
 
 GA_CASES = [  # the shapes of tests/test_kernels.py::test_grouped_assign_*
     (300, 7, 17, 4, 128),         # ragged N/K, partial skip
@@ -47,6 +52,43 @@ BS_TILES = [(256, 128), (64, 16)]
 # tiles of fewer points than centroid slots per staged chunk: the
 # kernel's CTA has fewer threads than the chunk it stages
 SMALL_TILES = [(16, 128), (4, 8)]
+# tests/test_kernels.py::test_flash_attention's (b, h, s, d, block_q,
+# block_k)
+FA_CASES = [(2, 3, 128, 32, 64, 32), (1, 2, 256, 64, 256, 64),
+            (1, 1, 64, 16, 16, 64)]
+# the model's attention launch (b, s, h, kv, d): grouped heads, ragged
+# S, hymba-1.5b's 25/5 heads of 64, and a head dim of 128
+GQA_CASES = [(2, 100, 4, 2, 16), (1, 77, 6, 3, 64), (2, 128, 4, 1, 128),
+             (1, 300, 25, 5, 64)]
+# ssd_intra cells (g, q, n, p): tests/test_kernels.py::test_ssd_intra's
+# three, the reduced configs' chunk, hymba-1.5b's and mamba2-780m's
+# cells, and Q = 256 with N and P off every power of two
+SSD_CASES = [(4, 32, 16, 32), (2, 128, 8, 64), (1, 16, 128, 16),
+             (5, 8, 8, 32), (3, 128, 16, 128), (2, 128, 128, 64),
+             (2, 256, 33, 100)]
+
+
+def attn_inputs(b, s, h, kv, d, seed):
+    """q (b, s, h, d), k and v (b, s, kv, d), standard normal fp32."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, kv, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+def ssd_inputs(g, q, n, p, seed, steep=False):
+    """c, b (g, q, n), x (g, q, p) standard normal; cum (g, q) a
+    cumulative sum of negative log-decays. ``steep`` decays fast enough
+    that exp(cum_i - cum_j) above the diagonal overflows fp32."""
+    rng = np.random.default_rng(seed)
+    c, b = (rng.standard_normal((g, q, n)).astype(np.float32)
+            for _ in range(2))
+    x = rng.standard_normal((g, q, p)).astype(np.float32)
+    z = rng.standard_normal((g, q))
+    step = np.logaddexp(z, 0.0) * (40.0 if steep else 1.0) + \
+        (5.0 if steep else 0.0)
+    return c, b, x, np.cumsum(-step, axis=1).astype(np.float32)
 
 
 def _members(groups, g):
@@ -263,3 +305,111 @@ def test_compact_fit_on_card_matches_cpu(refresh_in_pass):
     np.testing.assert_allclose(float(r_gpu.inertia), float(r_cpu.inertia),
                                rtol=1e-5)
     assert len(s_gpu.caps_history) >= 2
+
+
+ATTN_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", ATTN_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,s,d,bq,bk", FA_CASES)
+def test_flash_attention_kernel_matches_plain(b, h, s, d, bq, bk, dtype,
+                                              tol):
+    _need_card()
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).contiguous()
+               .to("cuda", dtype) for a in attn_inputs(b, s, h, h, d, s + d))
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention(q, k, v, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = fla.flash_attention_plain(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", ATTN_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kv,d", GQA_CASES)
+def test_flash_attention_gqa_kernel_matches_plain(b, s, h, kv, d, dtype,
+                                                  tol):
+    _need_card()
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+               for a in attn_inputs(b, s, h, kv, d, s * h))
+    before = kernels.flash_attention.launches
+    got = kernels.flash_attention_gqa(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = fla.flash_attention_gqa_plain(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steep", [False, True], ids=["decay", "steep"])
+@pytest.mark.parametrize("g,q,n,p", SSD_CASES)
+def test_ssd_intra_kernel_matches_plain(g, q, n, p, steep):
+    _need_card()
+    args = [torch.from_numpy(a).cuda()
+            for a in ssd_inputs(g, q, n, p, seed=g * q + n, steep=steep)]
+    before = kernels.ssd_intra.launches
+    got = kernels.ssd_intra(*args)
+    torch.cuda.synchronize()
+    assert kernels.ssd_intra.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    want = ssd.ssd_intra_plain(*args)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,nc,q,h,g,n,p", [
+    (2, 3, 8, 4, 1, 8, 32), (1, 2, 16, 4, 2, 16, 16),
+    (2, 2, 128, 25, 1, 16, 128)])
+def test_ssd_intra_chunks_kernel_matches_plain(bsz, nc, q, h, g, n, p):
+    _need_card()
+    rng = np.random.default_rng(q * h)
+    C, B = (torch.from_numpy(rng.standard_normal(
+        (bsz, nc, q, g, n)).astype(np.float32)).cuda() for _ in range(2))
+    x = torch.from_numpy(rng.standard_normal(
+        (bsz, nc, q, h, p)).astype(np.float32)).cuda()
+    cum = torch.from_numpy(np.cumsum(-np.logaddexp(rng.standard_normal(
+        (bsz, nc, q, h)), 0.0), axis=2).astype(np.float32)).cuda()
+    before = kernels.ssd_intra.launches
+    got = kernels.ssd_intra_chunks(C, B, x, cum)
+    torch.cuda.synchronize()
+    assert kernels.ssd_intra.launches == before + 1
+    want = ssd.ssd_intra_chunks_plain(C, B, x, cum)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hymba_prefill_on_card_matches_cpu():
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill_forward
+    cfg = get_config("hymba-1.5b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 37)))
+    before = (kernels.flash_attention.launches, kernels.ssd_intra.launches)
+    on_card = prefill_forward(
+        _to_cuda(params), tokens.cuda(), cfg)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before[0] + cfg.n_layers
+    assert kernels.ssd_intra.launches == before[1] + cfg.n_layers
+    on_cpu = prefill_forward(params, tokens, cfg)
+    for got, want in [(on_card[0], on_cpu[0])] + [
+            (on_card[1][k], on_cpu[1][k]) for k in on_cpu[1]]:
+        scale = float(want.abs().max()) + 1e-9
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+
+
+def _to_cuda(tree):
+    return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}

@@ -129,7 +129,8 @@ def test_kernel_sources_export_the_wrappers_entry_points():
     """Each wrapper binds ``<name>_launch`` and ``<name>_error_string``
     from ``csrc/<name>.cu``; the build keys on the source's hash."""
     assert set(_build.sources()) == {"centroid_update", "filtered_assign",
-                                     "grouped_assign", "pairwise_sq_dists"}
+                                     "flash_attention", "grouped_assign",
+                                     "pairwise_sq_dists", "ssd_intra"}
     for name in _build.sources():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert f"int {name}_launch(" in text

@@ -1,0 +1,132 @@
+"""The port's LM kernels against the JAX package's.
+
+``repro_torch.kernels.flash_attention`` and ``ssd_intra`` (on the CPU
+each takes its plain version) against the Pallas kernels run with
+``interpret=True`` and against ``repro.kernels.ref``, at the shapes of
+``tests/test_kernels.py``; the model's launches
+(``flash_attention_gqa``, ``ssd_intra_chunks``) against the reference
+oracle on heads and groups broadcast by hand. The CUDA kernels
+themselves are held against the plain versions by the ``cuda``-marked
+tests in ``test_torch_cuda.py``.
+
+Tolerances are those of ``tests/test_kernels.py``: attention rtol/atol
+1e-5 in fp32 and 3e-2 in bf16, ``ssd_intra`` rtol/atol 1e-5.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.kernels as tk
+from repro.kernels import flash_attention, ssd_intra
+from repro.kernels.ref import flash_attention_ref, ssd_intra_ref
+from repro_torch.kernels import ref as tref
+from test_torch_cuda import (FA_CASES, GQA_CASES, SSD_CASES, attn_inputs,
+                             ssd_inputs)
+
+DTYPES = [(jnp.float32, torch.float32, 1e-5),
+          (jnp.bfloat16, torch.bfloat16, 3e-2)]
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,s,d,bq,bk", FA_CASES)
+def test_flash_attention_matches_pallas(b, h, s, d, bq, bk, jdt, tdt, tol):
+    q, k, v = (a.transpose(0, 2, 1, 3).copy()
+               for a in attn_inputs(b, s, h, h, d, s + d))
+    before = tk.flash_attention.launches
+    got = tk.flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                             block_q=bq, block_k=bk)
+    assert tk.flash_attention.launches == before      # plain on the CPU
+    assert got.dtype == tdt and got.shape == (b, h, s, d)
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    for want in (flash_attention(jq, jk, jv, block_q=bq, block_k=bk,
+                                 interpret=True),
+                 flash_attention_ref(jq, jk, jv)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_flash_attention_keeps_the_block_contract():
+    q = torch.zeros((1, 1, 96, 16))
+    with pytest.raises(ValueError, match="divisible"):
+        tk.flash_attention(q, q, q, block_q=64)
+    with pytest.raises(ValueError, match="one shape"):
+        tk.flash_attention(q, q[:, :, :64], q)
+    # blocks clip to S, as the reference's do
+    assert tk.flash_attention(q, q, q).shape == q.shape
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kv,d", GQA_CASES)
+def test_gqa_launch_matches_reference_oracle(b, s, h, kv, d, jdt, tdt, tol):
+    q, k, v = attn_inputs(b, s, h, kv, d, s * h)
+    got = tk.flash_attention_gqa(*(torch.from_numpy(a).to(tdt)
+                                   for a in (q, k, v)))
+    assert got.dtype == tdt and got.shape == (b, s, h, d)
+    # query head i reads kv head i // (h // kv): repeat by hand
+    jq = jnp.asarray(q).astype(jdt).transpose(0, 2, 1, 3)
+    jk, jv = (jnp.repeat(jnp.asarray(a).astype(jdt), h // kv, axis=2)
+              .transpose(0, 2, 1, 3) for a in (k, v))
+    want = flash_attention_ref(jq, jk, jv).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("steep", [False, True], ids=["decay", "steep"])
+@pytest.mark.parametrize("g,q,n,p", SSD_CASES)
+def test_ssd_intra_matches_pallas(g, q, n, p, steep):
+    c, b, x, cum = ssd_inputs(g, q, n, p, seed=g * q + n, steep=steep)
+    if steep:       # the decays above the diagonal overflow fp32
+        with np.errstate(over="ignore"):
+            assert np.isinf(np.exp(cum[:, :1] - cum)).any()
+    before = tk.ssd_intra.launches
+    got = tk.ssd_intra(*(torch.from_numpy(a) for a in (c, b, x, cum)))
+    assert tk.ssd_intra.launches == before            # plain on the CPU
+    assert got.dtype == torch.float32 and got.shape == (g, q, p)
+    assert bool(torch.isfinite(got).all())
+    args = [jnp.asarray(a) for a in (c, b, x, cum)]
+    for want in (ssd_intra(*args, interpret=True), ssd_intra_ref(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bsz,nc,q,h,g,n,p", [
+    (2, 3, 8, 4, 1, 8, 32), (1, 2, 16, 4, 2, 16, 16),
+    (2, 2, 128, 5, 1, 16, 128)])
+def test_ssd_intra_chunks_matches_pallas_cells(bsz, nc, q, h, g, n, p):
+    rng = np.random.default_rng(q * h)
+    C, B = (rng.standard_normal((bsz, nc, q, g, n)).astype(np.float32)
+            for _ in range(2))
+    x = rng.standard_normal((bsz, nc, q, h, p)).astype(np.float32)
+    cum = np.cumsum(-np.logaddexp(rng.standard_normal((bsz, nc, q, h)), 0),
+                    axis=2).astype(np.float32)
+    got = tk.ssd_intra_chunks(*(torch.from_numpy(a) for a in (C, B, x, cum)))
+    assert got.shape == (bsz, nc, q, h, p)
+    # one (Q, N) cell per (batch, chunk, head), group h // (H // G)
+    grp = np.arange(h) // (h // g)
+
+    def cells(a):           # (bsz, nc, q, h, m) -> (bsz*nc*h, q, m)
+        return jnp.asarray(a.transpose(0, 1, 3, 2, 4).reshape(-1, q,
+                                                              a.shape[-1]))
+    want = ssd_intra(cells(C[:, :, :, grp]), cells(B[:, :, :, grp]),
+                     cells(x), jnp.asarray(cum.transpose(0, 1, 3, 2)
+                                           .reshape(-1, q)), interpret=True)
+    want = np.asarray(want).reshape(bsz, nc, h, q, p).transpose(0, 1, 3, 2, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_port_oracles_match_jax_oracles():
+    q, k, v = (a.transpose(0, 2, 1, 3).copy()
+               for a in attn_inputs(2, 40, 3, 3, 16, 1))
+    got = tref.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)))
+    want = flash_attention_ref(*(jnp.asarray(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    c, b, x, cum = ssd_inputs(3, 24, 8, 16, seed=2)
+    got = tref.ssd_intra_ref(*(torch.from_numpy(a) for a in (c, b, x, cum)))
+    want = ssd_intra_ref(*(jnp.asarray(a) for a in (c, b, x, cum)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
