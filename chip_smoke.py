@@ -7,12 +7,19 @@ Phases, each of which fails the run (non-zero exit) on any fault, in
 the order they run:
 
 1. build every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
-   compiler process per source, all at once;
+   compiler process per source, all at once; log ``-Xptxas -v``
+   (registers, shared memory, spills) of every kernel, in full for
+   ``flash_attention`` and ``centroid_update``, and count the ``HGMMA``
+   instructions in the built ``flash_attention`` library
+   (``cuobjdump -sass``; none where ``cuobjdump`` exists fails the run);
 2. ``grouped_assign`` and ``centroid_update`` against their plain
    versions on the card at the main path's shapes, uci-highk's group
    shape, Hamerly at D = 128, K = 1024, and a ragged N at mask
    densities 0, 0.3 and 1; times of the kernel, the plain version and
    the library call, beside the least time the card could take;
+   ``centroid_update`` timed in turns (plain, ``index_add_``, kernel,
+   kernel, ``index_add_``, plain) and its two passes apart under
+   ``torch.profiler``;
 2b. ``pairwise_sq_dists`` (uci-xlarge in fp32 and bf16, a ragged
    N = 100,003, D = 33, K = 77) and ``filtered_assign`` (uci-highk and
    uci-xlarge, tiles 256x128, 64x16 and 64x8, mask densities 0, 0.35
@@ -55,12 +62,18 @@ the order they run:
    model's SSD launch at hymba-1.5b's prefill and mamba2-780m's cell
    (Q = 128, N = 128, P = 64), also with decays that overflow above the
    diagonal; the path's shapes timed beside the bound and, for
-   attention, ``scaled_dot_product_attention``;
+   attention, ``scaled_dot_product_attention``; attention in bf16 at
+   head dims 64 and 128 takes the tensor-core kernel, fp32 the FFMA one
+   (each case checks which launch counter moved), the prefill's shape
+   in both dtypes; the tensor-core kernel timed in turns against the
+   FFMA kernel on the same bf16 inputs (FFMA, tensor cores, tensor
+   cores, FFMA);
 10. hymba-1.5b serving at full width and depth (32 layers, d_model
    1600, bf16 weights from a seeded generator on the card): 2 prompts
    of 2048 tokens through ``make_prefill_step``, then 32 greedy decode
    steps through ``make_serve_step``, counts reset just before and read
-   just after (32 launches of each LM kernel); the same prefill with
+   just after (32 launches of each LM kernel, all 32 attention launches
+   on the tensor cores and none on FFMA); the same prefill with
    both LM kernels swapped for their plain versions, and the first
    decode step against a prefill of one more token: in bf16 each within
    3e-2 of the logits' max abs, or within 1.5 times the farthest that
@@ -84,6 +97,7 @@ import dataclasses
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +147,26 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def hgmma_count(lib: Path):
+    """``HGMMA`` instructions (Hopper's warpgroup products) in a built
+    library's SASS; fails the run if there are none. Returns None, and
+    says so, where the toolkit has no ``cuobjdump``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("sass: no cuobjdump on this machine; HGMMA not counted")
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib.name} failed: "
+          f"{out.stderr.strip()[:500]}")
+    count = sum("HGMMA" in line for line in out.stdout.splitlines())
+    log(f"sass: {count} HGMMA instructions in {lib.name}")
+    check(count > 0, f"no HGMMA instruction in {lib.name}: the tensor-core "
+          f"attention kernel did not compile to wgmma")
+    return count
+
+
 def peaks(name: str):
     for key, val in PEAKS.items():
         if key in name:
@@ -165,6 +199,22 @@ def median_ms(fn, reps: int = 7, inner: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms_by_kernel(fn, calls: int = 10) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, over ``calls``
+    calls under ``torch.profiler`` (after one warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    return {ev.key: ev.self_device_time_total / 1e3 / calls
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total}
+
+
 def roof(nbytes: float, flops: float, bw: float, peak: float):
     """(least ms, "bytes" or "operations"): the larger of the two."""
     t_b, t_f = nbytes / bw * 1e3, flops / peak * 1e3
@@ -173,6 +223,30 @@ def roof(nbytes: float, flops: float, bw: float, peak: float):
 
 def kernel_module(name: str):
     return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+# a wrapper's own count, and for flash_attention each kernel's as well
+ROUTE_COUNTS = {"launches_tc": "tc", "launches_ffma": "ffma"}
+
+
+def reset_launches(wrappers) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+        for attr in ROUTE_COUNTS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+
+
+def read_launches(wrappers) -> dict:
+    """``{name: launches}``, and ``{"name.tc": ..., "name.ffma": ...}``
+    for a wrapper with one counter per kernel."""
+    counts = {}
+    for nm, fn in wrappers.items():
+        counts[nm] = fn.launches
+        for attr, route in ROUTE_COUNTS.items():
+            if hasattr(fn, attr):
+                counts[f"{nm}.{route}"] = getattr(fn, attr)
+    return counts
 
 
 @contextlib.contextmanager
@@ -234,7 +308,13 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    def routes():
+        return (kernels.flash_attention.launches_tc,
+                kernels.flash_attention.launches_ffma)
+
     def attn_case(label, q, k, v, entry_point=False, timed=False):
+        route = fla.route_for(q.dtype, q.shape[-1])
+        before = routes()
         if entry_point:
             got = kernels.flash_attention(q, k, v)
             want = fla.flash_attention_plain(q, k, v)
@@ -242,6 +322,10 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
             got = kernels.flash_attention_gqa(q, k, v)
             want = fla.flash_attention_gqa_plain(q, k, v)
         sync()
+        moved = tuple(a - b for a, b in zip(routes(), before))
+        check(moved == ((1, 0) if route == "tc" else (0, 1)),
+              f"flash_attention {label}: launches on (tensor cores, FFMA) "
+              f"moved by {moved}, not once on {route}")
         # fp32: summation order; bf16: one rounding of the same result
         tol = 1e-5 if q.dtype == torch.float32 else 3e-2
         diff = (got.float() - want.float()).abs()
@@ -251,8 +335,17 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
               f"flash_attention {label}: differs from the plain version "
               f"by {err:.3g} (rtol = atol = {tol})")
         entry = dict(case=label, q=list(q.shape), kv=list(k.shape),
-                     dtype=str(q.dtype), max_abs_err=err, tol=tol)
-        del got, want, diff
+                     dtype=str(q.dtype), route=route, max_abs_err=err,
+                     tol=tol)
+        if route == "tc":
+            # and row by row, where 3e-2 of an element can hide a fault
+            rows = fla.row_rel_err(got, want)
+            check(rows <= fla.ROW_REL_TOL,
+                  f"flash_attention {label}: a row differs from the plain "
+                  f"version by {rows:.3g} of its norm (bound "
+                  f"{fla.ROW_REL_TOL})")
+            entry.update(row_rel_err=rows, row_tol=fla.ROW_REL_TOL)
+        del got, diff
         if timed:
             b, s, h, d = q.shape
             kvh = k.shape[2]
@@ -262,17 +355,39 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
             peak = fp32 if q.dtype == torch.float32 else bf16
             bound_ms, by = roof(nbytes, flops, bw, peak)
             lib = sdpa_gqa(q, k, v)
-            ref = fla.flash_attention_gqa_plain(q, k, v)
+            entry["library_vs_plain_max_abs"] = float(
+                (lib.float() - want.float()).abs().max())
+            del lib
+
+            def new():
+                return kernels.flash_attention_gqa(q, k, v)
+            turns = {"new": []}
+            if route == "tc":
+                # the earlier route, the FFMA kernel, on the same inputs
+                def old():
+                    return fla.launch_gqa(q, k, v, "ffma")
+                ffma = old()
+                sync()
+                off = (ffma.float() - want.float()).abs()
+                entry["ffma_max_abs_err"] = float(off.max())
+                check(bool((off <= tol + tol * want.float().abs()).all()),
+                      f"flash_attention {label}: the FFMA kernel differs "
+                      f"from the plain version")
+                del ffma, off
+                turns["ffma"] = [median_ms(old)]
+                turns["new"] += [median_ms(new), median_ms(new)]
+                turns["ffma"].append(median_ms(old))
+                entry["ffma_ms"] = statistics.mean(turns["ffma"])
+            else:
+                turns["new"].append(median_ms(new))
             entry.update(
-                ms=median_ms(lambda: kernels.flash_attention_gqa(q, k, v)),
+                ms=statistics.mean(turns["new"]), turns_ms=turns,
                 plain_ms=median_ms(
                     lambda: fla.flash_attention_gqa_plain(q, k, v), reps=3,
                     inner=1),
                 bound_ms=bound_ms, bound_by=by,
-                library_ms=median_ms(lambda: sdpa_gqa(q, k, v)),
-                library_vs_plain_max_abs=float(
-                    (lib.float() - ref.float()).abs().max()))
-            del lib, ref
+                library_ms=median_ms(lambda: sdpa_gqa(q, k, v)))
+        del want
         log(f"flash_attention {label}: {json.dumps(entry)}")
         return entry
 
@@ -328,6 +443,9 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
     kv = [randn(b, s, kvh, d, dtype=bf) for _ in range(2)]
     attn_main = attn_case(f"{cfg.name} prefill B={b} S={s}", q, *kv,
                           timed=True)
+    # the same shape in fp32: the FFMA kernel, the strict parity route
+    attn_case(f"{cfg.name} prefill B={b} S={s} fp32",
+              *(t.float() for t in (q, *kv)))
     del q, kv
     attn_case(f"ragged S={s + 1} bf16",
               randn(b, s + 1, h, d, dtype=bf),
@@ -382,8 +500,7 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
         return logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
 
     # the main path: one prefill, then greedy decode steps
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     torch.cuda.reset_peak_memory_stats(dev)
     sync()
     t0 = time.perf_counter()
@@ -404,7 +521,7 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
         if t == 0:
             first_dec = dlogits
     path_s = time.perf_counter() - t0
-    launches = {nm: fn.launches for nm, fn in wrappers.items()}
+    launches = read_launches(wrappers)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"serve: main path (prefill + {steps} decode steps) "
         f"{path_s:.3f} s; launches {launches}; peak memory "
@@ -417,8 +534,14 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
         check(launches[nm] == cfg.n_layers,
               f"serve: {nm} launched {launches[nm]} times on the main path, "
               f"not once per layer ({cfg.n_layers})")
+    # bf16 at a head dim of 64: every attention launch on the tensor cores
+    check(launches["flash_attention.tc"] == cfg.n_layers
+          and launches["flash_attention.ffma"] == 0,
+          f"serve: attention ran {launches['flash_attention.tc']} times on "
+          f"the tensor cores and {launches['flash_attention.ffma']} on FFMA, "
+          f"not {cfg.n_layers} and 0")
     for nm, cnt in launches.items():
-        if nm not in ("flash_attention", "ssd_intra"):
+        if nm.split(".")[0] not in ("flash_attention", "ssd_intra"):
             check(cnt == 0, f"serve: {nm} launched on the LM path")
 
     # prefill time: median of 3 after the main path's warm-up call
@@ -545,9 +668,17 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+# the port's own kernels (csrc/*.cu's __global__ functions), as the
+# profiler names them
+PORT_KERNEL = re.compile(r"^(void )?(\(anonymous namespace\)|tc|simt)::"
+                         r"(ga|cu_partial|cu_reduce|psd|fa|fa_tc|ssd)"
+                         r"(_kernel)?[<(]")
+
+
 def traced(fn, label):
-    """Run ``fn`` once under ``torch.profiler``: wall ms, device busy ms
-    and the ten kernels with the most device time."""
+    """Run ``fn`` once under ``torch.profiler``: wall ms, device busy ms,
+    the ten kernels with the most device time, and every kernel of the
+    port's (``port``), in the top ten or not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -575,8 +706,13 @@ def traced(fn, label):
             log(f"  {ms:9.3f} ms  {calls[key]:6d} calls  {key[:90]}")
     else:
         log(f"{label}: the profiler saw no device time (not measured)")
+    port = sorted((kv for kv in dev_ms.items() if PORT_KERNEL.match(kv[0])),
+                  key=lambda kv: -kv[1])
+    for key, ms in port:
+        log(f"  port: {ms:9.3f} ms  {calls[key]:6d} calls  {key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                top=[[k_, v_, calls[k_]] for k_, v_ in top])
+                top=[[k_, v_, calls[k_]] for k_, v_ in top],
+                port=[[k_, v_, calls[k_]] for k_, v_ in port])
 
 
 def main() -> None:
@@ -628,9 +764,13 @@ def main() -> None:
     report["build_s"] = build_s
     log(f"build: {len(logs)} sources in {build_s:.2f} s")
     for src, text in logs.items():
+        # in full for the two kernels redesigned for this card
+        full = src in ("flash_attention", "centroid_update")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if (full and "Compile time" not in line) or "registers" in line \
+                    or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
+    report["hgmma"] = hgmma_count(_build.library_path("flash_attention"))
 
     wrappers = {"grouped_assign": kernels.grouped_assign,
                 "centroid_update": kernels.centroid_update,
@@ -640,13 +780,6 @@ def main() -> None:
                 # point's and the model's)
                 "flash_attention": kernels.flash_attention,
                 "ssd_intra": kernels.ssd_intra}
-
-    def reset_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {nm: fn.launches for nm, fn in wrappers.items()}
 
     @contextlib.contextmanager
     def plain_versions():
@@ -782,14 +915,28 @@ def main() -> None:
                 + (4 * n_ if weights is not None else 0)
             bound_ms, by = bound(nbytes, float(n_ * d_ + n_))
             lab64 = labels.long()
+
+            def new():
+                return kernels.centroid_update(x, labels, kk, weights)
+
+            def plain():
+                return cu_mod.centroid_update_plain(x, labels, kk, weights)
+
+            def library():
+                return torch.zeros((kk, d_), device=dev).index_add_(
+                    0, lab64, x)
+            # in turns: the earlier routes around the kernel
+            turns = {"plain": [cuda_ms(plain)], "library": [cuda_ms(library)],
+                     "new": [cuda_ms(new), cuda_ms(new)]}
+            turns["library"].append(cuda_ms(library))
+            turns["plain"].append(cuda_ms(plain))
             entry.update(
-                ms=cuda_ms(lambda: kernels.centroid_update(x, labels, kk,
-                                                           weights)),
-                plain_ms=cuda_ms(lambda: cu_mod.centroid_update_plain(
-                    x, labels, kk, weights)),
+                ms=statistics.mean(turns["new"]),
+                plain_ms=statistics.mean(turns["plain"]),
                 bound_ms=bound_ms, bound_by=by,
-                library_ms=cuda_ms(lambda: torch.zeros(
-                    (kk, d_), device=dev).index_add_(0, lab64, x)))
+                library_ms=statistics.mean(turns["library"]),
+                turns_ms=turns, passes_ms=device_ms_by_kernel(new),
+                plan=dataclasses.asdict(cu_mod.plan(n_, d_, kk)))
         log(f"centroid_update {label}: {json.dumps(entry)}")
         return entry
 
@@ -962,7 +1109,7 @@ def main() -> None:
     km = KMeans(k, algorithm="yinyang", engine="auto",
                 max_iters=XLARGE["max_iters"], tol=XLARGE["tol"], seed=0,
                 device=dev)
-    reset_counts()
+    reset_launches(wrappers)
     sync()
     t0 = time.perf_counter()
     km.fit(points)
@@ -972,7 +1119,7 @@ def main() -> None:
     pred = km.predict(points)
     sync()
     predict_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = read_launches(wrappers)
 
     res, stats = km.result_, km.stats_
     n_iters = int(res.n_iters)
@@ -1150,7 +1297,7 @@ def main() -> None:
     # assignment of the filter decisions of the fit's last pending pass
     # at the reference's default tiles
     final_need = group_need(carry)
-    reset_counts()
+    reset_launches(wrappers)
     sync()
     t0 = time.perf_counter()
     ep_d2 = kernels.pairwise_sq_dists(points, carry.centroids)
@@ -1158,7 +1305,7 @@ def main() -> None:
         points, carry.centroids, final_need, groups)
     sync()
     entry_s = time.perf_counter() - t0
-    entry_launches = read_counts()
+    entry_launches = read_launches(wrappers)
     log(f"entry point: pairwise_sq_dists + filtered_assign_auto at "
         f"uci-xlarge in {entry_s:.3f} s, block density "
         f"{float(ep_density):.4f}; launches {entry_launches}")
@@ -1256,7 +1403,7 @@ def main() -> None:
         f"{int(s_gpu.distance_evals)}/{int(s_cpu.distance_evals)}")
 
     # -- 8. the compact backend at uci-xlarge ----------------------------
-    reset_counts()
+    reset_launches(wrappers)
     sync()
     t0 = time.perf_counter()
     r_c, s_c = engine.fit(points, init, max_iters=XLARGE["max_iters"],
@@ -1264,7 +1411,7 @@ def main() -> None:
                           return_stats=True)
     sync()
     cfit_s = time.perf_counter() - t0
-    compact_launches = read_counts()
+    compact_launches = read_launches(wrappers)
     ev_c, in_c = int(r_c.distance_evals), float(r_c.inertia)
     log(f"compact fit: {cfit_s:.3f} s, n_iters={r_c.n_iters}, "
         f"distance_evals={ev_c} ({ev_c / (n * k * r_c.n_iters):.4f} of "

@@ -10,33 +10,69 @@
 // reference's MHA contract). Each tensor is read through its own
 // (batch, sequence, head) strides with D contiguous, so the model's
 // (B, S, H, D) layout and the entry point's (B, H, S, D) both go in
-// without a transpose. Any S is taken: rows and keys past S are bounds
-// checks (the reference needs S divisible by its blocks).
+// without a transpose. Any S is taken: rows and keys past S are zeros
+// or bounds checks (the reference needs S divisible by its blocks).
 //
-// Design (simple first): one CTA of 256 threads per (b·h, 64-query
-// block); the query block is staged once in shared memory and 64-key
-// blocks of K and V are streamed through it, up to the block's last
-// query: kv blocks above the diagonal are never loaded, and the
-// diagonal block is masked in-block. Thread (ty, tx) of a 16 x 16 grid
-// holds scores of rows ty + 16i and keys tx + 16j (i, j < 4) and the
-// output columns tx + 16c of its rows; the running max and denominator
-// of a row live in the 16 threads that share it and meet by shuffles.
-// Probabilities go through shared memory into the P·V product. All
-// products are fp32 FFMA, bf16 widened as it is staged; masked scores
-// are selected to -inf and their probabilities to 0, and a row whose
-// block is all masked keeps alpha = 0, never exp(-inf - -inf).
+// Two kernels; the wrapper picks one by dtype and head dim alone
+// (kernels/flash_attention.py, route_for):
+//
+// tc::fa_tc_kernel, bf16 with D = 64 or 128: the tensor cores. One CTA
+//   per (b*h, 128 query rows), two warpgroups of 64 rows each. Q, K and
+//   V stay bf16 in shared memory in the 128-byte swizzled layout that
+//   wgmma descriptors read (64-column panels of 128-byte rows, 16-byte
+//   chunk c of row r at c ^ (r % 8)). One thread asks the tensor memory
+//   accelerator (TMA) for each tile through tensor maps built on the
+//   host over the tensors' own strides (cuTensorMapEncodeTiled, reached
+//   through the runtime); rows past S arrive as zeros, and each copy
+//   reports to an mbarrier, so the copies take no instruction slots
+//   from the softmax (copies made by every thread did not overlap it).
+//   64-key tiles of K and V fill a three-stage ring: tiles j + 1 and
+//   j + 2 are in flight while tile j is computed, and one block barrier
+//   a tile frees the stage tile j + 2 takes. S = Q K^T is wgmma
+//   m64n64k16 with both operands in shared memory (K-major) and fp32
+//   accumulators in registers. The online softmax works on the
+//   accumulator fragments (a thread holds two rows, a row lives in a
+//   quad, so row max and sum take two shuffles), in the log2 domain
+//   with ex2. P is rounded to bf16 in registers, where the accumulator
+//   layout of S is already the A-operand layout of the next wgmma (as
+//   in FlashAttention-3), and O += P V is wgmma with A from registers
+//   and V read MN-major (transposed B) from shared memory, one m64n64
+//   product per 64-column panel of D. Rounding P to bf16 is the one
+//   rounding the reference does not take (it widens p and v to fp32);
+//   SDPA takes the same one.
+//
+// simt::fa_kernel, fp32 (the strict parity route: the tensor cores have
+//   no IEEE fp32 mode) and bf16 at other head dims: one CTA of 256
+//   threads per (b*h, 64 queries); the query block is staged once in
+//   shared memory and 64-key blocks of K and V are streamed through it.
+//   Thread (ty, tx) of a 16 x 16 grid holds scores of rows ty + 16i and
+//   keys tx + 16j (i, j < 4) and the output columns tx + 16c of its
+//   rows; the running max and denominator of a row live in the 16
+//   threads that share it and meet by shuffles. Probabilities go
+//   through shared memory into the P.V product. All products are fp32
+//   FFMA, bf16 widened as it is staged.
+//
+// Both: kv tiles above the diagonal are never loaded and only tiles
+// that cross it are masked; the longest rows (most kv tiles) are
+// scheduled first; query heads of one kv group have neighbouring
+// blockIdx.x, so their K and V tiles come from L2. Masked scores are
+// selected to -inf and their probabilities are 0, and a row whose tile
+// is all masked keeps alpha = 0, never exp(-inf - -inf).
 //
 // Bound on the card: at hymba-1.5b's prefill (B = 2, S = 2048, H = 25,
-// KV = 5, D = 64, bf16) the causal half of QK^T and P·V is 26.9 GFLOP,
+// KV = 5, D = 64, bf16) the causal half of QK^T and P.V is 26.9 GFLOP,
 // 0.027 ms on the bf16 tensor cores and 0.40 ms in fp32 FFMA, against
 // 31.5 MB of q, k, v and out (0.009 ms): the work is bound by
-// operations, and this kernel, without tensor cores, by FFMA throughput and
-// shared-memory reads.
+// operations. The tc kernel leaves the tensor cores idle while a
+// warpgroup does its softmax; two CTAs an SM at D = 64 let one CTA's
+// products overlap the other's softmax.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-namespace {
+namespace simt {
 
 constexpr int kBQ = 64;        // query rows per CTA
 constexpr int kBK = 64;        // keys per streamed block
@@ -243,14 +279,437 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b,
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
+}  // namespace simt
+
+
+namespace tc {
+
+constexpr int kRows = 128;     // query rows per CTA: two warpgroups of 64
+constexpr int kKeys = 64;      // keys per streamed tile
+constexpr int kStages = 3;     // K and V tiles in the ring
+constexpr int kThreads = 256;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A head's rows as the tensor map reads them: dims (D, X, Y, B), X and
+// Y the sequence and head axes in increasing stride; seq names the one
+// that is the sequence (1 or 2). A box is 64 columns (128 bytes, one
+// swizzled panel) of `rows` rows of one head of one batch.
+struct Map {
+  CUtensorMap map;
+  int seq;
+};
+
+// the tensor-map copy of a box to shared memory, completion reported to
+// the mbarrier at bar; c0 the column, row the first row
+__device__ __forceinline__ void tma_load(uint32_t dst, const Map& m,
+                                         uint32_t bar, int c0, int row,
+                                         int head, int batch) {
+  const int c1 = m.seq == 1 ? row : head, c2 = m.seq == 1 ? head : row;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&m.map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(batch), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity. A
+// bounded spin: a copy that never lands traps (a launch error) rather
+// than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1u << 24)) __trap();
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads of an accumulator above the wait
+__device__ __forceinline__ void pin(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, fp32) = a (64 x 16, shared, K-major) * b (16 x 64, shared,
+// K-major), + d when accumulate is non-zero
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += a (64 x 16 bf16, registers) * b (16 x 64, shared,
+// MN-major: the 64 columns of a row are contiguous)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int kD>
+constexpr int smem_bytes() {
+  // Q (kRows rows) and a ring of kStages K and V tiles, all bf16; the
+  // ring's and Q's mbarriers; slack to align the base to 1024 bytes
+  return (kRows + 2 * kStages * kKeys) * kD * 2 + 8 * (kStages + 1) + 1024;
+}
+
+// Thread t of warpgroup g holds, in the fragment layout of a wgmma
+// accumulator, rows r_a = 64g + 16(t / 32) + (t % 32) / 4 and r_a + 8;
+// register 4j + i of a 64-column block is column 8j + 2(t % 4) + i % 2
+// of row r_a (i < 2) or r_a + 8 (i >= 2).
+template <int kD>
+__global__ void __launch_bounds__(kThreads, kD == 64 ? 2 : 1)
+fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
+             const __grid_constant__ Map mv, bf16* __restrict__ out, int s,
+             int h, int rep, simt::Strides os, float scale_log2) {
+  constexpr int kPanels = kD / 64;
+  constexpr uint32_t kTile = kKeys * kD * 2;     // bytes of one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_sm = base;                    // kPanels x [kRows][128 B]
+  const uint32_t k_sm = q_sm + kRows * kD * 2;   // kStages x kTile
+  const uint32_t v_sm = k_sm + kStages * kTile;  // kStages x kTile
+  const uint32_t bars = v_sm + kStages * kTile;  // kStages tiles, then Q
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32,
+            lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int bi = bh / h, hi = bh - bi * h, kvh = hi / rep;
+  // the longest rows (most kv tiles) are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int last = min(q0 + kRows, s) - 1;       // the CTA's last key
+  const int tiles = last / kKeys + 1;
+
+  // one thread asks for each copy; rows past s arrive as zeros
+  auto load_kv = [&](int j) {
+    const uint32_t stage = (j % kStages) * kTile;
+    const uint32_t bar = bars + 8 * (j % kStages);
+    mbar_expect(bar, 2 * kTile);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) {
+      tma_load(k_sm + stage + pn * kKeys * 128, mk, bar, 64 * pn, j * kKeys,
+               kvh, bi);
+      tma_load(v_sm + stage + pn * kKeys * 128, mv, bar, 64 * pn, j * kKeys,
+               kvh, bi);
+    }
+  };
+  const uint32_t q_bar = bars + 8 * kStages;
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) mbar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(q_bar, kRows * kD * 2);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+      tma_load(q_sm + pn * kRows * 128, mq, q_bar, 64 * pn, q0, hi, bi);
+    for (int j = 0; j < kStages - 1 && j < tiles; ++j) load_kv(j);
+  }
+
+  const int r0 = q0 + 64 * wg;                   // the warpgroup's rows
+  const int wg_last = r0 < s ? min(r0 + 63, s - 1) : -1;
+  const int row_a = r0 + 16 * warp + lane / 4, row_b = row_a + 8;
+  const int col_t = 2 * (lane % 4);
+  const uint32_t q_wg = q_sm + 64 * wg * 128;
+
+  float o[kPanels][32];
+#pragma unroll
+  for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[pn][i] = 0.0f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
+  mbar_wait(q_bar, 0);
+
+  for (int j = 0; j < tiles; ++j) {
+    // every warpgroup is done with tile j - 1, whose stage tile
+    // j + kStages - 1 takes
+    __syncthreads();
+    if (tid == 0 && j + kStages - 1 < tiles) load_kv(j + kStages - 1);
+    mbar_wait(bars + 8 * (j % kStages), (j / kStages) & 1);
+
+    const int k0 = j * kKeys;
+    if (k0 <= wg_last) {                         // uniform in the warpgroup
+      const uint32_t kt = k_sm + (j % kStages) * kTile;
+      const uint32_t vt = v_sm + (j % kStages) * kTile;
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;   // 16 columns a step
+        const uint64_t da =
+            sdesc(q_wg + (kk / 4) * kRows * 128 + off, 16, 1024);
+        const uint64_t db = sdesc(kt + (kk / 4) * kKeys * 128 + off, 16, 1024);
+        wgmma_ss(sc, da, db, kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin(sc);
+
+      // mask the tile that crosses the diagonal; row max over the quad
+      const bool diag = k0 + kKeys - 1 > r0;
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = k0 + 8 * jj + col_t;
+        if (diag) {
+          // select, never multiply: masked scores are -inf
+          if (col > row_a) sc[4 * jj] = -INFINITY;
+          if (col + 1 > row_a) sc[4 * jj + 1] = -INFINITY;
+          if (col > row_b) sc[4 * jj + 2] = -INFINITY;
+          if (col + 1 > row_b) sc[4 * jj + 3] = -INFINITY;
+        }
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * jj], sc[4 * jj + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      // a row with no live key yet keeps its exponents at -inf: p = 0
+      const float ms_a = mn_a == -INFINITY ? 0.0f : mn_a * scale_log2;
+      const float ms_b = mn_b == -INFINITY ? 0.0f : mn_b * scale_log2;
+      const float al_a =
+          m_a == -INFINITY ? 0.0f : exp2_approx(m_a * scale_log2 - ms_a);
+      const float al_b =
+          m_b == -INFINITY ? 0.0f : exp2_approx(m_b * scale_log2 - ms_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float rs_a = 0.0f, rs_b = 0.0f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        sc[4 * jj] = exp2_approx(fmaf(sc[4 * jj], scale_log2, -ms_a));
+        sc[4 * jj + 1] = exp2_approx(fmaf(sc[4 * jj + 1], scale_log2, -ms_a));
+        sc[4 * jj + 2] = exp2_approx(fmaf(sc[4 * jj + 2], scale_log2, -ms_b));
+        sc[4 * jj + 3] = exp2_approx(fmaf(sc[4 * jj + 3], scale_log2, -ms_b));
+        rs_a += sc[4 * jj] + sc[4 * jj + 1];
+        rs_b += sc[4 * jj + 2] + sc[4 * jj + 3];
+      }
+      // the quad's partial sums meet once, at the end
+      l_a = l_a * al_a + rs_a;
+      l_b = l_b * al_b + rs_b;
+#pragma unroll
+      for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          o[pn][4 * jj] *= al_a;
+          o[pn][4 * jj + 1] *= al_a;
+          o[pn][4 * jj + 2] *= al_b;
+          o[pn][4 * jj + 3] *= al_b;
+        }
+
+      // P in bf16: the accumulator fragment of keys 16kk .. 16kk + 15 is
+      // the A fragment of k-step kk
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int pn = 0; pn < kPanels; ++pn)
+          // 16 keys (rows of V) a step, 128 bytes a row; 8-row groups
+          // 1024 bytes apart in both directions
+          wgmma_rs(o[pn], pa[kk],
+                   sdesc(vt + pn * kKeys * 128 + kk * 16 * 128, 1024, 1024));
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int pn = 0; pn < kPanels; ++pn) pin(o[pn]);
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  bf16* op = out + bi * os.b + hi * os.h;
+  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * pn + 8 * jj + col_t;
+      if (row_a < s)
+        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row_a * os.s +
+                                           col) =
+            __floats2bfloat162_rn(o[pn][4 * jj] * inv_a,
+                                  o[pn][4 * jj + 1] * inv_a);
+      if (row_b < s)
+        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row_b * os.s +
+                                           col) =
+            __floats2bfloat162_rn(o[pn][4 * jj + 2] * inv_b,
+                                  o[pn][4 * jj + 3] * inv_b);
+    }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so the library
+// needs no link to libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of a (b, s, heads, d) bf16 tensor with (batch, sequence, head)
+// element strides st, D contiguous, read in boxes of 64 columns by
+// `rows` rows, 128-byte swizzled. Returns false where
+// cuTensorMapEncodeTiled refuses it.
+bool make_map(Map* m, const void* base, int b, int s, int heads, int d,
+              simt::Strides st, int rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  // the middle dims in increasing stride; a dim of one element is never
+  // stepped, so it takes the packed stride
+  const bool seq_first = st.s <= st.h;
+  m->seq = seq_first ? 1 : 2;
+  const long long inner = seq_first ? st.s : st.h;
+  const long long outer = seq_first ? st.h : st.s;
+  const int n_inner = seq_first ? s : heads, n_outer = seq_first ? heads : s;
+  const cuuint64_t e = 2;                        // bytes of a bf16
+  const cuuint64_t s1 = (cuuint64_t)inner * e;
+  const cuuint64_t s2 = n_outer > 1 ? (cuuint64_t)outer * e : s1 * n_inner;
+  const cuuint64_t s3 = b > 1 ? (cuuint64_t)st.b * e : s2 * n_outer;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n_inner,
+                              (cuuint64_t)n_outer, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {s1, s2, s3};
+  const cuuint32_t box[4] = {64, seq_first ? (cuuint32_t)rows : 1u,
+                             seq_first ? 1u : (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(&m->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kD>
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int s, int h, int kv, simt::Strides qs, simt::Strides ks,
+           simt::Strides vs, simt::Strides os, cudaStream_t stream) {
+  Map mq, mk, mv;
+  if (!make_map(&mq, q, b, s, h, kD, qs, kRows) ||
+      !make_map(&mk, k, b, s, kv, kD, ks, kKeys) ||
+      !make_map(&mv, v, b, s, kv, kD, vs, kKeys))
+    return (int)cudaErrorInvalidValue;
+  constexpr int bytes = smem_bytes<kD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(b * h, (s + kRows - 1) / kRows);
+  fa_tc_kernel<kD><<<grid, kThreads, bytes, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), s, h, h / kv, os,
+      1.4426950408889634f / sqrtf((float)(kD)));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 extern "C" {
 
 // q (b, s, h, d), k and v (b, s, kv, d) and out (b, s, h, d) through
 // (batch, sequence, head) element strides, D contiguous; all fp32
 // (dtype 0) or all bf16 (dtype 1); h a multiple of kv, 1 <= d <= 128.
-// Returns cudaGetLastError() after the launch.
+// The FFMA kernel. Returns cudaGetLastError() after the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int b, int s, int h, int kv, int d,
                            long long q_sb, long long q_ss, long long q_sh,
@@ -260,14 +719,38 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int dtype, void* stream) {
   if (b < 1 || s < 1 || kv < 1 || h % kv != 0 || d < 1)
     return (int)cudaErrorInvalidValue;
+  using simt::Strides;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, b, s, h, kv, d, qs, ks, vs, os, st);
+    return simt::dispatch<float>(q, k, v, out, b, s, h, kv, d, qs, ks, vs,
+                                 os, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, b, s, h, kv, d, qs, ks, vs,
-                                   os, st);
+    return simt::dispatch<__nv_bfloat16>(q, k, v, out, b, s, h, kv, d, qs,
+                                         ks, vs, os, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel: as flash_attention_launch, bf16 only, d = 64
+// or 128, every base and stride a multiple of 16 bytes (the wrapper
+// checks). Returns cudaGetLastError() after the launch.
+int flash_attention_tc_launch(const void* q, const void* k, const void* v,
+                              void* out, int b, int s, int h, int kv, int d,
+                              long long q_sb, long long q_ss, long long q_sh,
+                              long long k_sb, long long k_ss, long long k_sh,
+                              long long v_sb, long long v_ss, long long v_sh,
+                              long long o_sb, long long o_ss, long long o_sh,
+                              void* stream) {
+  if (b < 1 || s < 1 || kv < 1 || h % kv != 0)
+    return (int)cudaErrorInvalidValue;
+  const simt::Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return tc::launch<64>(q, k, v, out, b, s, h, kv, qs, ks, vs, os, st);
+  if (d == 128)
+    return tc::launch<128>(q, k, v, out, b, s, h, kv, qs, ks, vs, os, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,15 @@
-"""Causal flash attention: the CUDA kernel, its plain version and a
-launch counter.
+"""Causal flash attention: the CUDA kernels, their plain version and
+launch counters.
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py``
-(``flash_attention`` -> ``_flash_kernel``). Two wrappers launch the one
-kernel (``csrc/flash_attention.cu``, which holds the note on its design
-and its bound) and count on ``flash_attention.launches``:
+(``flash_attention`` -> ``_flash_kernel``). ``csrc/flash_attention.cu``
+holds two kernels and the note on their design and bound: one on the
+bf16 tensor cores (``wgmma``) and one in fp32 FFMA. :func:`route_for`
+picks one from the dtype and the head dim alone; a CUDA tensor
+launches that kernel or raises, never the other. Two wrappers launch
+them and count on ``flash_attention.launches`` (every launch), and on
+``flash_attention.launches_tc`` or ``flash_attention.launches_ffma``
+(the kernel's own):
 
 - :func:`flash_attention`, the reference's entry point: q, k, v
   (B, H, S, D) with the reference's checks on S and the blocks;
@@ -27,6 +32,51 @@ from .ref import flash_attention_ref
 NAME = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+TC_HEAD_DIMS = (64, 128)         # the head dims the tensor-core kernel takes
+# the tensor-core kernel against the plain version, beside the element
+# check at 3e-2: no query row's output may lie further than this from the
+# plain one, relative to the row's norm. Late rows of a long sequence
+# average many values and come out small, so a missing tile or a wrong
+# rounding there can hide under 3e-2 of each element; it cannot hide
+# here (tests/test_torch_lm_kernels.py plants such faults)
+ROW_REL_TOL = 1e-2
+
+
+def route_for(dtype, head_dim: int) -> str:
+    """The kernel a CUDA launch takes: ``"tc"``, the tensor cores, for
+    bf16 at a head dim of 64 or 128; ``"ffma"`` otherwise. fp32 stays on
+    FFMA because the tensor cores have no IEEE fp32 mode, and fp32 is
+    the strict parity route."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "ffma"
+
+
+def check_tc_operands(**tensors) -> None:
+    """Raise ``ValueError`` naming the first base address or
+    (batch, sequence, head) stride of a tensor-core operand that is not
+    a multiple of 16 bytes: the kernel reads its tiles through tensor
+    maps (TMA), which take no other."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name}'s base address is "
+                             f"not 16-byte aligned")
+        for axis in range(3):
+            if t.shape[axis] > 1 and t.stride(axis) * t.element_size() % 16:
+                raise ValueError(
+                    f"flash_attention: {name}.stride({axis}) = "
+                    f"{t.stride(axis)} elements is not a multiple of 16 "
+                    f"bytes")
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ``|got_i - want_i| / |want_i|`` over the query rows
+    i of two attention outputs (2-norms over the head dim, in fp32)."""
+    if want.numel() == 0:
+        return 0.0
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1)
+                  / w.norm(dim=-1).clamp_min(1e-30)).max())
 
 
 def flash_attention_plain(q, k, v, *, block_q: int = 256,
@@ -68,24 +118,53 @@ def _check(q, k, v, kv_axis):
                          f"multiple of {kv} kv heads")
 
 
-def _launch(q, k, v, out, b, s, h, kv, axes):
-    """One launch. ``axes`` = (batch, seq, head) axis of every tensor."""
+def _launch(q, k, v, out, b, s, h, kv, axes, route):
+    """One launch on ``route``. ``axes`` = (batch, seq, head) axis of
+    every tensor."""
     ab, as_, ah = axes
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(ab), t.stride(as_), t.stride(ah)]
     lib = _build.load(NAME)
-    fn = lib.flash_attention_launch
+    if route == "tc":
+        check_tc_operands(q=q.permute(ab, as_, ah, 3),
+                          k=k.permute(ab, as_, ah, 3),
+                          v=v.permute(ab, as_, ah, 3))
+        fn, extra = lib.flash_attention_tc_launch, []
+    else:
+        fn, extra = lib.flash_attention_launch, [DTYPES[q.dtype]]
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-        [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_longlong] * 12 + [ctypes.c_int] * len(extra) + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, h, kv, q.shape[-1], *strides, DTYPES[q.dtype],
+                b, s, h, kv, q.shape[-1], *strides, *extra,
                 _build.stream_ptr(q.device))
     _build.check(lib, NAME, rc)
     flash_attention.launches += 1
+    if route == "tc":
+        flash_attention.launches_tc += 1
+    else:
+        flash_attention.launches_ffma += 1
     return out
+
+
+def launch_gqa(q, k, v, route: str):
+    """The model's launch (q (B, S, H, D), k and v (B, S, KV, D), CUDA
+    tensors) on the named kernel, ``"tc"`` or ``"ffma"``, whichever
+    :func:`route_for` would pick: to time one kernel against the other
+    on the same inputs. The wrappers never call it."""
+    if route not in ("tc", "ffma"):
+        raise ValueError(f"flash_attention: no route {route!r}")
+    _check(q, k, v, kv_axis=2)
+    if route == "tc" and route_for(q.dtype, q.shape[-1]) != "tc":
+        raise ValueError(f"flash_attention: the tensor-core kernel takes "
+                         f"bf16 at head dims {TC_HEAD_DIMS}, not "
+                         f"{q.dtype} at {q.shape[-1]}")
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    return _launch(q, k, v, out, b, s, h, k.shape[2], (0, 1, 2), route)
 
 
 def flash_attention(q, k, v, *, block_q: int = 256, block_k: int = 256):
@@ -94,8 +173,8 @@ def flash_attention(q, k, v, *, block_q: int = 256, block_k: int = 256):
 
     The reference's contract: S divisible by ``block_q`` and ``block_k``
     after each is clipped to S. The blocks do not change the result;
-    the kernel keeps its own 64-row tiles. A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes
+    the kernels keep their own tiles. A CUDA tensor launches the kernel
+    :func:`route_for` picks (or raises); a CPU tensor takes
     :func:`flash_attention_plain`."""
     b, h, s, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
@@ -113,15 +192,16 @@ def flash_attention(q, k, v, *, block_q: int = 256, block_k: int = 256):
     out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    return _launch(q, k, v, out, b, s, h, h, axes=(0, 2, 1))
+    return _launch(q, k, v, out, b, s, h, h, axes=(0, 2, 1),
+                   route=route_for(q.dtype, d))
 
 
 def flash_attention_gqa(q, k, v):
     """The model's causal attention: q (B, S, H, D), k and v
     (B, S, KV, D) with H a multiple of KV -> (B, S, H, D) in q's dtype,
     softmax in fp32, ``scale = 1/sqrt(D)``, any S. A CUDA tensor
-    launches the kernel (or raises); a CPU tensor takes
-    :func:`flash_attention_gqa_plain`."""
+    launches the kernel :func:`route_for` picks (or raises); a CPU
+    tensor takes :func:`flash_attention_gqa_plain`."""
     if not q.is_cuda:
         return flash_attention_gqa_plain(q, k, v)
     _check(q, k, v, kv_axis=2)
@@ -132,7 +212,10 @@ def flash_attention_gqa(q, k, v):
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    return _launch(q, k, v, out, b, s, h, k.shape[2], axes=(0, 1, 2))
+    return _launch(q, k, v, out, b, s, h, k.shape[2], axes=(0, 1, 2),
+                   route=route_for(q.dtype, d))
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_ffma = 0

@@ -63,6 +63,14 @@ GQA_CASES = [(2, 100, 4, 2, 16), (1, 77, 6, 3, 64), (2, 128, 4, 1, 128),
 # ssd_intra cells (g, q, n, p): tests/test_kernels.py::test_ssd_intra's
 # three, the reduced configs' chunk, hymba-1.5b's and mamba2-780m's
 # cells, and Q = 256 with N and P off every power of two
+# the tensor-core attention kernel's sequence lengths: one row, a
+# ragged tile either side of 64, several tiles, one past 2048
+TC_SEQS = [1, 63, 65, 300, 2049]
+# centroid_update's determinism shapes: CU_SHAPES, one row, fewer rows
+# than one chunk of uci-xlarge's plan (3,972), K = 1024 at a ragged N,
+# and uci-xlarge itself
+CU_DET_SHAPES = CU_SHAPES + [(1, 5, 3), (3000, 32, 256),
+                             (100_003, 33, 1024), (1 << 20, 32, 256)]
 SSD_CASES = [(4, 32, 16, 32), (2, 128, 8, 64), (1, 16, 128, 16),
              (5, 8, 8, 32), (3, 128, 16, 128), (2, 128, 128, 64),
              (2, 256, 33, 100)]
@@ -178,6 +186,27 @@ def test_centroid_update_kernel_matches_plain(n, d, k):
                                 torch.ones(n, device="cuda"))
     s0, c0 = cu.centroid_update(x.cuda(), a.cuda(), k)
     assert torch.equal(s0, s1) and torch.equal(c0, c1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", CU_DET_SHAPES)
+def test_centroid_update_kernel_is_deterministic(n, d, k):
+    _need_card()
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(-1, k, size=n).astype(np.int32))
+    xc, ac = x.cuda(), a.cuda()
+    first = cu.centroid_update(xc, ac, k)
+    for again in (cu.centroid_update(xc, ac, k),
+                  cu.centroid_update(xc, ac, k, torch.ones(n, device="cuda"))):
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+    s_ref, c_ref = cu.centroid_update_plain(x, a, k)
+    np.testing.assert_allclose(first[0].cpu().numpy(), s_ref.numpy(),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(first[1].cpu().numpy(), c_ref.numpy())
+    none = cu.centroid_update(xc, torch.full_like(ac, -1), k)
+    assert not bool(none[0].any()) and not bool(none[1].any())
 
 
 @pytest.mark.cuda
@@ -310,6 +339,58 @@ def test_compact_fit_on_card_matches_cpu(refresh_in_pass):
 ATTN_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)]
 
 
+def _route_counts():
+    return {"tc": kernels.flash_attention.launches_tc,
+            "ffma": kernels.flash_attention.launches_ffma}
+
+
+def _moved(before):
+    """The one route whose launch count moved by one since ``before``."""
+    moved = {r: n - before[r] for r, n in _route_counts().items()}
+    assert sorted(moved.values()) == [0, 1], moved
+    return max(moved, key=moved.get)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", TC_SEQS)
+def test_flash_attention_tc_entry_point_matches_plain(s, d):
+    _need_card()
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).contiguous()
+               .to("cuda", torch.bfloat16)
+               for a in attn_inputs(2, s, 3, 3, d, s + d))
+    routes = _route_counts()
+    got = kernels.flash_attention(q, k, v, block_q=s, block_k=s)
+    torch.cuda.synchronize()
+    assert _moved(routes) == "tc"
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = fla.flash_attention_plain(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=3e-2,
+                               atol=3e-2)
+    assert fla.row_rel_err(got, want) <= fla.ROW_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4, 5])
+@pytest.mark.parametrize("s", TC_SEQS)
+def test_flash_attention_tc_gqa_matches_plain(s, rep, d):
+    _need_card()
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+               for a in attn_inputs(2, s, 2 * rep, 2, d, s * rep + d))
+    routes = _route_counts()
+    got = kernels.flash_attention_gqa(q, k, v)
+    torch.cuda.synchronize()
+    assert _moved(routes) == "tc"
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    want = fla.flash_attention_gqa_plain(q, k, v)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=3e-2,
+                               atol=3e-2)
+    assert fla.row_rel_err(got, want) <= fla.ROW_REL_TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", ATTN_DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,h,s,d,bq,bk", FA_CASES)
@@ -319,14 +400,18 @@ def test_flash_attention_kernel_matches_plain(b, h, s, d, bq, bk, dtype,
     q, k, v = (torch.from_numpy(a).transpose(1, 2).contiguous()
                .to("cuda", dtype) for a in attn_inputs(b, s, h, h, d, s + d))
     before = kernels.flash_attention.launches
+    routes = _route_counts()
     got = kernels.flash_attention(q, k, v, block_q=bq, block_k=bk)
     torch.cuda.synchronize()
     assert kernels.flash_attention.launches == before + 1
+    assert _moved(routes) == fla.route_for(dtype, d)
     assert got.shape == q.shape and got.dtype == dtype
     want = fla.flash_attention_plain(q, k, v)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
+    if fla.route_for(dtype, d) == "tc":
+        assert fla.row_rel_err(got, want) <= fla.ROW_REL_TOL
 
 
 @pytest.mark.cuda
@@ -338,14 +423,18 @@ def test_flash_attention_gqa_kernel_matches_plain(b, s, h, kv, d, dtype,
     q, k, v = (torch.from_numpy(a).to("cuda", dtype)
                for a in attn_inputs(b, s, h, kv, d, s * h))
     before = kernels.flash_attention.launches
+    routes = _route_counts()
     got = kernels.flash_attention_gqa(q, k, v)
     torch.cuda.synchronize()
     assert kernels.flash_attention.launches == before + 1
+    assert _moved(routes) == fla.route_for(dtype, d)
     assert got.shape == q.shape and got.dtype == dtype
     want = fla.flash_attention_gqa_plain(q, k, v)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
+    if fla.route_for(dtype, d) == "tc":
+        assert fla.row_rel_err(got, want) <= fla.ROW_REL_TOL
 
 
 @pytest.mark.cuda

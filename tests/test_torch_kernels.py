@@ -11,6 +11,8 @@ Tolerances: float outputs rtol 1e-5 / atol 1e-5 (the sums and dot
 products run in another order than XLA's); ids and counts exact.
 """
 import importlib
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -115,6 +117,50 @@ def test_centroid_update_unit_weights_bit_identical():
     s0, c0 = cu.centroid_update(x, a, 13)
     s1, c1 = cu.centroid_update(x, a, 13, torch.ones(777))
     assert torch.equal(s0, s1) and torch.equal(c0, c1)
+
+
+# every shape the first kernel took (its check: (32 K + K) * 4 bytes of
+# shared memory at most 232,448, so K <= 1760), from one row to
+# uci-xlarge and uci-highk
+PLAN_SHAPES = CU_SHAPES + [(1, 5, 3), (0, 4, 2), (3000, 32, 256),
+                           (100_003, 33, 1024), (1 << 20, 32, 256),
+                           (262_144, 32, 1024), (65_536, 128, 1024),
+                           (1000, 32, 1760), (77, 1, 1760)]
+
+
+@pytest.mark.parametrize("n,d,k", PLAN_SHAPES)
+def test_centroid_update_plan_fits_and_covers(n, d, k):
+    p = cu.plan(n, d, k)
+    assert p == cu.plan(n, d, k)             # a function of the shapes
+    assert p.smem == 4 * p.warps * p.warp_floats <= 232_448
+    assert p.warp_floats % 4 == 0            # 16-byte aligned warps
+    # the .cu's warp_floats_needed: x ring, accumulator, counts, labels
+    # and weights
+    assert p.warp_floats >= cu.STAGES * p.stage_rows * (p.tile + 2) \
+        + k * p.tile + k
+    assert 1 <= p.warps <= 8 and 1 <= p.tile <= 32
+    if p.warps > 1:                          # two blocks an SM
+        assert 2 * (p.smem + cu.BLOCK_RESERVED) <= cu.SM_SMEM
+    assert p.d_tiles * p.tile >= d > (p.d_tiles - 1) * p.tile
+    assert p.chunks * p.rows_per_chunk >= n
+    assert (p.chunks - 1) * p.rows_per_chunk < max(n, 1)   # none empty
+    assert p.warps * p.rows_per_warp >= p.rows_per_chunk
+
+
+def test_centroid_update_plan_constants_match_the_kernel_source():
+    src = (Path(cu.__file__).parent / "csrc" / "centroid_update.cu") \
+        .read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kStages"]), int(consts["kGroup"])) == \
+        (cu.STAGES, cu.GROUP)
+
+
+def test_centroid_update_plan_takes_every_k_the_first_kernel_took():
+    for k in list(range(1, 1761, 29)) + [1760]:
+        assert cu.plan(1 << 20, 32, k).smem <= cu.SMEM_LIMIT
+    assert cu.plan(1 << 20, 32, 256).chunks == cu.TARGET_BLOCKS
+    with pytest.raises(ValueError, match="shared memory"):
+        cu.plan(10, 4, 40_000)
 
 
 @pytest.mark.parametrize("n,tile_n", [(600, 256), (512, 256), (130, 64)])

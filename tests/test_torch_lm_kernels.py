@@ -12,6 +12,9 @@ tests in ``test_torch_cuda.py``.
 Tolerances are those of ``tests/test_kernels.py``: attention rtol/atol
 1e-5 in fp32 and 3e-2 in bf16, ``ssd_intra`` rtol/atol 1e-5.
 """
+import importlib
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +26,8 @@ from repro.kernels.ref import flash_attention_ref, ssd_intra_ref
 from repro_torch.kernels import ref as tref
 from test_torch_cuda import (FA_CASES, GQA_CASES, SSD_CASES, attn_inputs,
                              ssd_inputs)
+
+fla = importlib.import_module("repro_torch.kernels.flash_attention")
 
 DTYPES = [(jnp.float32, torch.float32, 1e-5),
           (jnp.bfloat16, torch.bfloat16, 3e-2)]
@@ -130,3 +135,77 @@ def test_port_oracles_match_jax_oracles():
     want = ssd_intra_ref(*(jnp.asarray(a) for a in (c, b, x, cum)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 16, "ffma"), (torch.bfloat16, 32, "ffma"),
+    (torch.bfloat16, 96, "ffma"), (torch.float32, 64, "ffma"),
+    (torch.float32, 128, "ffma"), (torch.float32, 16, "ffma")])
+def test_flash_attention_route_by_dtype_and_head_dim(dtype, d, route):
+    assert fla.route_for(dtype, d) == route
+    # on the CPU neither kernel runs, whatever the route
+    counts = (tk.flash_attention.launches_tc,
+              tk.flash_attention.launches_ffma)
+    q = torch.zeros((1, 3, 2, d), dtype=dtype)
+    assert tk.flash_attention_gqa(q, q[:, :, :1], q[:, :, :1]).shape == \
+        q.shape
+    assert (tk.flash_attention.launches_tc,
+            tk.flash_attention.launches_ffma) == counts
+
+
+def test_flash_attention_tc_operands_need_16_byte_strides():
+    q = torch.zeros((2, 9, 4, 72), dtype=torch.bfloat16)
+    fla.check_tc_operands(q=q[..., :64], k=q[:, :, :1, :64])
+    # 73 bf16 a row: 146 bytes (axes of one element are never stepped)
+    with pytest.raises(ValueError, match=r"k\.stride\(1\) = 73 elements"):
+        fla.check_tc_operands(
+            k=torch.zeros((1, 9, 1, 73), dtype=torch.bfloat16)[..., :64])
+    with pytest.raises(ValueError, match="v's base address"):
+        fla.check_tc_operands(
+            v=torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)[1:]
+            .view(1, 4, 1, 64))
+
+
+def _tc_like(q, k, v, fault=None):
+    """In plain torch, what the tensor-core kernel computes from bf16
+    q, k, v (B, H, S, D): fp32 scores and softmax, P rounded to bf16 for
+    P.V, the output rounded to bf16. ``fault`` plants a defect: ``tile``
+    leaves out keys 0-63 for the last 64 query rows of head 0;
+    ``unnormalised`` skips the division by the softmax's sum; ``fp8_p``
+    rounds P to float8 e4m3 instead of bf16."""
+    s, d = q.shape[-2], q.shape[-1]
+    scores = q.float() @ k.float().transpose(-1, -2) / math.sqrt(d)
+    keep = torch.ones(s, s, dtype=torch.bool).tril().expand(
+        scores.shape).clone()
+    if fault == "tile":
+        keep[:, 0, s - 64:, :64] = False
+    scores = scores.masked_fill(~keep, float("-inf"))
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    total = p.sum(-1, keepdim=True)
+    p = p.to(torch.float8_e4m3fn if fault == "fp8_p" else torch.bfloat16)
+    out = p.float() @ v.float()
+    if fault != "unnormalised":
+        out = out / total
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("fault", [None, "tile", "unnormalised", "fp8_p"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_row_check_catches_planted_faults(d, fault):
+    q, k, v = (torch.from_numpy(a).transpose(1, 2).to(torch.bfloat16)
+               for a in attn_inputs(1, 2048, 2, 2, d, d))
+    want = fla.flash_attention_plain(q, k, v)
+    got = _tc_like(q, k, v, fault)
+    err = fla.row_rel_err(got, want)
+    if fault is None:
+        # the one extra rounding passes both checks
+        np.testing.assert_allclose(_np(got), _np(want), rtol=3e-2,
+                                   atol=3e-2)
+        assert err <= fla.ROW_REL_TOL / 2
+    else:
+        assert err > 2 * fla.ROW_REL_TOL
+    if fault == "fp8_p":
+        # a rounding this coarse stays under 3e-2 of every element
+        np.testing.assert_allclose(_np(got), _np(want), rtol=3e-2,
+                                   atol=3e-2)
