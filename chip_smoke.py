@@ -8,17 +8,24 @@ the order they run:
 
 1. build every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
    compiler process per source, all at once; log ``-Xptxas -v``
-   (registers, shared memory, spills) of every kernel, in full for
-   ``flash_attention`` and ``centroid_update``, and count the ``HGMMA``
+   (registers, shared memory, spills) of every kernel, in full for the
+   four redesigned for this card (``flash_attention``,
+   ``centroid_update``, ``grouped_assign``, ``ssd_intra``), and count the
+   ``HGMMA``
    instructions in the built ``flash_attention`` library
    (``cuobjdump -sass``; none where ``cuobjdump`` exists fails the run);
 2. ``grouped_assign`` and ``centroid_update`` against their plain
    versions on the card at the main path's shapes, uci-highk's group
    shape, Hamerly at D = 128, K = 1024, and a ragged N at mask
-   densities 0, 0.3 and 1; times of the kernel, the plain version and
-   the library call, beside the least time the card could take;
-   ``centroid_update`` timed in turns (plain, ``index_add_``, kernel,
-   kernel, ``index_add_``, plain) and its two passes apart under
+   densities 0, 0.3 and 1; ``grouped_assign`` also at a group a
+   centroid, with -1 slots inside the rows (Hamerly too) and at tiles of
+   32 and 1024 points, and in every case bit for bit against the port's
+   first kernel (``grouped_assign_simple``) on the same inputs; times of
+   the kernel, the plain version and the library call, beside the least
+   time the card could take; ``grouped_assign`` at uci-xlarge timed in
+   turns against the first kernel (first, kernel, kernel, first),
+   ``centroid_update`` in turns (plain, ``index_add_``, kernel, kernel,
+   ``index_add_``, plain) and its two passes apart under
    ``torch.profiler``;
 2b. ``pairwise_sq_dists`` (uci-xlarge in fp32 and bf16, a ragged
    N = 100,003, D = 33, K = 77) and ``filtered_assign`` (uci-highk and
@@ -30,7 +37,10 @@ the order they run:
 3. the main path at the paper suite's ``uci-xlarge`` problem
    (N = 2^20, D = 32, K = 256, G = 25): ``KMeans(algorithm="yinyang",
    engine="auto").fit`` and ``predict`` on the same points, with every
-   kernel's launch count reset just before and read just after;
+   kernel's launch count reset just before and read just after; then
+   the same fit with ``grouped_assign`` swapped for the port's first
+   kernel, which must give the same labels, ``n_iters`` and
+   ``distance_evals``;
 4. the same fit with every kernel swapped for its plain PyTorch version,
    on the card: in lockstep pass by pass, then as whole fits (``n_iters``
    equal, inertia within rtol 1e-5);
@@ -61,7 +71,11 @@ the order they run:
    S = 2048, 25/5 heads of 64, bf16), at a ragged S and in fp32, the
    model's SSD launch at hymba-1.5b's prefill and mamba2-780m's cell
    (Q = 128, N = 128, P = 64), also with decays that overflow above the
-   diagonal; the path's shapes timed beside the bound and, for
+   diagonal, and both cells at Q = 100; the SSD kernel keeps at least 16
+   warps resident an SM at both cells' widths (the CUDA occupancy
+   calculator); the path's shapes timed by CUDA events, as every
+   kernel (``ssd_intra`` also by its device time under
+   ``torch.profiler``, ``device_ms``), beside the bound and, for
    attention, ``scaled_dot_product_attention``; attention in bf16 at
    head dims 64 and 128 takes the tensor-core kernel, fp32 the FFMA one
    (each case checks which launch counter moved), the prefill's shape
@@ -416,7 +430,11 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
             nbytes = 4 * sum(a.numel() for a in args) + 4 * x.numel()
             flops = cells * q * (q + 1) / 2 * 2.0 * (n + p)
             bound_ms, by = roof(nbytes, flops, bw, fp32)
+            # ms by events, as every row of the kernels line; beside it
+            # the kernel's own device time under the profiler, which
+            # leaves out the host's work before the first call of a timing
             entry.update(ms=median_ms(lambda: fn(*args)),
+                         device_ms=device_ms_by_kernel(lambda: fn(*args)),
                          plain_ms=median_ms(lambda: plain(*args), reps=3,
                                             inner=1),
                          bound_ms=bound_ms, bound_by=by, library_ms=None)
@@ -470,6 +488,20 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
     ssd_case("steep decays, Q=256 N=33 P=100",
              [randn(64, 256, 33) for _ in range(2)]
              + [randn(64, 256, 100), cum_of((64, 256), 1, steep=True)])
+    # a Q the kernel's 32-row blocks do not divide, at both cells' widths
+    ssd_case(f"{cfg.name} cells Q=100 (chunk launch)",
+             [randn(b, 4, 100, m.n_groups, m.d_state) for _ in range(2)]
+             + [randn(b, 4, 100, m.n_heads, m.head_dim),
+                cum_of((b, 4, 100, m.n_heads), 2)], chunks=True)
+    ssd_case("mamba2-780m cells Q=100 (entry point)",
+             [randn(256, 100, m2.d_state) for _ in range(2)]
+             + [randn(256, 100, m2.head_dim), cum_of((256, 100), 1)])
+    # at least 16 warps an SM stay resident at both cells' widths
+    for nn_, pp_ in ((m.d_state, m.head_dim), (m2.d_state, m2.head_dim)):
+        warps = ssd.resident_warps(nn_, pp_)
+        log(f"ssd_intra N={nn_} P={pp_}: {warps} warps resident an SM")
+        check(warps >= 16, f"ssd_intra N={nn_} P={pp_}: {warps} warps "
+              f"resident an SM, fewer than 16")
     return attn_main, ssd_main
 
 
@@ -671,8 +703,8 @@ def _leaves(tree):
 # the port's own kernels (csrc/*.cu's __global__ functions), as the
 # profiler names them
 PORT_KERNEL = re.compile(r"^(void )?(\(anonymous namespace\)|tc|simt)::"
-                         r"(ga|cu_partial|cu_reduce|psd|fa|fa_tc|ssd)"
-                         r"(_kernel)?[<(]")
+                         r"(ga|ga_plan|ga_simple|cu_partial|cu_reduce|psd|fa|"
+                         r"fa_tc|ssd)(_kernel)?[<(]")
 
 
 def traced(fn, label):
@@ -764,8 +796,9 @@ def main() -> None:
     report["build_s"] = build_s
     log(f"build: {len(logs)} sources in {build_s:.2f} s")
     for src, text in logs.items():
-        # in full for the two kernels redesigned for this card
-        full = src in ("flash_attention", "centroid_update")
+        # in full for the kernels redesigned for this card
+        full = src in ("flash_attention", "centroid_update",
+                       "grouped_assign", "ssd_intra")
         for line in text.splitlines():
             if (full and "Compile time" not in line) or "registers" in line \
                     or "spill" in line:
@@ -821,10 +854,35 @@ def main() -> None:
 
     gen = torch.Generator(device=dev).manual_seed(7)
 
-    def ga_case(label, x, centroids, n_groups, density, timed=False):
-        tile_n = 256
+    def spread(members):
+        """The membership table with each group's ids spread over a row
+        3 slots wider, -1 between and around them: -1 inside rows."""
+        g_, lm = members.shape
+        keys = torch.rand((g_, lm + 3), generator=gen, device=dev)
+        wide = torch.full((g_, lm + 3), -1, dtype=torch.int32, device=dev)
+        for gg in range(g_):
+            ids_ = members[gg][members[gg] >= 0]
+            at = keys[gg].argsort()[:len(ids_)].sort().values
+            wide[gg, at] = ids_
+        return wide
+
+    def ga_case(label, x, centroids, n_groups, density, timed=False,
+                tile_n=256, layout="tail"):
+        """The kernel against its plain version and, bit for bit,
+        against the port's first kernel on the same inputs. ``layout``:
+        "tail" as the engine builds the table, "one" a group a centroid,
+        "holes" -1 slots inside the rows (``spread``)."""
         cents = centroids.contiguous()
-        groups, members, gsize = engine.build_assign_tables(cents, n_groups)
+        if layout == "one":
+            kk = cents.shape[0]
+            members = torch.arange(kk, dtype=torch.int32,
+                                   device=dev)[:, None].contiguous()
+            gsize = torch.ones(kk, dtype=torch.int64, device=dev)
+        else:
+            groups, members, gsize = engine.build_assign_tables(cents,
+                                                                n_groups)
+            if layout == "holes":
+                members = spread(members)
         g, lmax = members.shape
         mem_s = members.clamp_min(0).long()
         c_grouped = cents[mem_s].contiguous()
@@ -838,7 +896,13 @@ def main() -> None:
         kw = dict(tile_n=tile_n, x2=x2, c2g=c2g)
         got = kernels.grouped_assign(*args, **kw)
         want = ga_mod.grouped_assign_plain(*args, **kw)
+        first = ga_mod.grouped_assign_simple(*args, **kw)
         sync()
+        for nm_, a, b in zip(("best", "idx", "gmin", "garg", "gmin2"), got,
+                             first):
+            check(torch.equal(a, b), f"{label}: {nm_} differs from the "
+                  f"first kernel's (grouped_assign_simple) bits")
+        del first
         # the expanded form loses bits to cancellation against the norms
         atol = 1e-5 * (float(x2.max()) + float(c2.max()))
         err = 0.0
@@ -872,20 +936,33 @@ def main() -> None:
         live = mask.long().repeat_interleave(tile_n, 0)[:x.shape[0]]
         pairs = int((live * gsize[None, :]).sum())
         entry = dict(case=label, n=x.shape[0], d=x.shape[1],
-                     k=cents.shape[0], g=g, lmax=lmax, density=density,
-                     max_abs_err=err, atol=atol, tie_diffs=ties)
+                     k=cents.shape[0], g=g, lmax=lmax, tile_n=tile_n,
+                     layout=layout, density=density, max_abs_err=err,
+                     atol=atol, tie_diffs=ties, equals_first_kernel=True)
         if timed:
             n_, d_ = x.shape
             nbytes = 4 * (n_ * d_ + n_ + g * lmax * (d_ + 2)) + gn * g \
                 + 8 * n_ + 12 * n_ * g
             bound_ms, by = bound(nbytes, 2.0 * d_ * pairs)
-            entry.update(ms=cuda_ms(lambda: kernels.grouped_assign(*args,
-                                                                   **kw)),
+
+            def new():
+                return kernels.grouped_assign(*args, **kw)
+
+            def old():
+                return ga_mod.grouped_assign_simple(*args, **kw)
+            # in turns: the first kernel, the new one, the new, the first
+            turns = {"earlier": [cuda_ms(old)]}
+            turns["new"] = [cuda_ms(new), cuda_ms(new)]
+            turns["earlier"].append(cuda_ms(old))
+            entry.update(ms=statistics.mean(turns["new"]),
+                         earlier_ms=statistics.mean(turns["earlier"]),
+                         turns_ms=turns,
                          plain_ms=cuda_ms(
                              lambda: ga_mod.grouped_assign_plain(*args,
                                                                  **kw),
                              reps=3),
-                         bound_ms=bound_ms, bound_by=by, library_ms=None)
+                         bound_ms=bound_ms, bound_by=by, library_ms=None,
+                         device_ms=device_ms_by_kernel(new))
         log(f"grouped_assign {label}: {json.dumps(entry)}")
         return entry
 
@@ -964,6 +1041,19 @@ def main() -> None:
     hm = torch.from_numpy(hm_np).to(dev)
     ga_case("hamerly D=128 K=1024 G=1", hm, hm[::64][:1024].contiguous(),
             1, 1.0)
+    # groups wider than a batch of staged slots, with -1 inside them
+    ga_case("hamerly D=128 K=1024 G=1, -1 inside", hm,
+            hm[::64][:1024].contiguous(), 1, 1.0, layout="holes")
+    # a group a centroid, -1 inside the rows, and tiles of 32 and 1024
+    # points, at uci-xlarge's data and centres
+    for dens in (0.0, 0.3, 1.0):
+        ga_case(f"uci-xlarge a group a centroid density {dens}", points,
+                centers, k, dens, layout="one")
+        ga_case(f"uci-xlarge -1 inside rows density {dens}", points,
+                centers, 25, dens, layout="holes")
+    for tn in (32, 1024):
+        ga_case(f"uci-xlarge tile_n={tn} density 0.3", points, centers, 25,
+                0.3, tile_n=tn)
     hm_lab = torch.randint(0, 1024, (65_536,), generator=gen, device=dev,
                            dtype=torch.int32)
     cu_case("D=128 K=1024", hm, hm_lab, 1024)
@@ -1153,11 +1243,36 @@ def main() -> None:
               f"predict disagrees with fit labels on {len(mism)} points "
               f"that are not ties")
     log(f"predict vs fit labels: {len(mism)} differ (ties only)")
+    # the same fit through the port's first grouped_assign kernel: the
+    # kernel gives that one's bits, so the fit must be the same to the
+    # label, iteration and pair
+    km_first = KMeans(k, algorithm="yinyang", engine="auto",
+                      max_iters=XLARGE["max_iters"], tol=XLARGE["tol"],
+                      seed=0, device=dev)
+    kernels.grouped_assign = ga_mod.grouped_assign_simple
+    try:
+        sync()
+        t0 = time.perf_counter()
+        km_first.fit(points)
+        sync()
+        first_fit_s = time.perf_counter() - t0
+    finally:
+        kernels.grouped_assign = wrappers["grouped_assign"]
+    r_first = km_first.result_
+    log(f"fit through the first grouped_assign kernel: {first_fit_s:.3f} s, "
+        f"n_iters={int(r_first.n_iters)}, distance_evals="
+        f"{int(r_first.distance_evals)}")
+    check(torch.equal(r_first.assignments, res.assignments)
+          and int(r_first.n_iters) == n_iters
+          and int(r_first.distance_evals) == evals,
+          "the fit through the first grouped_assign kernel differs from the "
+          "main path's in labels, n_iters or distance_evals")
     report["main"] = dict(fit_s=fit_s, predict_s=predict_s, n_iters=n_iters,
                           distance_evals=evals, work_vs_lloyd=work,
                           host_syncs=stats.host_syncs,
                           inertia=float(res.inertia), launches=launches,
-                          predict_points_per_s=n / predict_s)
+                          predict_points_per_s=n / predict_s,
+                          first_kernel_fit_s=first_fit_s)
 
     # -- 4. plain versions on the card: in lockstep, then a whole fit -----
     # In lockstep every pass runs twice on the same carry, once through
@@ -1495,12 +1610,14 @@ def main() -> None:
     report["serve"] = serve_rep
 
     def row(nm, entry, source, replaces, path_launches):
-        return {"name": nm, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": path_launches[nm],
-                "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
-                "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
-                "bound_by": entry["bound_by"],
-                "library_ms": entry["library_ms"]}
+        r = {"name": nm, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": path_launches[nm],
+             "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
+             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+             "bound_by": entry["bound_by"], "library_ms": entry["library_ms"]}
+        if "earlier_ms" in entry:       # the kernel it replaced, in turns
+            r["earlier_ms"] = entry["earlier_ms"]
+        return r
 
     line = {"kernels": [
         row("grouped_assign", ga_main,

@@ -17,6 +17,7 @@ turns into an exception.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict = {}
 
 
 def _nvcc() -> str:
@@ -100,10 +102,36 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+def entry(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library with its
+    ctypes signature, set once per library (setting it on every call
+    costs a launch more host time than the kernel takes)."""
+    lib = load(name)
+    cached = _ENTRIES.get((name, symbol))
+    # the library object itself is held and compared: a library swapped
+    # into _LIBS never reaches a function of the one it replaced
+    if cached is not None and cached[0] is lib:
+        return cached[1]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    _ENTRIES[(name, symbol)] = (lib, fn)
+    return fn
+
+
+def on_device(device):
+    """A context that makes ``device`` current, or none where it is."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a C entry point of ``csrc/<name>.cu`` returned a CUDA
+    error."""
     if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        msg = getattr(load(name), f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"{msg} (cudaError {rc})")
 

@@ -160,19 +160,17 @@ def centroid_update(points, labels, k: int, weights=None):
                        device=dev)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
-    lib = _build.load(NAME)
-    fn = lib.centroid_update_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
+    fn = _build.entry(NAME, "centroid_update_launch",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 +
+                      [ctypes.c_void_p])
+    with _build.on_device(dev):
         rc = fn(points.data_ptr(), labels.data_ptr(),
                 None if weights is None else weights.data_ptr(),
                 part.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, d,
                 k, p.warps, p.tile, p.stage_rows, chunks, p.rows_per_chunk,
                 p.rows_per_warp, p.warp_floats, p.smem,
                 _build.stream_ptr(dev))
-    _build.check(lib, NAME, rc)
+    _build.check(NAME, rc)
     centroid_update.launches += 1
     return sums, counts
 

@@ -61,15 +61,13 @@ def pairwise_sq_dists(x, c, *, tile_n: int = 256, tile_k: int = 128):
     out = torch.empty((n, k), dtype=torch.float32, device=x.device)
     if n == 0 or k == 0:
         return out
-    lib = _build.load(NAME)
-    fn = lib.pairwise_sq_dists_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
+    fn = _build.entry(NAME, "pairwise_sq_dists_launch",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 +
+                      [ctypes.c_void_p])
+    with _build.on_device(x.device):
         rc = fn(x.data_ptr(), c.data_ptr(), out.data_ptr(), n, k, d,
                 DTYPES[x.dtype], _build.stream_ptr(x.device))
-    _build.check(lib, NAME, rc)
+    _build.check(NAME, rc)
     pairwise_sq_dists.launches += 1
     return out
 

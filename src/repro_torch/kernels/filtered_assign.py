@@ -82,16 +82,14 @@ def filtered_assign(x, c, block_mask, *, tile_n: int = 256,
     idx = torch.empty((n,), dtype=torch.int32, device=x.device)
     if n == 0:
         return best, idx
-    lib = _build.load(NAME)
-    fn = lib.filtered_assign_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
+    fn = _build.entry(NAME, "filtered_assign_launch",
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 +
+                      [ctypes.c_void_p])
+    with _build.on_device(x.device):
         rc = fn(x.data_ptr(), x2.data_ptr(), c.data_ptr(), c2.data_ptr(),
                 block_mask.data_ptr(), best.data_ptr(), idx.data_ptr(), n,
                 k, d, tile_n, tile_k, _build.stream_ptr(x.device))
-    _build.check(lib, NAME, rc)
+    _build.check(NAME, rc)
     filtered_assign.launches += 1
     return best, idx
 

@@ -125,23 +125,22 @@ def _launch(q, k, v, out, b, s, h, kv, axes, route):
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(ab), t.stride(as_), t.stride(ah)]
-    lib = _build.load(NAME)
     if route == "tc":
         check_tc_operands(q=q.permute(ab, as_, ah, 3),
                           k=k.permute(ab, as_, ah, 3),
                           v=v.permute(ab, as_, ah, 3))
-        fn, extra = lib.flash_attention_tc_launch, []
+        symbol, extra = "flash_attention_tc_launch", []
     else:
-        fn, extra = lib.flash_attention_launch, [DTYPES[q.dtype]]
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-        [ctypes.c_longlong] * 12 + [ctypes.c_int] * len(extra) + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
+        symbol, extra = "flash_attention_launch", [DTYPES[q.dtype]]
+    fn = _build.entry(NAME, symbol,
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
+                      [ctypes.c_longlong] * 12 +
+                      [ctypes.c_int] * len(extra) + [ctypes.c_void_p])
+    with _build.on_device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, s, h, kv, q.shape[-1], *strides, *extra,
                 _build.stream_ptr(q.device))
-    _build.check(lib, NAME, rc)
+    _build.check(NAME, rc)
     flash_attention.launches += 1
     if route == "tc":
         flash_attention.launches_tc += 1

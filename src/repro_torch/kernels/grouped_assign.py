@@ -4,7 +4,11 @@ its plain version and a launch counter.
 Replaces the Pallas kernel ``repro/kernels/grouped_assign.py``
 (``grouped_assign`` -> ``_grouped_assign_kernel``), the engine's
 candidate pass on the accelerator. ``csrc/grouped_assign.cu`` holds the
-kernel and the note on its design, its tie rules and its bound.
+kernel and the note on its design, its tie rules and its bound; its
+launch refuses a shape the kernel cannot take (``cudaErrorInvalidValue``,
+raised here as ``RuntimeError``), so this module keeps no copy of the
+kernel's layout. The first kernel of the port stays in the same source
+as a yardstick, reached only through :func:`grouped_assign_simple`.
 """
 from __future__ import annotations
 
@@ -15,12 +19,6 @@ import torch
 from . import _build
 
 NAME = "grouped_assign"
-SLOTS = 32                       # centroid slots per shared-memory chunk
-SMEM_LIMIT = 232_448             # bytes of shared memory a block can use
-
-
-def _smem_bytes(d: int, tile_n: int) -> int:
-    return 4 * (d * (tile_n + 1) + SLOTS * d + 2 * SLOTS)
 
 
 def grouped_assign_plain(x, c_grouped, ids, block_mask, *,
@@ -81,13 +79,55 @@ def _check(x, c_grouped, ids, block_mask, tile_n, x2, c2g):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("grouped_assign: inputs must be contiguous")
     if not 32 <= tile_n <= 1024:
-        raise ValueError(f"grouped_assign: tile_n must be in [32, 1024] "
-                         f"(one thread per point), got {tile_n}")
-    smem = _smem_bytes(d, tile_n)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"grouped_assign: D={d} at tile_n={tile_n} needs "
-                         f"{smem} bytes of shared memory, more than "
-                         f"{SMEM_LIMIT}")
+        raise ValueError(f"grouped_assign: tile_n must be in [32, 1024], "
+                         f"got {tile_n}")
+
+
+def _launch(simple, x, c_grouped, ids, block_mask, tile_n, x2, c2g):
+    """Launch ``csrc/grouped_assign.cu``'s kernel, or with ``simple`` its
+    first kernel, on the card; the norms are computed where not given."""
+    if x2 is None:
+        x2 = torch.sum(x * x, dim=-1)
+    if c2g is None:
+        c2g = torch.sum(c_grouped * c_grouped, dim=-1)
+    _check(x, c_grouped, ids, block_mask, tile_n, x2, c2g)
+    n, d = x.shape
+    g, lmax = ids.shape
+    dev = x.device
+    best = torch.empty((n,), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    gmin = torch.empty((n, g), dtype=torch.float32, device=dev)
+    garg = torch.empty((n, g), dtype=torch.int32, device=dev)
+    gmin2 = torch.empty((n, g), dtype=torch.float32, device=dev)
+    if n == 0:
+        return best, idx, gmin, garg, gmin2
+    ptrs = [t.data_ptr() for t in (x, x2, c_grouped, c2g, ids, block_mask,
+                                   best, idx, gmin, garg, gmin2)]
+    if simple:
+        fn = _build.entry(NAME, "grouped_assign_simple_launch",
+                          [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 +
+                          [ctypes.c_void_p])
+        extra = []
+    else:
+        fn = _build.entry(NAME, "grouped_assign_launch",
+                          [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 +
+                          [ctypes.c_void_p])
+        ints = _build.entry(NAME, "grouped_assign_scratch_ints",
+                            [ctypes.c_int, ctypes.c_int])(g, lmax)
+        scratch = torch.empty((ints,), dtype=torch.int32, device=dev)
+        extra = [scratch.data_ptr(), ints]
+    with _build.on_device(dev):
+        rc = fn(*ptrs, *extra, n, d, g, lmax, tile_n, _build.stream_ptr(dev))
+    _build.check(NAME, rc)
+    return best, idx, gmin, garg, gmin2
+
+
+def points(d: int, g: int) -> int:
+    """Points a lane of the kernel takes at (D, G): 8, 4, 2 or 1, or 0
+    for a shape the launch refuses (the .cu's ``grouped_assign_points``,
+    which the launch itself uses)."""
+    return _build.entry(NAME, "grouped_assign_points",
+                        [ctypes.c_int, ctypes.c_int])(d, g)
 
 
 def grouped_assign(x, c_grouped, ids, block_mask, *, tile_n: int = 256,
@@ -105,35 +145,20 @@ def grouped_assign(x, c_grouped, ids, block_mask, *, tile_n: int = 256,
     if not x.is_cuda:
         return grouped_assign_plain(x, c_grouped, ids, block_mask,
                                     tile_n=tile_n, x2=x2, c2g=c2g)
-    if x2 is None:
-        x2 = torch.sum(x * x, dim=-1)
-    if c2g is None:
-        c2g = torch.sum(c_grouped * c_grouped, dim=-1)
-    _check(x, c_grouped, ids, block_mask, tile_n, x2, c2g)
-    n, d = x.shape
-    g, lmax = ids.shape
-    dev = x.device
-    best = torch.empty((n,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    gmin = torch.empty((n, g), dtype=torch.float32, device=dev)
-    garg = torch.empty((n, g), dtype=torch.int32, device=dev)
-    gmin2 = torch.empty((n, g), dtype=torch.float32, device=dev)
-    if n == 0:
-        return best, idx, gmin, garg, gmin2
-    lib = _build.load(NAME)
-    fn = lib.grouped_assign_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), x2.data_ptr(), c_grouped.data_ptr(),
-                c2g.data_ptr(), ids.data_ptr(), block_mask.data_ptr(),
-                best.data_ptr(), idx.data_ptr(), gmin.data_ptr(),
-                garg.data_ptr(), gmin2.data_ptr(), n, d, g, lmax, tile_n,
-                _build.stream_ptr(dev))
-    _build.check(lib, NAME, rc)
+    out = _launch(False, x, c_grouped, ids, block_mask, tile_n, x2, c2g)
     grouped_assign.launches += 1
-    return best, idx, gmin, garg, gmin2
+    return out
+
+
+def grouped_assign_simple(x, c_grouped, ids, block_mask, *,
+                          tile_n: int = 256, x2=None, c2g=None):
+    """The port's first ``grouped_assign`` kernel (one thread per point,
+    every slot of a 32-slot chunk computed), kept as the yardstick the
+    kernel is held to bit for bit and timed against. CUDA tensors only;
+    no path of the port calls it, and it counts no launch."""
+    if not x.is_cuda:
+        raise ValueError("grouped_assign_simple: CUDA tensors expected")
+    return _launch(True, x, c_grouped, ids, block_mask, tile_n, x2, c2g)
 
 
 grouped_assign.launches = 0

@@ -50,19 +50,30 @@ def ssd_intra_chunks_plain(C, B, x, cum):
     return torch.einsum("bcijh,bcjhp->bcihp", scores * decay, x.float())
 
 
+_LAUNCH_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+    [ctypes.c_longlong] * 15 + [ctypes.c_void_p]
+
+
 def _launch(c, b, x, cum, out, outer, heads, groups, q, n, p, strides):
-    lib = _build.load(NAME)
-    fn = lib.ssd_intra_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 15 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
+    fn = _build.entry(NAME, "ssd_intra_launch", _LAUNCH_ARGS)
+    with _build.on_device(x.device):
         rc = fn(c.data_ptr(), b.data_ptr(), x.data_ptr(), cum.data_ptr(),
                 out.data_ptr(), outer, heads, groups, q, n, p, *strides,
                 _build.stream_ptr(x.device))
-    _build.check(lib, NAME, rc)
+    _build.check(NAME, rc)
     ssd_intra.launches += 1
     return out
+
+
+def resident_warps(n: int, p: int) -> int:
+    """Warps of the kernel that a launch at (N, P) takes, resident on an
+    SM of the current card at once (the CUDA occupancy calculator)."""
+    fn = _build.entry(NAME, "ssd_intra_resident_warps",
+                      [ctypes.c_int, ctypes.c_int])
+    warps = fn(n, p)
+    if warps < 0:
+        _build.check(NAME, -warps)
+    return warps
 
 
 def _check(tensors, names, n, p, q):

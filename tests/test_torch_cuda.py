@@ -45,6 +45,24 @@ GA_CASES = [  # the shapes of tests/test_kernels.py::test_grouped_assign_*
     (1000, 12, 40, 5, 256),       # ragged tail tile
     (130, 3, 6, 6, 64),           # tiny
 ]
+# (n, d, k, g, tile_n, layout) of the membership table (ga_inputs):
+# groups of one slot, and -1 slots inside rows as well as at their tail
+# (with a group of no member), which the kernel masks wherever they sit
+GA_LAYOUT_CASES = [
+    (300, 7, 17, 17, 128, "one"),
+    (1000, 12, 40, 5, 256, "holes"),
+    (130, 3, 6, 6, 64, "holes"),
+]
+
+
+def ga_params(cases):
+    """``pytest.param``s of (n, d, k, g, tile_n, layout) cases; the
+    GA_CASES keep their plain ids and the table layout "tail"."""
+    return [pytest.param(*c, "tail", id="-".join(map(str, c)))
+            if len(c) == 5 else pytest.param(*c, id="-".join(map(str, c)))
+            for c in cases]
+
+
 CU_SHAPES = [(256, 16, 128), (1000, 48, 300), (130, 7, 17), (512, 128, 128)]
 # tile pairs of benchmarks/filter_efficiency.py for the block-skip
 # kernels, which take the shapes of CU_SHAPES (tests/test_kernels.py's)
@@ -60,9 +78,6 @@ FA_CASES = [(2, 3, 128, 32, 64, 32), (1, 2, 256, 64, 256, 64),
 # S, hymba-1.5b's 25/5 heads of 64, and a head dim of 128
 GQA_CASES = [(2, 100, 4, 2, 16), (1, 77, 6, 3, 64), (2, 128, 4, 1, 128),
              (1, 300, 25, 5, 64)]
-# ssd_intra cells (g, q, n, p): tests/test_kernels.py::test_ssd_intra's
-# three, the reduced configs' chunk, hymba-1.5b's and mamba2-780m's
-# cells, and Q = 256 with N and P off every power of two
 # the tensor-core attention kernel's sequence lengths: one row, a
 # ragged tile either side of 64, several tiles, one past 2048
 TC_SEQS = [1, 63, 65, 300, 2049]
@@ -71,9 +86,13 @@ TC_SEQS = [1, 63, 65, 300, 2049]
 # and uci-xlarge itself
 CU_DET_SHAPES = CU_SHAPES + [(1, 5, 3), (3000, 32, 256),
                              (100_003, 33, 1024), (1 << 20, 32, 256)]
+# ssd_intra cells (g, q, n, p): tests/test_kernels.py::test_ssd_intra's
+# three, the reduced configs' chunk, hymba-1.5b's and mamba2-780m's
+# cells, Q = 256 with N and P off every power of two, and hymba-1.5b's
+# cell at a Q that is not a multiple of the kernel's 32-row blocks
 SSD_CASES = [(4, 32, 16, 32), (2, 128, 8, 64), (1, 16, 128, 16),
              (5, 8, 8, 32), (3, 128, 16, 128), (2, 128, 128, 64),
-             (2, 256, 33, 100)]
+             (2, 256, 33, 100), (3, 100, 16, 128)]
 
 
 def attn_inputs(b, s, h, kv, d, seed):
@@ -108,13 +127,29 @@ def _members(groups, g):
     return members
 
 
-def ga_inputs(n, d, k, g, tile_n, density, seed):
+def ga_inputs(n, d, k, g, tile_n, density, seed, layout="tail"):
+    """Points, grouped centroids, the (G, Lmax) membership table and a
+    block mask. ``layout``: "tail" as ``engine.build_group_tables``
+    lays it out (ascending ids, -1 pads at the tail); "one" one slot a
+    group (g == k); "holes" each group's ids spread over a row 3 slots
+    wider, -1 between and around them, plus one group of no member."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((n, d)).astype(np.float32)
     c = rng.standard_normal((k, d)).astype(np.float32)
-    members = _members(rng.integers(0, g, size=k), g)
+    if layout == "one":
+        assert g == k
+        members = np.arange(k, dtype=np.int32)[:, None]
+    else:
+        members = _members(rng.integers(0, g, size=k), g)
+    if layout == "holes":
+        wide = np.full((g + 1, members.shape[1] + 3), -1, np.int32)
+        for gg, row in enumerate(members):
+            ids = row[row >= 0]
+            at = np.sort(rng.choice(wide.shape[1], len(ids), replace=False))
+            wide[gg, at] = ids
+        members = wide
     c_grouped = c[np.maximum(members, 0)]
-    mask = rng.random((-(-n // tile_n), g)) < density
+    mask = rng.random((-(-n // tile_n), members.shape[0])) < density
     return x, c_grouped, members, mask
 
 
@@ -148,13 +183,27 @@ def _need_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
-@pytest.mark.parametrize("n,d,k,g,tile_n", GA_CASES + [
-    (4099, 128, 1024, 1, 256),    # Hamerly: one group of 1024 slots
-    (2000, 33, 300, 30, 256)])
-def test_grouped_assign_kernel_matches_plain(n, d, k, g, tile_n, density):
+@pytest.mark.parametrize("n,d,k,g,tile_n,layout", ga_params(
+    GA_CASES + GA_LAYOUT_CASES + [
+        (4099, 128, 1024, 1, 256),    # Hamerly: one group of 1024 slots
+        (2000, 33, 300, 30, 256),
+        # groups wider than the centroids a block stages at once, with
+        # -1 slots inside them; tiles of 32 and 1024 points
+        (2000, 64, 700, 3, 256, "holes"),
+        (2000, 33, 300, 30, 32),
+        (5000, 16, 64, 8, 1024),
+        # D too wide for 8 points a lane (4 here), and for 2 (1 here,
+        # the centroids in three batches)
+        (600, 192, 100, 20, 256),
+        (300, 700, 100, 4, 32)]))
+def test_grouped_assign_kernel_matches_plain(n, d, k, g, tile_n, layout,
+                                             density):
+    """The kernel against the plain version, and bit for bit against
+    the port's first kernel (``grouped_assign_simple``) on the same
+    inputs."""
     _need_card()
     x, c_grouped, members, mask = ga_inputs(n, d, k, g, tile_n, density,
-                                             seed=n)
+                                             seed=n, layout=layout)
     args = [torch.from_numpy(a).cuda() for a in (x, c_grouped, members,
                                                  mask)]
     before = ga.grouped_assign.launches
@@ -164,6 +213,31 @@ def test_grouped_assign_kernel_matches_plain(n, d, k, g, tile_n, density):
     want = ga.grouped_assign_plain(*args, tile_n=tile_n)
     assert_outputs([t.cpu().numpy() for t in got],
                     [t.cpu().numpy() for t in want])
+    first = ga.grouped_assign_simple(*args, tile_n=tile_n)
+    assert ga.grouped_assign.launches == before + 1
+    for name, a, b in zip(("best", "idx", "gmin", "garg", "gmin2"), got,
+                          first):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g,want", [
+    (32, 25, 8), (128, 1, 8), (33, 30, 8), (192, 20, 4), (700, 4, 1),
+    (20_000, 1, 0)])
+def test_grouped_assign_points_a_lane_follow_the_shape(d, g, want):
+    """The launch's variant is a function of (D, G) alone: 8 points a
+    lane where a batch of staged slots fits beside them, fewer for wide
+    D, and 0 (the launch refuses) where not even one point does."""
+    _need_card()
+    assert ga.points(d, g) == want
+    if want == 0:
+        x = torch.zeros((64, d), device="cuda")
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            ga.grouped_assign(x, torch.zeros((g, 1, d), device="cuda"),
+                              torch.zeros((g, 1), dtype=torch.int32,
+                                          device="cuda"),
+                              torch.ones((1, g), dtype=torch.bool,
+                                         device="cuda"))
 
 
 @pytest.mark.cuda
@@ -452,6 +526,15 @@ def test_ssd_intra_kernel_matches_plain(g, q, n, p, steep):
     want = ssd.ssd_intra_plain(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(16, 128), (128, 64)])
+def test_ssd_intra_keeps_16_warps_resident(n, p):
+    """hymba-1.5b's (N = 16, P = 128) and mamba2-780m's (N = 128,
+    P = 64) cells: the launch's kernel keeps at least 16 warps an SM."""
+    _need_card()
+    assert ssd.resident_warps(n, p) >= 16
 
 
 @pytest.mark.cuda

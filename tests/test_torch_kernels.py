@@ -25,8 +25,8 @@ from repro.kernels import (build_group_block_mask as jax_block_mask,
                            grouped_assign as jax_grouped_assign)
 from repro.kernels.ref import grouped_assign_ref
 from repro_torch.kernels import _build, build_group_block_mask
-from test_torch_cuda import (CU_SHAPES, GA_CASES, assert_outputs,
-                             ga_inputs)
+from test_torch_cuda import (CU_SHAPES, GA_CASES, GA_LAYOUT_CASES,
+                             assert_outputs, ga_inputs, ga_params)
 
 # the package exports the wrappers under the kernels' names: the
 # modules themselves, with the plain versions, come from importlib
@@ -35,10 +35,15 @@ ga = importlib.import_module("repro_torch.kernels.grouped_assign")
 
 
 @pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
-@pytest.mark.parametrize("n,d,k,g,tile_n", GA_CASES)
-def test_grouped_assign_plain_matches_pallas(n, d, k, g, tile_n, density):
+@pytest.mark.parametrize("n,d,k,g,tile_n,layout",
+                         ga_params(GA_CASES + GA_LAYOUT_CASES))
+def test_grouped_assign_plain_matches_pallas(n, d, k, g, tile_n, layout,
+                                             density):
     x, c_grouped, members, mask = ga_inputs(n, d, k, g, tile_n, density,
-                                             seed=n + k)
+                                             seed=n + k, layout=layout)
+    if layout == "holes":       # -1 inside rows, and a group of none
+        inner = (members[:, :-1] < 0) & (members[:, 1:] >= 0)
+        assert inner.any() and (members < 0).all(1).any()
     got = ga.grouped_assign(torch.from_numpy(x),
                             torch.from_numpy(c_grouped),
                             torch.from_numpy(members),
@@ -78,6 +83,23 @@ def test_grouped_assign_ties_go_to_first_slot_and_earlier_group():
     assert idx.tolist() == [0, 0, 0]
     assert garg[:, 1].tolist() == [2, 2, 2]
     assert gmin2[:, 1].tolist() == [1.0, 1.0, 1.0]
+
+
+def test_grouped_assign_wrapper_keeps_no_copy_of_the_kernel_layout():
+    """The wrapper sizes nothing from the .cu's layout: the scratch
+    comes from the library's own ``grouped_assign_scratch_ints``, and
+    the launch refuses a shape it cannot take."""
+    for stale in ("SLOTS", "SMEM_LIMIT", "_smem_bytes"):
+        assert not hasattr(ga, stale)
+    src = (_build.CSRC / "grouped_assign.cu").read_text()
+    assert "int grouped_assign_scratch_ints(int g, int lmax)" in src
+    assert "int grouped_assign_simple_launch(" in src
+    launch = src[src.index("int grouped_assign_launch("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "scratch_ints < grouped_assign_scratch_ints(g, lmax)" in launch
+    assert "return (int)cudaErrorInvalidValue;" in launch
+    wrapper = Path(ga.__file__).read_text()
+    assert "grouped_assign_scratch_ints" in wrapper
 
 
 @pytest.mark.parametrize("n,d,k", CU_SHAPES)
