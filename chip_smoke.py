@@ -8,10 +8,8 @@ the order they run:
 
 1. build every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
    compiler process per source, all at once; log ``-Xptxas -v``
-   (registers, shared memory, spills) of every kernel, in full for the
-   four redesigned for this card (``flash_attention``,
-   ``centroid_update``, ``grouped_assign``, ``ssd_intra``), and count the
-   ``HGMMA``
+   (registers, shared memory, spills) of every kernel in full (all six
+   have been redesigned for this card), and count the ``HGMMA``
    instructions in the built ``flash_attention`` library
    (``cuobjdump -sass``; none where ``cuobjdump`` exists fails the run);
 2. ``grouped_assign`` and ``centroid_update`` against their plain
@@ -28,19 +26,32 @@ the order they run:
    ``index_add_``, plain) and its two passes apart under
    ``torch.profiler``;
 2b. ``pairwise_sq_dists`` (uci-xlarge in fp32 and bf16, a ragged
-   N = 100,003, D = 33, K = 77) and ``filtered_assign`` (uci-highk and
-   uci-xlarge, tiles 256x128, 64x16 and 64x8, mask densities 0, 0.35
-   and 1; the ragged input at tiles 16x128 and 4x8, fewer points per
-   tile than centroids per staged chunk) against their plain versions:
-   minima within rtol 1e-5 (atol 1e-5 of the norms), argmin ids equal
-   but at fp32 ties, which are counted;
+   N = 100,003, D = 33, K = 77; D = 200 and an x at a 4-byte offset,
+   which the entry point sends to the first kernel, its route checked)
+   and ``filtered_assign`` (uci-highk and uci-xlarge, tiles 256x128,
+   64x16 and 64x8, mask densities 0, 0.35 and 1; the ragged input at
+   tiles 16x128 and 4x8, fewer points per tile than a block of the new
+   kernel owns) against their plain versions: minima within rtol 1e-5 (atol 1e-5 of
+   the norms), argmin ids equal but at fp32 ties, which are counted;
+   in every case (and in 4b and 4c) each kernel bit for bit
+   (``torch.equal``) against the port's first kernel on the same inputs
+   (``pairwise_sq_dists_simple``, ``filtered_assign_simple``), the
+   variant each launch took logged (every ``filtered_assign`` case
+   takes the new kernel, which refuses what it cannot take); ties on
+   the card at those tiles (a duplicate centroid in a later live block
+   loses to the lower index; with the lower one's block dead the
+   duplicate wins and the dead one never enters); the uci-highk cases
+   with every block live, and uci-xlarge in both dtypes, timed in turns
+   against the first kernel (first, new, new, first: ``earlier_ms``),
+   and beside ``pairwise_sq_dists``'s bytes bound a write floor, the
+   time of ``fill_`` on an output of the same size;
 3. the main path at the paper suite's ``uci-xlarge`` problem
    (N = 2^20, D = 32, K = 256, G = 25): ``KMeans(algorithm="yinyang",
    engine="auto").fit`` and ``predict`` on the same points, with every
    kernel's launch count reset just before and read just after; then
    the same fit with ``grouped_assign`` swapped for the port's first
    kernel, which must give the same labels, ``n_iters`` and
-   ``distance_evals``;
+   ``distance_evals``; the block-skip kernels must not launch there;
 4. the same fit with every kernel swapped for its plain PyTorch version,
    on the card: in lockstep pass by pass, then as whole fits (``n_iters``
    equal, inertia within rtol 1e-5);
@@ -52,7 +63,7 @@ the order they run:
    (``repro_torch.kernels.pairwise_sq_dists`` and
    ``filtered_assign_auto`` on the fitted uci-xlarge state), counts
    reset just before and read just after, each kernel timed at those
-   inputs;
+   inputs in turns against its first kernel;
 5. determinism: two kernel fits bit-identical, and weights of 1.0
    bit-identical to no weights;
 6. a small fit on the card against the same fit on the CPU;
@@ -796,12 +807,9 @@ def main() -> None:
     report["build_s"] = build_s
     log(f"build: {len(logs)} sources in {build_s:.2f} s")
     for src, text in logs.items():
-        # in full for the kernels redesigned for this card
-        full = src in ("flash_attention", "centroid_update",
-                       "grouped_assign", "ssd_intra")
+        # in full: every kernel has been redesigned for this card
         for line in text.splitlines():
-            if (full and "Compile time" not in line) or "registers" in line \
-                    or "spill" in line:
+            if "Compile time" not in line:
                 log(f"  ptxas {src}: {line.strip()}")
     report["hgmma"] = hgmma_count(_build.library_path("flash_attention"))
 
@@ -1092,8 +1100,24 @@ def main() -> None:
               f"{label}: argmin differs off a tie")
         return len(bad)
 
-    def psd_case(label, x, c, timed=False):
+    def psd_case(label, x, c, timed=False, first_route=False):
+        """The kernel against its plain version and, bit for bit, against
+        the port's first kernel (``pairwise_sq_dists_simple``);
+        ``first_route``: the input is one the launch sends to the first
+        kernel (a wide D, an x not on 16 bytes), else the new kernel."""
+        n_, d_ = x.shape
+        k_ = c.shape[0]
+        cols = psd_mod.slice_cols(k_, d_, x.dtype)
+        aligned = x.data_ptr() % 16 == 0
+        check((cols == 0 or not aligned) == first_route,
+              f"{label}: slice_cols {cols}, x on 16 bytes {aligned}: "
+              f"{'not ' if first_route else ''}the new kernel's input")
         got = kernels.pairwise_sq_dists(x, c)
+        first = psd_mod.pairwise_sq_dists_simple(x, c)
+        sync()
+        check(torch.equal(got, first), f"{label}: distances differ from the "
+              f"first kernel's (pairwise_sq_dists_simple) bits")
+        del first
         want = psd_mod.pairwise_sq_dists_plain(x, c)
         sync()
         atol = norm_atol(x, c)
@@ -1104,10 +1128,11 @@ def main() -> None:
         check(bool((diff <= 1e-5 * want.abs() + atol).all()),
               f"{label}: distances differ beyond rtol 1e-5, atol {atol:.3g}")
         ties = tie_rows(label, x, c, got.argmin(1), want.argmin(1), atol)
-        n_, d_ = x.shape
-        k_ = c.shape[0]
         entry = dict(case=label, n=n_, d=d_, k=k_, dtype=str(x.dtype),
-                     max_abs_err=err, atol=atol, argmin_tie_rows=ties)
+                     slice_cols=cols, x_on_16_bytes=aligned,
+                     kernel="first" if first_route else "new",
+                     max_abs_err=err, atol=atol, argmin_tie_rows=ties,
+                     equals_first_kernel=True)
         del got, want, diff
         if timed:
             es = x.element_size()
@@ -1115,11 +1140,27 @@ def main() -> None:
             flops = 2.0 * n_ * k_ * d_ + 2.0 * (n_ + k_) * d_
             peak = fp32 if x.dtype == torch.float32 else bf16
             bound_ms, by = bound(nbytes, flops, peak)
+
+            def new():
+                return kernels.pairwise_sq_dists(x, c)
+
+            def old():
+                return psd_mod.pairwise_sq_dists_simple(x, c)
+            # in turns: the first kernel, the new one, the new, the first
+            turns = {"earlier": [cuda_ms(old)]}
+            turns["new"] = [cuda_ms(new), cuda_ms(new)]
+            turns["earlier"].append(cuda_ms(old))
+            # what the memory system gives for a write of the same size:
+            # the floor under the data sheet's bound, no yardstick
+            sink = torch.empty((n_, k_), dtype=torch.float32, device=dev)
+            floor_ms = cuda_ms(lambda: sink.fill_(0.0))
+            del sink
             entry.update(
-                ms=cuda_ms(lambda: kernels.pairwise_sq_dists(x, c)),
+                ms=statistics.mean(turns["new"]),
+                earlier_ms=statistics.mean(turns["earlier"]), turns_ms=turns,
                 plain_ms=cuda_ms(
                     lambda: psd_mod.pairwise_sq_dists_plain(x, c), reps=3),
-                bound_ms=bound_ms, bound_by=by,
+                bound_ms=bound_ms, bound_by=by, write_floor_ms=floor_ms,
                 # returns the square root; fp32 inputs only
                 library_ms=cuda_ms(lambda: torch.cdist(
                     x, c, compute_mode="use_mm_for_euclid_dist"))
@@ -1129,10 +1170,23 @@ def main() -> None:
 
     def fa_case(label, x, c, mask, tile_n, tile_k, x2=None, c2=None,
                 timed=False):
+        """The kernel against its plain version and, bit for bit, against
+        the port's first kernel (``filtered_assign_simple``); the variant
+        the launch took is logged, and every case must take the new
+        kernel."""
         kw = dict(tile_n=tile_n, tile_k=tile_k, x2=x2, c2=c2)
+        n_, d_ = x.shape
+        k_ = c.shape[0]
+        points, stages = fa_mod.variant(d_, k_, tile_n, tile_k)
+        check(points > 0, f"{label}: no variant of the kernel takes "
+              f"tiles {tile_n}x{tile_k} at D = {d_}")
         got = kernels.filtered_assign(x, c, mask, **kw)
+        first = fa_mod.filtered_assign_simple(x, c, mask, **kw)
         want = fa_mod.filtered_assign_plain(x, c, mask, **kw)
         sync()
+        check(torch.equal(got[0], first[0]) and torch.equal(got[1], first[1]),
+              f"{label}: (best, idx) differ from the first kernel's "
+              f"(filtered_assign_simple) bits")
         fin = torch.isfinite(want[0])
         check(torch.equal(torch.isfinite(got[0]), fin)
               and torch.equal(got[1] == -1, ~fin),
@@ -1146,8 +1200,6 @@ def main() -> None:
                   f"{label}: minima differ beyond rtol 1e-5, "
                   f"atol {atol:.3g}")
         ties = tie_rows(label, x, c, got[1], want[1], atol)
-        n_, d_ = x.shape
-        k_ = c.shape[0]
         gn, gk = mask.shape
         rows = torch.full((gn,), tile_n, device=dev)
         rows[-1] = n_ - (gn - 1) * tile_n
@@ -1155,19 +1207,66 @@ def main() -> None:
         cols[-1] = k_ - (gk - 1) * tile_k
         pairs = int((mask.long() * rows[:, None] * cols[None, :]).sum())
         entry = dict(case=label, n=n_, d=d_, k=k_, tile_n=tile_n,
-                     tile_k=tile_k, density=float(mask.float().mean()),
-                     live_pairs=pairs, max_abs_err=err, atol=atol,
-                     argmin_tie_rows=ties)
+                     tile_k=tile_k, variant=dict(points=points, stages=stages),
+                     density=float(mask.float().mean()), live_pairs=pairs,
+                     max_abs_err=err, atol=atol, argmin_tie_rows=ties,
+                     equals_first_kernel=True)
         if timed:
             nbytes = 4 * (n_ * d_ + n_ + k_ * d_ + k_) + gn * gk + 8 * n_
             bound_ms, by = bound(nbytes, 2.0 * d_ * pairs)
+
+            def new():
+                return kernels.filtered_assign(x, c, mask, **kw)
+
+            def old():
+                return fa_mod.filtered_assign_simple(x, c, mask, **kw)
+            # in turns: the first kernel, the new one, the new, the first
+            turns = {"earlier": [cuda_ms(old)]}
+            turns["new"] = [cuda_ms(new), cuda_ms(new)]
+            turns["earlier"].append(cuda_ms(old))
             entry.update(
-                ms=cuda_ms(lambda: kernels.filtered_assign(x, c, mask, **kw)),
+                ms=statistics.mean(turns["new"]),
+                earlier_ms=statistics.mean(turns["earlier"]), turns_ms=turns,
                 plain_ms=cuda_ms(lambda: fa_mod.filtered_assign_plain(
                     x, c, mask, **kw), reps=3),
                 bound_ms=bound_ms, bound_by=by, library_ms=None)
         log(f"filtered_assign {label}: {json.dumps(entry)}")
         return entry
+
+    def fa_ties():
+        """Ties on the card at the reference's tile pairs: a duplicate of
+        centroid 3 at 200, in a later live block, never wins (the lower
+        index does); with 3's block dead, 200 wins and 3 never enters."""
+        cents = hk_cent[:256].clone()
+        cents[200] = cents[3]
+        near = (cents[3] + 1e-3 * torch.randn(
+            (8192, cents.shape[1]), generator=gen, device=dev)).contiguous()
+        for tn, tk in tiles:
+            mask = torch.ones((-(-8192 // tn), -(-256 // tk)),
+                              dtype=torch.bool, device=dev)
+            for dead in (False, True):
+                if dead:
+                    mask[:, 3 // tk] = False
+                kw = dict(tile_n=tn, tile_k=tk)
+                got = kernels.filtered_assign(near, cents, mask, **kw)
+                first = fa_mod.filtered_assign_simple(near, cents, mask, **kw)
+                want = fa_mod.filtered_assign_plain(near, cents, mask, **kw)
+                sync()
+                win, lose = (200, 3) if dead else (3, 200)
+                label = (f"ties {tn}x{tk}, "
+                         f"{'dead' if dead else 'live'} block of 3")
+                check(torch.equal(got[1], first[1])
+                      and torch.equal(got[0], first[0]),
+                      f"{label}: differs from the first kernel's bits")
+                check(torch.equal(got[1], want[1]),
+                      f"{label}: ids differ from the plain version's")
+                won = int((got[1] == win).sum())
+                check(won > 4000 and not bool((got[1] == lose).any()),
+                      f"{label}: {won} rows to {win}, "
+                      f"{int((got[1] == lose).sum())} to {lose}")
+                log(f"filtered_assign {label}: {won} of 8192 rows to {win}, "
+                    f"none to {lose}, as the first kernel and the plain "
+                    f"version")
 
     def rand_mask(nn, kk, tile_n, tile_k, density):
         return (torch.rand((-(-nn // tile_n), -(-kk // tile_k)),
@@ -1180,6 +1279,13 @@ def main() -> None:
     psd_case("uci-xlarge bf16", points.bfloat16(), centers.bfloat16(),
              timed=True)
     psd_case("ragged N=100003 D=33 K=77", rg, rg_cent)
+    wide = torch.randn((20_000, 200), generator=gen, device=dev)
+    psd_case("wide D=200 (the first kernel's route)", wide, wide[:256] + 0.5,
+             first_route=True)
+    off = torch.randn((20_000 * 32 + 1,), generator=gen, device=dev)
+    psd_case("x at a 4-byte offset (the first kernel's route)",
+             off[1:].view(20_000, 32), centers, first_route=True)
+    del wide, off
     for tn, tk in tiles:
         for dens in (0.0, 0.35, 1.0):
             # timed where the bound is set: uci-highk, every block live
@@ -1188,7 +1294,8 @@ def main() -> None:
                     timed=dens == 1.0)
             fa_case(f"uci-xlarge {tn}x{tk} density {dens}", points, centers,
                     rand_mask(n, k, tn, tk, dens), tn, tk)
-    # tiles of fewer points than the kernel stages centroids per chunk
+    fa_ties()
+    # tiles of fewer points than a block of the new kernel owns
     for tn, tk in ((16, 128), (4, 8)):
         for dens in (0.35, 1.0):
             fa_case(f"ragged {tn}x{tk} density {dens}", rg, rg_cent,
@@ -1225,6 +1332,9 @@ def main() -> None:
     for nm in ("grouped_assign", "centroid_update"):
         check(launches[nm] >= n_iters, f"{nm} launched {launches[nm]} "
               f"times on the main path, fewer than n_iters={n_iters}")
+    for nm in ("pairwise_sq_dists", "filtered_assign"):
+        check(launches[nm] == 0, f"{nm} launched {launches[nm]} times on "
+              f"the main path, which runs the kernel backend only")
     c_fit = res.centroids
     check(tuple(c_fit.shape) == (k, d) and bool(torch.isfinite(c_fit).all())
           and math.isfinite(float(res.inertia)),
@@ -1617,6 +1727,8 @@ def main() -> None:
              "bound_by": entry["bound_by"], "library_ms": entry["library_ms"]}
         if "earlier_ms" in entry:       # the kernel it replaced, in turns
             r["earlier_ms"] = entry["earlier_ms"]
+        if "write_floor_ms" in entry:   # fill_ of the output's size
+            r["write_floor_ms"] = entry["write_floor_ms"]
         return r
 
     line = {"kernels": [

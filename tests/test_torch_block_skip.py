@@ -123,6 +123,31 @@ def test_filtered_assign_ties_go_to_the_lowest_index():
         assert idx.numpy().max() < 6
 
 
+@pytest.mark.parametrize("tile_n,tile_k", [(64, 4), (64, 8), (32, 16)])
+def test_filtered_assign_dead_duplicate_does_not_win(tile_n, tile_k):
+    # centroid 1 is copied to the last block; centroid 1's block is dead
+    # for every tile, so the copy in the live block wins, at the distance
+    # the dead one would tie at
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((200, 6)).astype(np.float32)
+    c = rng.standard_normal((40, 6)).astype(np.float32)
+    c[39] = c[1]
+    x[:100] = c[1] + 1e-3 * x[:100]          # half the points near it
+    mask = np.ones((-(-200 // tile_n), -(-40 // tile_k)), bool)
+    mask[:, 1 // tile_k] = False
+    best, idx = tk.filtered_assign(torch.from_numpy(x), torch.from_numpy(c),
+                                   torch.from_numpy(mask), tile_n=tile_n,
+                                   tile_k=tile_k)
+    wb, wi = filtered_assign(jnp.asarray(x), jnp.asarray(c),
+                             jnp.asarray(mask), tile_n=tile_n, tile_k=tile_k,
+                             interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(best.numpy(), np.asarray(wb), rtol=1e-5,
+                               atol=1e-5)
+    assert (idx.numpy()[:100] == 39).all()
+    assert not (idx.numpy() == 1).any()
+
+
 @pytest.mark.parametrize("n,k,g,tile_n,tile_k", [
     (600, 96, 4, 256, 32),        # tests/test_kernels.py's case
     (1000, 300, 7, 256, 128),

@@ -67,8 +67,8 @@ CU_SHAPES = [(256, 16, 128), (1000, 48, 300), (130, 7, 17), (512, 128, 128)]
 # tile pairs of benchmarks/filter_efficiency.py for the block-skip
 # kernels, which take the shapes of CU_SHAPES (tests/test_kernels.py's)
 BS_TILES = [(256, 128), (64, 16)]
-# tiles of fewer points than centroid slots per staged chunk: the
-# kernel's CTA has fewer threads than the chunk it stages
+# tiles of fewer points than a block of the kernel owns (64), and than
+# the centroid slots a chunk stages
 SMALL_TILES = [(16, 128), (4, 8)]
 # tests/test_kernels.py::test_flash_attention's (b, h, s, d, block_q,
 # block_k)
@@ -331,6 +331,46 @@ def test_pairwise_sq_dists_kernel_matches_plain(n, d, k, dtype):
     assert bool((got >= 0).all())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=_norm_atol(x, c))
+    # bit for bit the port's first kernel, which counts no launch
+    first = psd.pairwise_sq_dists_simple(x, c)
+    torch.cuda.synchronize()
+    assert kernels.pairwise_sq_dists.launches == before + 1
+    assert torch.equal(got, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,offset,slice_cols", [
+    (torch.float32, 200, 0, 0), (torch.float32, 130, 0, 0),
+    (torch.bfloat16, 160, 0, 0), (torch.float32, 32, 1, 256),
+    (torch.bfloat16, 32, 1, 256)], ids=["f32-wide", "f32-odd-wide",
+                                        "bf16-wide", "f32-offset",
+                                        "bf16-offset"])
+def test_pairwise_sq_dists_first_kernel_route_matches_plain(dtype, d,
+                                                            offset,
+                                                            slice_cols):
+    """The inputs the kernel does not take, a D too wide for a slice and
+    an x not on 16 bytes, reach the first kernel through the entry point:
+    one counted launch, the first kernel's bits, the plain version's
+    values."""
+    _need_card()
+    n, k = 3000, 256
+    rng = np.random.default_rng(d + offset)
+    flat = torch.from_numpy(
+        rng.standard_normal(n * d + offset).astype(np.float32))
+    x = flat.to("cuda", dtype)[offset:].view(n, d)
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32))
+    c = c.to("cuda", dtype)
+    assert psd.slice_cols(k, d, dtype) == slice_cols
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = kernels.pairwise_sq_dists.launches
+    got = kernels.pairwise_sq_dists(x, c)
+    first = psd.pairwise_sq_dists_simple(x, c)
+    torch.cuda.synchronize()
+    assert kernels.pairwise_sq_dists.launches == before + 1
+    assert torch.equal(got, first)
+    want = psd.pairwise_sq_dists_plain(x, c)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=_norm_atol(x, c))
 
 
 @pytest.mark.cuda
@@ -350,6 +390,12 @@ def test_filtered_assign_kernel_matches_plain(n, d, k, density, tile_n,
     assert kernels.filtered_assign.launches == before + 1
     wbest, widx = fa.filtered_assign_plain(x, c, mask, tile_n=tile_n,
                                            tile_k=tile_k)
+    # bit for bit the port's first kernel, which counts no launch
+    fbest, fidx = fa.filtered_assign_simple(x, c, mask, tile_n=tile_n,
+                                            tile_k=tile_k)
+    torch.cuda.synchronize()
+    assert kernels.filtered_assign.launches == before + 1
+    assert torch.equal(best, fbest) and torch.equal(idx, fidx)
     fin = torch.isfinite(wbest)
     assert torch.equal(torch.isfinite(best), fin)
     assert torch.equal(idx == -1, ~fin)
@@ -362,6 +408,105 @@ def test_filtered_assign_kernel_matches_plain(n, d, k, density, tile_n,
         dd = ((x[bad, None, :].double() - c[torch.stack(
             [idx[bad], widx[bad]], 1).long()].double()) ** 2).sum(-1)
         assert bool(((dd[:, 0] - dd[:, 1]).abs() <= 2 * atol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead", [False, True], ids=["live", "dead"])
+@pytest.mark.parametrize("tile_n,tile_k", BS_TILES + [(64, 8)])
+def test_filtered_assign_kernel_ties(tile_n, tile_k, dead):
+    """A copy of centroid 3 at 200, in a later block: with both blocks
+    live the lower index wins; with 3's block dead the copy wins and 3
+    never enters. The kernel agrees with the first kernel bit for bit and
+    with the plain version's ids."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    c = torch.from_numpy(rng.standard_normal((256, 32)).astype(np.float32))
+    c[200] = c[3]
+    x = c[3] + 1e-3 * torch.from_numpy(
+        rng.standard_normal((4096, 32)).astype(np.float32))
+    x, c = x.cuda().contiguous(), c.cuda()
+    mask = torch.ones((-(-4096 // tile_n), -(-256 // tile_k)),
+                      dtype=torch.bool, device="cuda")
+    if dead:
+        mask[:, 3 // tile_k] = False
+    kw = dict(tile_n=tile_n, tile_k=tile_k)
+    assert fa.variant(32, 256, tile_n, tile_k)[0] > 0   # the new kernel
+    best, idx = kernels.filtered_assign(x, c, mask, **kw)
+    fbest, fidx = fa.filtered_assign_simple(x, c, mask, **kw)
+    _, widx = fa.filtered_assign_plain(x, c, mask, **kw)
+    assert torch.equal(best, fbest) and torch.equal(idx, fidx)
+    assert torch.equal(idx, widx)
+    win, lose = (200, 3) if dead else (3, 200)
+    assert int((idx == win).sum()) > 4000
+    assert not bool((idx == lose).any())
+
+
+# (D, K, tile_n, tile_k): the reference's filter study at uci-xlarge and
+# uci-highk, the test shapes, wide D, and tiles under a block's points
+VARIANT_SHAPES = [(32, 256, 256, 128), (32, 1024, 256, 128),
+                  (32, 1024, 64, 16), (32, 1024, 64, 8), (32, 256, 64, 8),
+                  (16, 128, 256, 128), (48, 300, 64, 16), (7, 17, 64, 16),
+                  (128, 128, 64, 16), (128, 1024, 256, 128), (33, 77, 32, 8),
+                  (33, 77, 1024, 32), (33, 77, 16, 128), (33, 77, 4, 8),
+                  (700, 64, 256, 128), (5, 1760, 128, 1)]
+# the stages where three do not fit beside the point tile, and the shapes
+# whose D no variant takes; every other shape takes three
+VARIANT_STAGES = {(128, 128, 64, 16): 2, (700, 64, 256, 128): 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,tile_n,tile_k", VARIANT_SHAPES)
+def test_filtered_assign_variant_is_a_function_of_the_shape(d, k, tile_n,
+                                                           tile_k):
+    """The launch's variant comes from the shape alone: 256 points a
+    block for tiles of 256 or more, else 64, the small tiles too; (0, 0),
+    and a launch refused before it starts, only where D is too wide."""
+    _need_card()
+    points, stages = fa.variant(d, k, tile_n, tile_k)
+    assert (points, stages) == fa.variant(d, k, tile_n, tile_k)
+    want = VARIANT_STAGES.get((d, k, tile_n, tile_k), 3)
+    assert stages == want
+    if want == 0:
+        assert points == 0
+        mask = torch.ones((1, -(-k // tile_k)), dtype=torch.bool,
+                          device="cuda")
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            kernels.filtered_assign(torch.zeros((tile_n, d), device="cuda"),
+                                    torch.zeros((k, d), device="cuda"),
+                                    mask, tile_n=tile_n, tile_k=tile_k)
+        return
+    assert points == (256 if tile_n >= 256 else 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(32, 256), (32, 1024)])
+@pytest.mark.parametrize("tile_n,tile_k", [(256, 128), (64, 16), (64, 8)])
+def test_reference_tile_pairs_take_the_new_filtered_assign_kernel(
+        d, k, tile_n, tile_k):
+    _need_card()
+    assert fa.variant(d, k, tile_n, tile_k)[0] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1000, 32), (4099, 33), (7, 128)])
+def test_filtered_assign_norms_on_card(n, d):
+    """Norms the wrapper computes where none are given: one fmaf chain a
+    row, within fp32 rounding of torch's, and what both kernels take."""
+    _need_card()
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    x = x.cuda()
+    got = fa._norms(x)
+    want = torch.sum(x.double() ** 2, dim=-1).float()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5)
+    c = x[:17].contiguous()
+    mask = torch.ones((-(-n // 64), -(-c.shape[0] // 16)), dtype=torch.bool,
+                      device="cuda")
+    given = kernels.filtered_assign(x, c, mask, tile_n=64, tile_k=16,
+                                    x2=got)
+    own = kernels.filtered_assign(x, c, mask, tile_n=64, tile_k=16)
+    assert torch.equal(given[0], own[0]) and torch.equal(given[1], own[1])
 
 
 @pytest.mark.cuda

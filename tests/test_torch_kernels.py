@@ -31,7 +31,9 @@ from test_torch_cuda import (CU_SHAPES, GA_CASES, GA_LAYOUT_CASES,
 # the package exports the wrappers under the kernels' names: the
 # modules themselves, with the plain versions, come from importlib
 cu = importlib.import_module("repro_torch.kernels.centroid_update")
+fa = importlib.import_module("repro_torch.kernels.filtered_assign")
 ga = importlib.import_module("repro_torch.kernels.grouped_assign")
+psd = importlib.import_module("repro_torch.kernels.distance")
 
 
 @pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
@@ -207,3 +209,65 @@ def test_kernel_sources_export_the_wrappers_entry_points():
         assert path.name == f"lib{name}.so" and path.parent.parent == \
             _build.BUILD_ROOT
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("name", ["filtered_assign", "pairwise_sq_dists",
+                                  "grouped_assign"])
+def test_redesigned_sources_keep_their_first_kernel(name):
+    """The kernels redesigned for the card keep the port's first kernel
+    in the same source, exported beside the launch as the yardstick."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    assert f"int {name}_launch(" in text
+    assert f"int {name}_simple_launch(" in text
+    if name != "grouped_assign":
+        # both kernels form the distance with the one expression
+        assert text.count("fmaxf(xx - 2.0f * acc + c2, 0.0f)") == 1
+        assert text.count("sq_dist(") >= 3
+
+
+@pytest.mark.parametrize("simple,args", [
+    (fa.filtered_assign_simple,
+     (torch.zeros(8, 4), torch.zeros(3, 4), torch.ones(1, 1, dtype=torch.bool))),
+    (psd.pairwise_sq_dists_simple, (torch.zeros(8, 4), torch.zeros(3, 4))),
+], ids=["filtered_assign", "pairwise_sq_dists"])
+def test_first_kernels_take_cuda_tensors_only(simple, args):
+    with pytest.raises(ValueError, match="CUDA tensors expected"):
+        simple(*args)
+
+
+def test_filtered_assign_wrapper_keeps_no_copy_of_the_kernel_layout():
+    """The launch picks its variant itself, from the shape alone, and
+    launches no other kernel: the wrapper passes the shape and asks the
+    library's ``filtered_assign_variant`` which variant that is."""
+    for stale in ("THREADS", "LANE_PAIRS", "MIN_TILE_N", "MERGE_FLOATS",
+                  "SMEM_LIMIT", "smem_bytes"):
+        assert not hasattr(fa, stale)
+    src = (_build.CSRC / "filtered_assign.cu").read_text()
+    assert "int filtered_assign_variant(int d, int k, int tile_n, " \
+        "int tile_k,\n" in src
+    launch = src[src.index("int filtered_assign_launch("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "int tile_k, void* stream) {" in launch      # no variant given
+    assert "variant_for(d, k, tile_n, tile_k, &points, &stages)" in launch
+    assert "return (int)cudaErrorInvalidValue;" in launch
+    assert "simple" not in launch and "kMinTileN" not in src
+    wrapper = Path(fa.__file__).read_text()
+    assert "filtered_assign_variant" in wrapper
+
+
+@pytest.mark.parametrize("shape", [(32, 256, 256, 128), (32, 1024, 64, 8),
+                                   (33, 77, 4, 8)])
+def test_filtered_assign_variant_asks_the_library(monkeypatch, shape):
+    """``variant`` hands the library the shape and nothing else, and
+    returns the pair the library writes."""
+    seen = []
+
+    def entry(name, symbol, argtypes, restype=None):
+        def fn(*args):
+            seen.append((name, symbol, args[:4]))
+            args[4]._obj.value, args[5]._obj.value = 64, 2
+            return 1
+        return fn
+    monkeypatch.setattr(_build, "entry", entry)
+    assert fa.variant(*shape) == (64, 2)
+    assert seen == [("filtered_assign", "filtered_assign_variant", shape)]
