@@ -75,6 +75,40 @@ the order they run:
    ``n_iters`` and the same labels but at fp32 ties;
 7. one kernel fit under ``torch.profiler``: device busy time by kernel
    and the device's idle share;
+11. observability at uci-xlarge: ``KMeans(engine="auto", obs=...)``
+   against the same fit with obs off, in turns (off, on, on, off), as
+   ``KMeans`` and as ``engine.fit``: equal labels, ``n_iters``,
+   ``distance_evals``, inertia bits and ``host_syncs``; the drained
+   float64 ring has ``n_iters + 1`` rows and ``init_evals`` plus its
+   evals column is ``distance_evals`` exactly; a ``live_drain`` fit
+   hands every row to a listener; ``obs.profile`` of a fit writes a
+   trace with the ``kpynq/*`` ranges, every ``ga_kernel`` launched
+   inside ``kpynq/candidate_pass``; the registry exports
+   ``engine_fits_total``;
+12. autotuning at uci-xlarge into a fresh cache
+   (``REPRO_TORCH_KMEANS_TUNE_CACHE`` points at a new temporary file for
+   the whole run, so no cache left on the machine decides anything):
+   ``autotune`` with at most 10 measured configs, each logged;
+   ``fit(tune="auto")`` runs the stored winner and ``fit(tune="force")``
+   does not search again; the kernel backend's ``tile_n`` lattice (128,
+   256, 512) gives the same labels, ``n_iters`` and inertia bits
+   (``distance_evals`` logged, it counts whole tiles); Lloyd on
+   uci-wide converges with phase 9's kernel and compact fits;
+13. the fitted uci-xlarge centroids behind ``CentroidIndex`` and a
+   ``ServeEngine`` on each backend (``fused``, ``grouped``, ``kernel``):
+   2^20 query points in requests of 1 to 4096 points (seeded), from 4
+   client threads, with one 20,000-point request the engine splits and
+   one request as a CUDA tensor; the index republished midway under the
+   rebuild threshold (tables reused) and over it (rebuilt); every
+   request's labels equal to argmin of float64 distances to the
+   centroids of the epoch it reports, but at fp32 near-ties (phase
+   2b's rule: the squared distances within twice 1e-5 of ||x||^2 +
+   max ||c||^2, the rounding scale of the expanded form), which are
+   counted, with those at a relative distance gap of 1e-5 or more
+   apart; ``grouped_assign``
+   launched once a batch on ``kernel`` and no port kernel on the
+   others; points/s, request latency, a traced batch's idle share, and
+   ``autotune_serve`` at K = 256, D = 32;
 2c. ``flash_attention`` and ``ssd_intra`` against their plain versions
    (after phase 7, so the LM's allocations follow the k-means ones): the
    entry points at the reference's contract and at hymba-1.5b's heads,
@@ -109,7 +143,9 @@ the order they run:
    tokens/s, peak memory, one traced prefill and one traced decode
    step.
 
-The last lines are a ``kernels`` JSON line, the card's name and power
+Phases 11-13 run after phase 7, before 2c. The last lines are a
+``kernels`` JSON line (``grouped_assign``'s launches: the main path's
+and phase 13's ``kernel`` backend's), the card's name and power
 limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
 port's sources are not beside it.
@@ -122,10 +158,13 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -730,14 +769,18 @@ def traced(fn, label):
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms, calls = {}, {}
+    dev_ms, calls, phases = {}, {}, {}
     for ev in prof.key_averages():
         # device-side events only: a CPU op's entry repeats the time of
         # the kernels it launched
         if ev.device_type != DeviceType.CUDA:
             continue
         t_us = ev.self_device_time_total
-        if t_us > 0:
+        if ev.key.startswith("kpynq/"):
+            # the engine's phase ranges span the kernels they launched on
+            # the device's timeline: their own entries, not busy time
+            phases[ev.key] = phases.get(ev.key, 0.0) + t_us / 1e3
+        elif t_us > 0:
             dev_ms[ev.key] = dev_ms.get(ev.key, 0.0) + t_us / 1e3
             calls[ev.key] = calls.get(ev.key, 0) + ev.count
     busy_ms = sum(dev_ms.values())
@@ -753,9 +796,518 @@ def traced(fn, label):
                   key=lambda kv: -kv[1])
     for key, ms in port:
         log(f"  port: {ms:9.3f} ms  {calls[key]:6d} calls  {key[:90]}")
+    for key, ms in sorted(phases.items()):
+        log(f"  phase range: {ms:9.3f} ms  {key}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 top=[[k_, v_, calls[k_]] for k_, v_ in top],
-                port=[[k_, v_, calls[k_]] for k_, v_ in port])
+                port=[[k_, v_, calls[k_]] for k_, v_ in port],
+                phases=phases)
+
+
+# -- phases 11-13: observability, tuning, the k-means serving index ----------
+
+def _quantile(sorted_vals, q):
+    return sorted_vals[min(len(sorted_vals) - 1, int(q * len(sorted_vals)))]
+
+
+def hist_quantile(hist, q):
+    """The upper bound of the registry histogram's bucket that holds
+    quantile ``q`` (inf past the last bound)."""
+    want = q * hist.count
+    for ub, c in zip(hist.buckets, hist.bucket_counts):
+        if c >= want:
+            return ub
+    return math.inf
+
+
+def ga_inside_candidate_pass(trace_path):
+    """``(ga kernels, of them launched inside a kpynq/candidate_pass
+    range, the kpynq/* range names seen)`` from a Chrome trace: each
+    ``ga_kernel`` is tied to its launch by the trace's correlation id,
+    and the launch must fall inside a host-side candidate-pass range."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    ranges = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                    if e.get("name") == "kpynq/candidate_pass"
+                    and e.get("cat") == "user_annotation")
+    names = sorted({e.get("name") for e in events
+                    if str(e.get("name", "")).startswith("kpynq/")})
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    kernels_ = [e for e in events if e.get("cat") == "kernel"
+                and re.search(r"\bga_kernel\b", e.get("name", ""))]
+    inside = 0
+    for e in kernels_:
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        if ts is not None and any(lo <= ts <= hi for lo, hi in ranges):
+            inside += 1
+    return len(kernels_), inside, names
+
+
+def obs_phase(dev, points, init, fit_kw, trace_dir):
+    """Phase 11: the fit with observability on against off at
+    uci-xlarge: bits, ``host_syncs``, the drained ring's exact evals, the
+    live drain, a profiled fit's ``kpynq/*`` ranges around
+    ``ga_kernel``, the registry's export, and the times in turns."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core.api import KMeans
+    from repro_torch.obs import (MetricsRegistry, ObsConfig,
+                                 add_ring_listener, profile,
+                                 remove_ring_listener)
+    from repro_torch.obs.ring import COL_EVALS, N_COUNTERS
+
+    k = init.shape[0]
+    reg = MetricsRegistry()
+    kw = dict(max_iters=fit_kw["max_iters"], tol=fit_kw["tol"])
+
+    def km_fit(on):
+        km_ = KMeans(k, algorithm="yinyang", engine="auto", seed=0,
+                     obs=ObsConfig(registry=reg) if on else None,
+                     device=dev, **kw)
+        sync()
+        t0 = time.perf_counter()
+        km_.fit(points)
+        sync()
+        return km_, time.perf_counter() - t0
+
+    # in turns: off, on, on, off
+    turns = [(on,) + km_fit(on) for on in (False, True, True, False)]
+    km_off, km_on = turns[0][1], turns[1][1]
+    r_off, r_on = km_off.result_, km_on.result_
+    s_off, s_on = km_off.stats_, km_on.stats_
+    check(torch.equal(r_off.assignments, r_on.assignments)
+          and r_off.n_iters == r_on.n_iters
+          and int(r_off.distance_evals) == int(r_on.distance_evals)
+          and float(r_off.inertia) == float(r_on.inertia),
+          "obs: the fit with obs on differs from the fit with obs off")
+    check(s_off.host_syncs == s_on.host_syncs,
+          f"obs: host_syncs {s_on.host_syncs} with obs on, "
+          f"{s_off.host_syncs} off")
+    ring = s_on.ring
+    evals = int(r_on.distance_evals)
+    check(ring is not None and ring.shape == (r_on.n_iters + 1, N_COUNTERS),
+          f"obs: the drained ring is {None if ring is None else ring.shape}"
+          f", not ({r_on.n_iters + 1}, {N_COUNTERS})")
+    ring_total = int(s_on.init_evals) + int(ring[:, COL_EVALS].sum())
+    check(ring_total == evals and float(ring[:, COL_EVALS].sum()).is_integer(),
+          f"obs: init_evals + ring evals = {ring_total}, distance_evals "
+          f"{evals}")
+    log(f"obs: KMeans fits in turns (off, on, on, off) "
+        f"{[round(t, 4) for _, _, t in turns]} s; bits, n_iters "
+        f"{r_on.n_iters}, distance_evals {evals} and host_syncs "
+        f"{s_on.host_syncs} equal; ring {ring.shape} float64, init_evals "
+        f"{int(s_on.init_evals)} + ring evals {int(ring[:, COL_EVALS].sum())}"
+        f" = distance_evals exactly; largest row {ring[:, COL_EVALS].max():.0f}"
+        f" (2^24 = {2 ** 24})")
+    # the engine fit alone (phase 4's init), in turns: off, on, on, off
+    eturns = []
+    for on in (False, True, True, False):
+        sync()
+        t0 = time.perf_counter()
+        engine.fit(points, init, obs=ObsConfig(registry=reg) if on else None,
+                   **fit_kw)
+        sync()
+        eturns.append((on, time.perf_counter() - t0))
+    e_off = statistics.mean(t for on, t in eturns if not on)
+    e_on = statistics.mean(t for on, t in eturns if on)
+    log(f"obs: engine.fit in turns (off, on, on, off) "
+        f"{[round(t, 4) for _, t in eturns]} s: off {e_off:.4f}, on "
+        f"{e_on:.4f} ({e_on / e_off - 1:+.2%})")
+
+    # the live drain: every iteration's row, from the loop's own read
+    rows = []
+
+    def listen(it, row):
+        rows.append((it, list(row)))
+    add_ring_listener(listen)
+    try:
+        r_live, s_live = engine.fit(
+            points, init, obs=ObsConfig(registry=reg, live_drain=True),
+            return_stats=True, **fit_kw)
+    finally:
+        remove_ring_listener(listen)
+    check([it for it, _ in rows] == list(range(r_live.n_iters + 1))
+          and all(r == list(s_live.ring[i]) for i, r in rows),
+          f"obs: the live drain delivered {len(rows)} rows, not the "
+          f"{r_live.n_iters + 1} of the drained ring")
+    log(f"obs: live drain delivered {len(rows)} rows, each the drained "
+        f"ring's, host_syncs {s_live.host_syncs}")
+
+    # a profiled fit: the kpynq/* ranges around the candidate pass kernel
+    (res_p, _), trace = profile(engine.fit, points, init,
+                                obs=ObsConfig(registry=reg),
+                                return_stats=True, trace_dir=trace_dir,
+                                registry=reg, **fit_kw)
+    n_ga, inside, names = ga_inside_candidate_pass(trace)
+    size_mb = Path(trace).stat().st_size / 2 ** 20
+    log(f"obs: profiled fit trace {size_mb:.1f} MB, ranges {names}; "
+        f"{inside} of {n_ga} ga_kernel launches inside "
+        f"kpynq/candidate_pass")
+    for nm in ("kpynq/candidate_pass", "kpynq/move_and_bounds",
+               "kpynq/ring_write"):
+        check(nm in names, f"obs: no {nm} range in the profiled fit")
+    check(n_ga >= res_p.n_iters and inside == n_ga,
+          f"obs: {inside} of {n_ga} ga_kernel launches inside "
+          f"kpynq/candidate_pass")
+    Path(trace).unlink()
+    text = reg.to_prometheus()
+    check("engine_fits_total" in text, "obs: no engine_fits_total exported")
+    fits = sum(m.value for m in reg.metrics()
+               if m.name == "engine_fits_total")
+    log(f"obs: registry {len(reg.metrics())} metrics, {len(reg.events)} "
+        f"events, engine_fits_total {fits:.0f}")
+    return dict(km_turns_s=[[on, t] for on, _, t in turns],
+                engine_turns_s=[[on, t] for on, t in eturns],
+                engine_off_s=e_off, engine_on_s=e_on,
+                n_iters=r_on.n_iters, distance_evals=evals,
+                host_syncs=s_on.host_syncs, init_evals=int(s_on.init_evals),
+                ring_rows=int(ring.shape[0]),
+                ring_max_row_evals=float(ring[:, COL_EVALS].max()),
+                live_rows=len(rows), trace_mb=size_mb,
+                ga_in_candidate_pass=[inside, n_ga], ranges=names,
+                engine_fits_total=fits)
+
+
+def tune_phase(dev, points, init, fit_kw, wide):
+    """Phase 12: the measured search at uci-xlarge into the fresh cache,
+    ``fit(tune="auto")`` hitting its winner, ``tune="force"`` not
+    searching again, the ``tile_n`` lattice bit for bit, and the grid's
+    backends on the converging uci-wide cell. ``wide`` is ``(points,
+    init, kernel fit, tie counter)`` from phase 9."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.core import engine
+    from repro_torch.core.engine import EngineConfig
+
+    n, d = points.shape
+    k = init.shape[0]
+    cache = tune.default_cache()
+    sig = tune.signature(n, k, d, tune.platform_name(dev))
+    check(cache.path == os.environ[tune.ENV_VAR] and cache.lookup(sig) is None,
+          f"tune: the cache {cache.path} is not the fresh one, or holds "
+          f"{sig} already")
+    kw = dict(max_iters=fit_kw["max_iters"], tol=fit_kw["tol"])
+    measure = tune.timing_measure(points, init, repeats=2, device=dev, **kw)
+    measured = []
+
+    def logged(cfg):
+        t = measure(cfg)
+        measured.append((cfg.to_dict(), t))
+        log(f"tune: {cfg.backend:8s} {t * 1e3:9.2f} ms  {cfg.to_dict()}")
+        return t
+    t0 = time.perf_counter()
+    best = tune.autotune(points, init, measure=logged, repeats=2,
+                         max_measurements=10, device=dev, **kw)
+    tune_s = time.perf_counter() - t0
+    entry = cache.entry(sig)
+    log(f"tune: {len(measured)} configs in {tune_s:.2f} s; winner "
+        f"{best.backend} {entry['ms']:.2f} ms (lloyd {entry['lloyd_ms']:.2f}"
+        f" ms) {best.to_dict()}")
+    check(len(measured) <= 10 and tune.lookup(
+        n=n, k=k, d=d, platform=tune.platform_name(dev)) == best,
+          "tune: the winner is not stored under its signature")
+
+    _, s_auto = engine.fit(points, init, tune="auto", return_stats=True,
+                           device=dev, **kw)
+    check(s_auto.config == best.to_dict(),
+          f"tune: fit(tune='auto') ran {s_auto.config}, not the winner")
+
+    def no_search(*a, **k_):
+        fail("tune: fit(tune='force') searched again on a cache hit")
+    saved = tune.search.autotune
+    tune.search.autotune = no_search
+    try:
+        _, s_force = engine.fit(points, init, tune="force",
+                                return_stats=True, device=dev, **kw)
+    finally:
+        tune.search.autotune = saved
+    check(s_force.config == best.to_dict(),
+          "tune: fit(tune='force') did not take the stored winner")
+
+    # the kernel backend's tile_n lattice: the same bits
+    lattice = {}
+    for tn in tune.search.KNOB_LATTICE["tile_n"]:
+        sync()
+        t1 = time.perf_counter()
+        r = engine.fit(points, init, config=EngineConfig(
+            backend="kernel", tile_n=tn), tune="off", device=dev, **kw)
+        sync()
+        lattice[tn] = (r, time.perf_counter() - t1)
+    r0 = lattice[256][0]
+    for tn, (r, t) in lattice.items():
+        log(f"tune: kernel tile_n={tn}: {t:.3f} s, n_iters {r.n_iters}, "
+            f"distance_evals {int(r.distance_evals)}, inertia "
+            f"{float(r.inertia):.9g}")
+        check(torch.equal(r.assignments, r0.assignments)
+              and r.n_iters == r0.n_iters
+              and float(r.inertia) == float(r0.inertia),
+              f"tune: tile_n={tn} changed labels, n_iters or inertia")
+
+    # the grid's backends on the converging cell: Lloyd against phase 9
+    wpts, winit, wk_fit, count_ties = wide
+    wl = engine.fit(wpts, winit, backend="lloyd", tune="off", device=dev,
+                    max_iters=fit_kw["max_iters"], tol=fit_kw["tol"])
+    check(wl.n_iters == wk_fit.n_iters, f"tune: uci-wide lloyd n_iters "
+          f"{wl.n_iters} != kernel {wk_fit.n_iters}")
+    check(abs(float(wl.inertia) - float(wk_fit.inertia))
+          <= 1e-5 * float(wk_fit.inertia),
+          "tune: uci-wide lloyd inertia differs beyond rtol 1e-5")
+    wties = count_ties(wl.assignments)
+    log(f"tune: uci-wide lloyd converges with the kernel and compact fits "
+        f"in {wl.n_iters} iterations, labels equal but {wties} fp32 ties")
+    return dict(signature=sig, winner=best.to_dict(),
+                winner_ms=entry["ms"], lloyd_ms=entry["lloyd_ms"],
+                measured=[[c, t] for c, t in measured], tune_s=tune_s,
+                tile_n={tn: dict(s=t, n_iters=r.n_iters,
+                                 distance_evals=int(r.distance_evals))
+                        for tn, (r, t) in lattice.items()},
+                uci_wide_lloyd_ties=wties)
+
+
+def exact_labels(queries, cents, chunk=1 << 16):
+    """The fp64 yardstick: argmin of the float64 distances to ``cents``
+    (ties to the lower index)."""
+    import torch
+    c = cents.double()
+    c2 = (c * c).sum(1)
+    labels = []
+    for lo in range(0, queries.shape[0], chunk):
+        x = queries[lo:lo + chunk].double()
+        labels.append(torch.argmin(
+            (x * x).sum(1)[:, None] - 2.0 * (x @ c.T) + c2[None], dim=1))
+    return torch.cat(labels).cpu().numpy()
+
+
+def near_ties(x, c64, got, want):
+    """Rows whose served label ``got`` is not the yardstick's ``want``,
+    measured in float64: ``(rel, norm)``, the relative gap of the two
+    distances, ``(d_got - d_want) / d_got``, and the gap of the squared
+    distances over phase 2b's fp32 rounding scale, ``1e-5 * (||x||^2 +
+    max ||c||^2)`` (the expanded form ``x2 - 2 x.c + c2`` loses bits
+    against the norms, not against the distance)."""
+    x = x.astype(np.float64)
+    d_got = ((x - c64[got]) ** 2).sum(1)
+    d_want = ((x - c64[want]) ** 2).sum(1)
+    rel = (np.sqrt(d_got) - np.sqrt(d_want)) / np.sqrt(d_got)
+    norm = (d_got - d_want) / (1e-5 * ((x * x).sum(1)
+                                       + (c64 * c64).sum(1).max()))
+    return rel, norm
+
+
+SERVE_MIX = dict(max_request=4096, clients=4, jumbo=20_000)
+
+
+def serve_index_phase(dev, wrappers, centroids, queries_np, queries_dev,
+                      seed=0):
+    """Phase 13: the fitted centroids behind a ``ServeEngine`` on each
+    backend: 2^20 query points in a fixed mix (requests of 1 to 4096
+    points from a seeded generator, 4 client threads, one jumbo request
+    split by the engine, one request as a CUDA tensor), republished
+    midway under and over the rebuild threshold; every request's labels
+    against its epoch's fp64 yardstick, the launches, points/s and
+    latency, a traced batch, and the serve tuner."""
+    import threading
+
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import CentroidIndex, ServeEngine
+    from repro_torch.tune import ServeConfig
+
+    n, d = queries_np.shape
+    k = centroids.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    c0 = centroids.to(dev).float()
+    scale = float(torch.sqrt((c0 * c0).sum(1).mean()))
+    cfg0 = ServeConfig()
+    # two republishes: a drift under the rebuild threshold, then over it
+    c1 = c0 + 0.01 * scale / math.sqrt(d) * torch.randn(
+        c0.shape, generator=gen, device=dev)
+    c2 = c1 + 0.3 * scale / math.sqrt(d) * torch.randn(
+        c0.shape, generator=gen, device=dev)
+    drift1 = (c1 - c0).norm(dim=1).double().cpu().numpy()
+    drift2 = drift1 + (c2 - c1).norm(dim=1).double().cpu().numpy()
+    epochs = {1: c0, 2: c1, 3: c2}
+    t0 = time.perf_counter()
+    refs = {ep: exact_labels(queries_dev, c) for ep, c in epochs.items()}
+    cents64 = {ep: c.double().cpu().numpy() for ep, c in epochs.items()}
+    sync()
+    log(f"serve-index: fp64 yardstick labels of 2^{int(math.log2(n))} "
+        f"queries for 3 epochs in {time.perf_counter() - t0:.2f} s; "
+        f"drifts {drift1.max() / scale:.4f} and {drift2.max() / scale:.4f} "
+        f"of the centroids' scale {scale:.4g} (threshold "
+        f"{cfg0.rebuild_threshold})")
+
+    # the fixed mix: the jumbo first, the CUDA tensor next, then random
+    # sizes to 2^20 points, dealt round-robin to the client threads
+    rng = np.random.default_rng(seed)
+    reqs = [(0, SERVE_MIX["jumbo"], "jumbo"),
+            (SERVE_MIX["jumbo"], 4096, "tensor")]
+    lo = SERVE_MIX["jumbo"] + 4096
+    while lo < n:
+        m = min(int(rng.integers(1, SERVE_MIX["max_request"] + 1)), n - lo)
+        reqs.append((lo, m, "host"))
+        lo += m
+    rest = reqs[2:]
+    shares = [rest[i::SERVE_MIX["clients"]]
+              for i in range(SERVE_MIX["clients"])]
+    out = {}
+    for backend in ("fused", "grouped", "kernel"):
+        reg = MetricsRegistry()
+        index = CentroidIndex(device=dev, obs=reg)
+        index.publish(c0, cum_drift=np.zeros(k))
+        cfg = ServeConfig(backend=backend)
+        results, lat = {}, []
+        lat_lock = threading.Lock()
+        reset_launches(wrappers)
+        publish_cu = 0
+        sync()
+        with ServeEngine(index, config=cfg, tune="off", obs=reg) as eng:
+            t_start = time.perf_counter()
+
+            def submit(lo_, m_, kind):
+                block = queries_dev[lo_:lo_ + m_] if kind == "tensor" \
+                    else queries_np[lo_:lo_ + m_]
+                t_sub = time.perf_counter()
+                fut = eng.submit(block)
+                return fut, t_sub
+
+            def client(share):
+                mine = [(lo_, m_) + submit(lo_, m_, kind)
+                        for lo_, m_, kind in share]
+                for lo_, m_, fut, t_sub in mine:
+                    res = fut.result(timeout=600)
+                    with lat_lock:
+                        results[(lo_, m_)] = res
+                        lat.append(time.perf_counter() - t_sub)
+
+            head = [(lo_, m_) + submit(lo_, m_, kind)
+                    for lo_, m_, kind in reqs[:2]]
+            threads = [threading.Thread(target=client, args=(s,))
+                       for s in shares]
+            for t in threads:
+                t.start()
+            published = []
+            # the jumbo's parts may span batches: it reports its first
+            # part's epoch, so no publish lands before it is whole
+            head[0][2].result(timeout=600)
+            for frac, c_new, drift in ((1 / 3, c1, drift1),
+                                       (2 / 3, c2, drift2)):
+                while eng.points < frac * n and any(t.is_alive()
+                                                    for t in threads):
+                    time.sleep(0.0005)
+                before = wrappers["centroid_update"].launches
+                published.append(index.publish(c_new, cum_drift=drift))
+                publish_cu += wrappers["centroid_update"].launches - before
+            for lo_, m_, fut, t_sub in head:
+                results[(lo_, m_)] = fut.result(timeout=600)
+                lat.append(time.perf_counter() - t_sub)
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t_start
+            batches, served = eng.batches, eng.points
+            swaps = eng.epoch_swaps
+            launches = read_launches(wrappers)
+            launches["centroid_update"] -= publish_cu
+            # one traced batch: a full bucket through the running engine
+            block = queries_np[:cfg.max_batch]
+            eng.assign(block)
+            trace = traced(lambda: eng.assign(block),
+                           f"serve-index {backend}: traced batch of "
+                           f"{cfg.max_batch}")
+        check(served == n and len(results) == len(reqs),
+              f"serve-index {backend}: served {served} points in "
+              f"{len(results)} requests, not {n} in {len(reqs)}")
+        check(index.rebuilds == 2 and index.reuses == 1,
+              f"serve-index {backend}: {index.rebuilds} rebuilds and "
+              f"{index.reuses} reuses, not 2 and 1 (publish, reuse, rebuild)")
+        # every request against the yardstick of the epoch it reports
+        per_epoch, rels, norms = {}, [], []
+        for (lo_, m_), res in results.items():
+            check(res.labels.shape == (m_,), f"serve-index {backend}: "
+                  f"{res.labels.shape} labels for {m_} points")
+            ref = refs[res.epoch]
+            bad = np.nonzero(res.labels != ref[lo_:lo_ + m_])[0]
+            if len(bad):
+                rel, norm = near_ties(queries_np[lo_ + bad],
+                                      cents64[res.epoch], res.labels[bad],
+                                      ref[lo_ + bad])
+                rels.append(rel)
+                norms.append(norm)
+            per_epoch[res.epoch] = per_epoch.get(res.epoch, 0) + m_
+        rels = np.concatenate(rels) if rels else np.zeros(0)
+        norms = np.concatenate(norms) if norms else np.zeros(0)
+        ties = len(rels)
+        over_rel = int((rels >= 1e-5).sum())
+        tie_note = (f"{ties} labels apart from the fp64 yardstick, "
+                    f"{over_rel} of them at a relative distance gap of "
+                    f"1e-5 or more (largest {rels.max() if ties else 0:.3g}),"
+                    f" largest squared gap {norms.max() if ties else 0:.3g}"
+                    f" of phase 2b's fp32 scale")
+        log(f"serve-index {backend}: {tie_note}")
+        # a mismatch must be an fp32 near-tie: within phase 2b's tie
+        # rule, twice the rounding scale of the expanded form
+        check(bool(np.all(norms <= 2.0)), f"serve-index {backend}: labels "
+              f"differ from the fp64 yardstick off an fp32 near-tie: "
+              f"{tie_note}")
+        check(set(per_epoch) == {1, 2, 3},
+              f"serve-index {backend}: epochs served {sorted(per_epoch)}")
+        served_launches = {nm: c for nm, c in launches.items() if c}
+        if backend == "kernel":
+            check(launches["grouped_assign"] == batches and
+                  set(served_launches) == {"grouped_assign"},
+                  f"serve-index kernel: launches {served_launches} for "
+                  f"{batches} batches")
+        else:
+            check(not served_launches, f"serve-index {backend}: port "
+                  f"kernels launched {served_launches}")
+        hist = reg.histogram("serve_latency_seconds")
+        lat.sort()
+        rep = dict(backend=backend, points=served, requests=len(results),
+                   batches=batches, epoch_swaps=swaps, wall_s=wall,
+                   points_per_s=served / wall, points_by_epoch=per_epoch,
+                   near_ties=ties, near_ties_rel_1e5_or_more=over_rel,
+                   near_tie_max_rel=float(rels.max()) if ties else 0.0,
+                   near_tie_max_norm=float(norms.max()) if ties else 0.0,
+                   launches=launches,
+                   publish_centroid_update_launches=publish_cu,
+                   latency_p50_s=_quantile(lat, 0.5),
+                   latency_p99_s=_quantile(lat, 0.99),
+                   hist_p50_le_s=hist_quantile(hist, 0.5),
+                   hist_p99_le_s=hist_quantile(hist, 0.99),
+                   fill_mean=reg.histogram("serve_batch_fill").mean,
+                   trace=trace)
+        log(f"serve-index {backend}: {served} points in {len(results)} "
+            f"requests, {batches} batches, {wall:.3f} s wall, "
+            f"{served / wall:.4g} points/s; latency p50 "
+            f"{rep['latency_p50_s'] * 1e3:.2f} ms, p99 "
+            f"{rep['latency_p99_s'] * 1e3:.2f} ms (registry histogram: "
+            f"p50 <= {rep['hist_p50_le_s']} s, p99 <= "
+            f"{rep['hist_p99_le_s']} s); mean fill {rep['fill_mean']:.3f}; "
+            f"points by epoch {per_epoch}; {ties} near-ties; serving "
+            f"launches {served_launches}, publishes' centroid_update "
+            f"{publish_cu}")
+        out[backend] = rep
+
+    # the serve tuner into the fresh cache
+    grid = []
+    t0 = time.perf_counter()
+    best = tune.autotune_serve(k=k, d=d, device=dev, grid=grid)
+    tsec = time.perf_counter() - t0
+    for c_, t_ in grid:
+        log(f"serve-tune: {c_.backend:8s} chunk {c_.chunk:5d} "
+            f"{t_ * 1e3:8.3f} ms a bucket of {c_.max_batch}")
+    check(tune.lookup_serve(k=k, d=d, platform=tune.platform_name(dev))
+          == best, "serve-tune: the winner is not stored")
+    log(f"serve-tune: winner {best.backend} chunk {best.chunk} "
+        f"({len(grid)} candidates, {tsec:.2f} s)")
+    out["tune"] = dict(grid=[[c_.to_dict(), t_] for c_, t_ in grid],
+                       winner=best.to_dict(), seconds=tsec)
+    return out
 
 
 def main() -> None:
@@ -770,6 +1322,13 @@ def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT / "src"))
+    # a fresh tuning cache for the whole run (phase 12): no cache left on
+    # the machine may route a fit or skip the search; removed at exit
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    import atexit
+    atexit.register(shutil.rmtree, scratch, True)
+    os.environ["REPRO_TORCH_KMEANS_TUNE_CACHE"] = str(
+        Path(scratch) / "tune.json")
 
     import repro_torch.kernels as kernels
     from repro_torch.core import engine
@@ -1700,11 +2259,34 @@ def main() -> None:
     report["converging"] = dict(
         config="uci-wide", n_iters=wk_fit.n_iters, tie_rows=conv,
         evals={b: int(r.distance_evals) for b, r in wfits.items()})
-    del wpts, wfits
+    del wfits
 
     # -- 7. where a fit's time goes: one traced kernel fit ----------------
     report["trace"] = traced(lambda: engine.fit(points, init, **fit_kw),
                              "traced fit")
+
+    # -- 11. observability at uci-xlarge ---------------------------------
+    t0 = time.perf_counter()
+    report["obs"] = obs_phase(dev, points, init, fit_kw, scratch)
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. autotuning at uci-xlarge, into the fresh cache --------------
+    t0 = time.perf_counter()
+
+    def wide_ties(labels):
+        return tie_rows("uci-wide lloyd", wpts, wk_fit.centroids, labels,
+                        wk_fit.assignments, w_atol)
+    report["tune"] = tune_phase(dev, points, init, fit_kw,
+                                (wpts, winit, wk_fit, wide_ties))
+    del wpts
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. the fitted index behind the serving engine ------------------
+    t0 = time.perf_counter()
+    report["serve_index"] = serve_index_phase(
+        dev, wrappers, torch.from_numpy(km.cluster_centers_), pts_np, points)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    serve_ga = report["serve_index"]["kernel"]["launches"]["grouped_assign"]
 
     # -- 2c. the LM kernels against their plain versions -----------------
     from repro_torch.configs import get_config
@@ -1732,9 +2314,11 @@ def main() -> None:
         return r
 
     line = {"kernels": [
+        # the main path's launches and the serving index's (phase 13)
         row("grouped_assign", ga_main,
             "src/repro_torch/kernels/csrc/grouped_assign.cu",
-            "src/repro/kernels/grouped_assign.py:83", launches),
+            "src/repro/kernels/grouped_assign.py:83",
+            {"grouped_assign": launches["grouped_assign"] + serve_ga}),
         row("centroid_update", cu_main,
             "src/repro_torch/kernels/csrc/centroid_update.cu",
             "src/repro/kernels/centroid_update.py:39", launches),

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from ..device import as_float32, resolve_device
+from ..obs.metrics import normalize_obs
 from . import engine as _engine
 from . import kmeans as _km
 from .distances import pairwise_dists, row_norms_sq
@@ -33,12 +34,16 @@ class KMeans:
         any other value routes the filtered algorithms through
         :mod:`repro_torch.core.engine`. 'pallas' is an alias of
         'kernel'.
-    tune : 'auto' | 'off'. The port has no tuning cache yet, so both
-        use the built-in defaults; 'force' raises.
+    tune : 'auto' | 'off' | 'force' — the engine's per-(card, N, K, D)
+        tuning cache (:mod:`repro_torch.tune`): 'auto' uses a stored
+        winner, 'force' also searches on a miss, 'off' the defaults.
+    obs : None | True | MetricsRegistry | ObsConfig — the engine fit's
+        telemetry ring and metrics (:mod:`repro_torch.obs`); ``stats_``
+        then carries the drained ring.
     device : None (= 'cuda', raising when CUDA is not there) or a
         device.
 
-    ``partial_fit`` and ``obs`` belong to later slices of the port.
+    ``partial_fit`` belongs to a later slice of the port.
     """
 
     def __init__(self, n_clusters: int, algorithm: str = "yinyang",
@@ -53,10 +58,7 @@ class KMeans:
         if tune not in ("auto", "off", "force"):
             raise ValueError(f"unknown tune mode {tune!r}; expected "
                              f"'auto', 'off' or 'force'")
-        if obs:
-            raise NotImplementedError(
-                "obs= is not ported yet: ROADMAP Queue 1 item 6 "
-                "(observability)")
+        normalize_obs(obs)                       # validate early
         self.n_clusters = n_clusters
         self.algorithm = algorithm
         self.n_groups = n_groups
@@ -119,7 +121,7 @@ class KMeans:
                     max_iters=self.max_iters, tol=self.tol,
                     backend=self.engine, tune=self.tune,
                     sample_weight=weights, return_stats=True,
-                    device=self.device)
+                    obs=self.obs, device=self.device)
         self.result_ = res
         self._assign_tables = None
         return self

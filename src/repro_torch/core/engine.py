@@ -31,6 +31,14 @@ then :func:`move_and_bounds`, and one epilogue pass follows the loop, so
 iteration (``shift``; on the compact backend ``shift``, ``n_cand`` and
 ``gmax`` in one transfer) and applies the reference's exit rules to
 them. :class:`EngineStats` counts every such read in ``host_syncs``.
+
+Observability (``fit(obs=...)``, :mod:`repro_torch.obs`): the loop body
+runs its phases inside ``kpynq/*`` profiler ranges, and with obs on it
+writes one row per iteration into a float64 telemetry ring on the
+device, drained once at fit exit. Tuning (``fit(tune=...)``,
+:mod:`repro_torch.tune`): a per-(card, N, K, D) cache of measured
+:class:`EngineConfig` winners. The serve-side batched assign
+(:func:`make_serve_assign`) is what :mod:`repro_torch.serve` runs.
 """
 from __future__ import annotations
 
@@ -43,6 +51,12 @@ import torch
 from .. import kernels as _kernels
 from ..device import as_float32, resolve_device
 from ..kernels import build_group_block_mask, compact_indices
+from ..obs import ring as _obs_ring
+from ..obs.metrics import normalize_obs
+from ..obs.ring import (COL_CAP_G, COL_CAP_N, COL_EVALS, COL_GMAX,
+                        COL_INERTIA, COL_N_CAND, COL_SHIFT, COL_TIGHTENED,
+                        N_COUNTERS, RING_COLUMNS)
+from ..obs.trace import phase
 from .distances import (_check_fp32_matmul, pairwise_sq_dists, row_norms_sq,
                         rowwise_dists)
 from .kmeans import (KMeansResult, _f32, _init_filter_state, centroid_sums,
@@ -435,6 +449,9 @@ class EngineCarry(NamedTuple):
                               # move_and_bounds); else None
     shift: torch.Tensor       # f32 max centroid drift
     evals: torch.Tensor       # int64
+    ring: torch.Tensor | None = None  # (ring_iters, N_COUNTERS) float64
+                              # telemetry ring (repro_torch.obs.ring),
+                              # written in place; None when obs is off
 
 
 @dataclasses.dataclass
@@ -447,7 +464,16 @@ class EngineStats:
     compact backend's (cap_n, cap_g) per segment, ``use_groups`` the
     group-gather decision beside it; ``x2_evals`` is the number of
     full-N norm computations per fit (one, carried in
-    ``EngineCarry.x2``)."""
+    ``EngineCarry.x2``).
+
+    With observability on (``fit(obs=...)``) the stats carry the
+    drained telemetry ring: ``ring`` is the trimmed ``(n_iters + 1, C)``
+    float64 numpy buffer (column layout ``ring_columns`` =
+    :data:`repro_torch.obs.ring.RING_COLUMNS`; final row = epilogue),
+    ``init_evals`` the distance evals charged at filter-state init, so
+    ``init_evals + ring[:, evals].sum() == result.distance_evals``
+    exactly. ``shard_rings`` and ``shard_skew`` belong to a sharded
+    driver (ROADMAP Queue 1 item 9) and stay None here."""
     backend: str = ""
     n_iters: int = 0
     host_syncs: int = 0
@@ -457,9 +483,47 @@ class EngineStats:
     x2_evals: int = 0
     config: dict = dataclasses.field(default_factory=dict)
     n_points: int = 0
+    ring: np.ndarray | None = None
+    ring_columns: tuple = RING_COLUMNS
+    init_evals: float = 0.0
+    shard_rings: np.ndarray | None = None
+    shard_skew: np.ndarray | None = None
+
+    def telemetry(self) -> dict | None:
+        """Headline ring summary (iters, mean candidate fraction, total
+        evals, ...); ``None`` when the fit ran without the ring."""
+        if self.ring is None:
+            return None
+        out = _obs_ring.summarize_ring(self.ring, self.n_points,
+                                       init_evals=self.init_evals)
+        if self.shard_skew is not None and len(self.shard_skew):
+            out["mean_shard_skew"] = float(np.mean(self.shard_skew))
+            out["max_shard_skew"] = float(np.max(self.shard_skew))
+        return out
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        """JSON-serialisable view (numpy rings -> nested lists), for
+        event logs and measurement records."""
+        out = {
+            "backend": self.backend,
+            "n_iters": int(self.n_iters),
+            "host_syncs": int(self.host_syncs),
+            "bucket_switches": int(self.bucket_switches),
+            "caps_history": [list(c) for c in self.caps_history],
+            "use_groups": [bool(u) for u in self.use_groups],
+            "x2_evals": int(self.x2_evals),
+            "config": dict(self.config),
+            "n_points": int(self.n_points),
+        }
+        if self.ring is not None:
+            out["ring_columns"] = list(self.ring_columns)
+            out["ring"] = np.asarray(self.ring, np.float64).tolist()
+            out["init_evals"] = float(self.init_evals)
+            out["telemetry"] = self.telemetry()
+        if self.shard_skew is not None:
+            out["shard_skew"] = np.asarray(
+                self.shard_skew, np.float64).tolist()
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -480,6 +544,12 @@ class PassCore:
     down_g: int = 4
     refresh_in_pass: bool = False
     use_groups: bool | None = None
+    # telemetry-ring rows carried through the loop (0 = ring off; the
+    # driver sets max_iters + 1 so the epilogue gets the last row), and
+    # whether each row is handed to the ring listeners as the loop's
+    # exit read brings it home. Never feeds back into the fit.
+    ring_iters: int = 0
+    live_drain: bool = False
 
     @classmethod
     def from_config(cls, cfg: EngineConfig, *, backend: str, k: int,
@@ -524,26 +594,69 @@ class PassCore:
         return bool(self.use_groups) and gmax_next is None
 
 
+def _ring_caps(core: PassCore, n: int):
+    """The (cap_n, cap_g) the candidate pass ran at, as ring values: the
+    static caps on the compact backend, (N, G) for the kernel and
+    oracle passes, which do not compact."""
+    if core.backend == "compact":
+        return core.cap_n, core.cap_g
+    return n, core.n_groups
+
+
+def _write_ring_row(ring, it: int, caps, *, n_cand, gmax, shift, evals,
+                    inertia, tightened) -> None:
+    """Row ``it`` of the float64 ring, written in place column by column
+    from device scalars (each a copy kernel; no host read). ``gmax``
+    None leaves the column at its 0."""
+    row = ring[it]
+    row[COL_N_CAND] = n_cand
+    if gmax is not None:
+        row[COL_GMAX] = gmax
+    row[COL_SHIFT] = shift
+    row[COL_EVALS] = evals
+    row[COL_CAP_N] = float(caps[0])
+    row[COL_CAP_G] = float(caps[1])
+    row[COL_INERTIA] = inertia
+    row[COL_TIGHTENED] = tightened
+
+
 def _loop_body(core: PassCore, points, weights, groups, members, gsize):
-    """The pending candidate pass, then move + bound upkeep. ``gmax``
-    is the pending pass's ``gmax`` as the host read it (compact), or
-    None."""
+    """The pending candidate pass, then move + bound upkeep, each in its
+    ``kpynq/*`` profiler range. ``gmax`` is the pending pass's ``gmax``
+    as the host read it (compact), or None.
+
+    With ``core.ring_iters > 0`` each body also writes one row of the
+    telemetry ring (:mod:`repro_torch.obs.ring` layout) at its
+    iteration index, in place on the device: no host traffic."""
+    on_card = points.is_cuda
 
     def body(c: EngineCarry, gmax: int | None = None) -> EngineCarry:
-        new_as, new_ub, new_lb, pairs, pass_gmax = core.candidate_pass(
-            points, c.centroids, c.assignments, c.ub, c.lb, c.need, groups,
-            members, gsize, x2=c.x2, c2=c.c2, gmax=gmax)
-        mv = move_and_bounds(points, c.centroids, new_as, new_ub, new_lb,
-                             groups, k=core.k, n_groups=core.n_groups,
-                             weights=weights, x2=c.x2,
-                             refresh=core.refresh_in_move)
-        gmax_next = None
-        if core.backend == "compact" and core.refresh_in_move:
-            gmax_next = pending_gmax(mv.need, mv.ub, mv.lb)
+        with phase("kpynq/candidate_pass", on_card):
+            new_as, new_ub, new_lb, pairs, pass_gmax = core.candidate_pass(
+                points, c.centroids, c.assignments, c.ub, c.lb, c.need,
+                groups, members, gsize, x2=c.x2, c2=c.c2, gmax=gmax)
+        with phase("kpynq/move_and_bounds", on_card):
+            mv = move_and_bounds(points, c.centroids, new_as, new_ub,
+                                 new_lb, groups, k=core.k,
+                                 n_groups=core.n_groups, weights=weights,
+                                 x2=c.x2, refresh=core.refresh_in_move)
+            gmax_next = None
+            if core.backend == "compact" and core.refresh_in_move:
+                gmax_next = pending_gmax(mv.need, mv.ub, mv.lb)
+        if core.ring_iters:
+            with phase("kpynq/ring_write", on_card):
+                proxy = mv.ub * mv.ub
+                if weights is not None:
+                    proxy = proxy * weights
+                _write_ring_row(
+                    c.ring, c.iteration, _ring_caps(core, points.shape[0]),
+                    n_cand=mv.need.sum(), gmax=pass_gmax, shift=mv.shift,
+                    evals=pairs + mv.tightened, inertia=torch.sum(proxy),
+                    tightened=mv.tightened)
         return EngineCarry(
             c.iteration + 1, mv.centroids, mv.c2, new_as, mv.ub, mv.lb,
             c.x2, mv.need, c.gmax if pass_gmax is None else pass_gmax,
-            gmax_next, mv.shift, c.evals + pairs + mv.tightened)
+            gmax_next, mv.shift, c.evals + pairs + mv.tightened, c.ring)
 
     return body
 
@@ -581,30 +694,47 @@ def _loop_cond(*, max_iters: int, tol: float, core: PassCore | None = None,
 def _epilogue_pass(core: PassCore, points, weights, carry: EngineCarry,
                    groups, members, gsize, gmax: int | None = None):
     """The final pending candidate pass + (weighted) inertia. Returns
-    ``(assignments, evals, inertia)``."""
-    new_as, _, _, pairs, _ = core.candidate_pass(
-        points, carry.centroids, carry.assignments, carry.ub, carry.lb,
-        carry.need, groups, members, gsize, x2=carry.x2, c2=carry.c2,
-        gmax=gmax)
+    ``(assignments, evals, inertia)``. With the ring on, its row
+    ``carry.iteration`` gets the epilogue pass's evals and, in the
+    inertia-proxy column, the EXACT inertia."""
+    on_card = points.is_cuda
+    with phase("kpynq/candidate_pass", on_card):
+        new_as, _, _, pairs, _ = core.candidate_pass(
+            points, carry.centroids, carry.assignments, carry.ub, carry.lb,
+            carry.need, groups, members, gsize, x2=carry.x2, c2=carry.c2,
+            gmax=gmax)
     d = rowwise_dists(points, carry.centroids[new_as.long()])
     d2 = d * d
     if weights is not None:
         d2 = d2 * weights
-    return new_as, carry.evals + pairs, torch.sum(d2)
+    inertia = torch.sum(d2)
+    if core.ring_iters:
+        with phase("kpynq/ring_write", on_card):
+            _write_ring_row(
+                carry.ring, carry.iteration,
+                _ring_caps(core, points.shape[0]),
+                n_cand=carry.need.sum(), gmax=carry.gmax,
+                shift=carry.shift, evals=pairs, inertia=inertia,
+                tightened=0.0)
+    return new_as, carry.evals + pairs, inertia
 
 
-def _init_carry(points, init_c, groups, *, n_groups: int) -> EngineCarry:
+def _init_carry(points, init_c, groups, *, n_groups: int,
+                ring_iters: int = 0) -> EngineCarry:
     """Point norms (THE once-per-fit ``||x||^2``), the initial filter
-    state, and an empty pending pass."""
+    state, and an empty pending pass. ``ring_iters`` sizes the float64
+    telemetry ring (0 = off, no ring)."""
     n = points.shape[0]
+    dev = points.device
     x2 = row_norms_sq(points)
     c2 = row_norms_sq(init_c)
     s0 = _init_filter_state(points, init_c, groups, n_groups, x2=x2, c2=c2)
-    zero = torch.zeros((), dtype=torch.int64, device=points.device)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    ring = torch.zeros((ring_iters, N_COUNTERS), dtype=torch.float64,
+                       device=dev) if ring_iters else None
     return EngineCarry(0, s0.centroids, c2, s0.assignments, s0.ub, s0.lb, x2,
-                       torch.zeros((n,), dtype=torch.bool,
-                                   device=points.device),
-                       zero, zero, s0.shift, s0.distance_evals)
+                       torch.zeros((n,), dtype=torch.bool, device=dev),
+                       zero, zero, s0.shift, s0.distance_evals, ring)
 
 
 class _Exit(NamedTuple):
@@ -616,22 +746,35 @@ class _Exit(NamedTuple):
     gmax_next: int | None
 
 
-def _read_exit(carry: EngineCarry) -> _Exit:
+def _fetch(carry: EngineCarry, vals: list, live: bool) -> list:
+    """The float64 device scalars ``vals`` in one device-to-host
+    transfer. ``live`` (``ObsConfig.live_drain``): the ring row the last
+    body wrote rides the same transfer and goes to the ring listeners."""
+    if not live:
+        return torch.stack(vals).tolist()
+    got = torch.cat([torch.stack(vals),
+                     carry.ring[carry.iteration - 1]]).tolist()
+    _obs_ring.emit_ring_row(carry.iteration - 1, got[len(vals):])
+    return got[:len(vals)]
+
+
+def _read_exit(carry: EngineCarry, live: bool = False) -> _Exit:
     """``shift``, ``n_cand`` (the pending candidates, counted here: only
     the compact driver reads it), ``gmax`` (and ``gmax_next``) in one
-    device-to-host transfer."""
+    device-to-host transfer (:func:`_fetch`)."""
     vals = [carry.shift.double(), carry.need.sum().double(),
             carry.gmax.double()]
     if carry.gmax_next is not None:
         vals.append(carry.gmax_next.double())
-    got = torch.stack(vals).tolist()
+    got = _fetch(carry, vals, live)
     return _Exit(carry.iteration, got[0], int(got[1]), int(got[2]),
                  int(got[3]) if len(got) > 3 else None)
 
 
 def _fit_compact(points, weights, carry: EngineCarry, groups, members, gsize,
                  *, cfg: EngineConfig, k: int, n_groups: int, max_iters: int,
-                 tol: float, max_bucket_switches: int, stats: EngineStats):
+                 tol: float, max_bucket_switches: int, stats: EngineStats,
+                 ring_iters: int = 0, live_drain: bool = False):
     """The compact backend's bucketed driver (the reference's
     host-picked capacity segments). Returns ``(carry, epilogue core,
     epilogue gmax)``."""
@@ -646,7 +789,9 @@ def _fit_compact(points, weights, carry: EngineCarry, groups, members, gsize,
             group_gather_factor=cfg.group_gather_factor)
         return PassCore.from_config(cfg, backend="compact", k=k,
                                     n_groups=n_groups, cap_n=cap_n,
-                                    cap_g=cap_g, use_groups=ug)
+                                    cap_g=cap_g, use_groups=ug,
+                                    ring_iters=ring_iters,
+                                    live_drain=live_drain)
 
     def segment(core, carry, ex, *, min_cap, allow_down):
         stats.caps_history.append((core.cap_n, core.cap_g))
@@ -657,7 +802,7 @@ def _fit_compact(points, weights, carry: EngineCarry, groups, members, gsize,
         while cond(ex.iteration, ex.shift, ex.n_cand, ex.gmax):
             stats.host_syncs += core.reads_gmax(ex.gmax_next)
             carry = body(carry, ex.gmax_next)
-            ex = _read_exit(carry)
+            ex = _read_exit(carry, live_drain)
             stats.host_syncs += 1
         return carry, ex
 
@@ -722,17 +867,29 @@ def build_assign_tables(centroids, n_groups: int | None = None):
     return groups, members, gsize
 
 
-def _resolve_config(*, backend, tile_n, min_cap, chunk, config, tune, n, k):
-    """``(config, resolved_backend)``: explicit ``tile_n``/``min_cap``/
-    ``chunk`` > ``config`` > defaults (the port has no tuning cache
-    yet). The caller's backend wins unless it is ``"auto"``."""
-    if tune not in ("auto", "off"):
-        if tune == "force":
-            raise NotImplementedError(
-                "tune='force' is not ported yet: ROADMAP Queue 1 item 5 "
-                "(autotuning)")
-        raise ValueError(f"unknown tune mode {tune!r}")
-    cfg = DEFAULT_CONFIG if config is None else config
+def _resolve_config(*, backend, tile_n, min_cap, chunk, config, tune, n, k,
+                    d, device):
+    """``(config, resolved_backend)`` for this fit.
+
+    Precedence per knob, as in the reference: explicit ``fit`` kwarg >
+    explicit ``config`` > the tuned cache entry for this (card, N, K, D)
+    (``tune != "off"``, :mod:`repro_torch.tune`) > built-in default. The
+    caller's backend wins unless it is ``"auto"``; an entry naming
+    ``"pallas"`` resolves to ``"kernel"``. Without an entry ``"auto"``
+    picks ``"lloyd"`` for ``n * k <= lloyd_max_work``, else ``"kernel"``
+    (the reference picks ``"compact"`` off the TPU)."""
+    if tune not in ("auto", "off", "force"):
+        raise ValueError(f"unknown tune mode {tune!r}; expected "
+                         f"'auto', 'off' or 'force'")
+    cfg = DEFAULT_CONFIG
+    if config is None and tune != "off":
+        # "force" has run the search already (fit() turns its winner
+        # into an explicit config); both active modes read the cache
+        from .. import tune as _tune
+        cfg = _tune.lookup(n=n, k=k, d=d,
+                           platform=_tune.platform_name(device)) or cfg
+    if config is not None:
+        cfg = config
     over = {name: int(v) for name, v in (("tile_n", tile_n),
                                          ("min_cap", min_cap),
                                          ("chunk", chunk)) if v is not None}
@@ -746,6 +903,54 @@ def _resolve_config(*, backend, tile_n, min_cap, chunk, config, tune, n, k):
     return cfg, resolved
 
 
+def _publish_fit(obs_cfg, stats: EngineStats, distance_evals: float,
+                 inertia: float) -> None:
+    """Publish one finished fit into the configured metrics registry:
+    counters + an ``engine_fit`` event carrying the ring summary. Host
+    python on values the fit already brought home; runs only under
+    ``obs=``."""
+    reg = obs_cfg.resolve_registry()
+    labels = {"backend": stats.backend}
+    reg.counter("engine_fits_total", "completed engine fits",
+                labels=labels).inc()
+    reg.counter("engine_distance_evals_total",
+                "distance evaluations across fits", labels=labels).inc(
+        float(distance_evals))
+    reg.gauge("engine_last_n_iters", "iterations of the last fit",
+              labels=labels).set(float(stats.n_iters))
+    reg.gauge("engine_last_host_syncs", "host syncs of the last fit",
+              labels=labels).set(float(stats.host_syncs))
+    evt = {"backend": stats.backend, "n_iters": stats.n_iters,
+           "host_syncs": stats.host_syncs, "n_points": stats.n_points,
+           "distance_evals": float(distance_evals),
+           "inertia": float(inertia)}
+    tel = stats.telemetry()
+    if tel is not None:
+        evt["telemetry"] = tel
+    reg.log_event("engine_fit", **evt)
+
+
+def _drain(result: KMeansResult, ring, stats: EngineStats,
+           live: bool) -> tuple:
+    """Fit exit with obs on: the trimmed ring (if any) and the exit
+    scalars ``(distance_evals, inertia)`` come home in ONE transfer. Not
+    a loop read, so ``host_syncs`` does not count it (nor does the
+    reference's drain). With ``live``, the epilogue's row goes to the
+    ring listeners."""
+    vals = [result.distance_evals.double().reshape(1),
+            result.inertia.double().reshape(1)]
+    if ring is not None:
+        vals.append(ring[:stats.n_iters + 1].reshape(-1))
+    got = torch.cat(vals).cpu().numpy()
+    if ring is not None:
+        stats.ring = got[2:].reshape(-1, N_COUNTERS)
+        stats.init_evals = float(stats.n_points) * int(
+            result.centroids.shape[0])
+        if live:
+            _obs_ring.emit_ring_row(stats.n_iters, stats.ring[-1])
+    return float(got[0]), float(got[1])
+
+
 # --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
@@ -755,12 +960,28 @@ def fit(points, init_centroids, *, n_groups: int | None = None,
         tile_n: int | None = None, min_cap: int | None = None,
         chunk: int | None = None, max_bucket_switches: int = 32,
         config: EngineConfig | None = None, tune: str = "auto",
-        sample_weight=None, return_stats: bool = False, device=None):
+        sample_weight=None, return_stats: bool = False, obs=None,
+        device=None):
     """Filtered K-means on ``device`` (default ``cuda``; raises when it
     is not there). ``sample_weight`` enters the centroid sums and the
     inertia only; uniform weights of 1.0 are bit-identical to ``None``.
     ``min_cap``, ``chunk`` and ``max_bucket_switches`` shape the compact
     backend's buckets, as in the reference.
+
+    ``config`` pins an :class:`EngineConfig`; ``tune`` controls the
+    per-(card, N, K, D) tuning cache (:mod:`repro_torch.tune`):
+    ``"auto"`` uses a cached winner when one exists, ``"force"`` also
+    runs the measured search on a cache miss and stores the winner,
+    ``"off"`` uses the built-in defaults. Tuning changes wall-clock
+    only: labels, ``n_iters`` and inertia are bit-identical across
+    configurations. ``tile_n``/``min_cap``/``chunk`` override both.
+
+    ``obs``: ``None``/``False`` off, ``True`` defaults, a
+    ``MetricsRegistry`` or ``ObsConfig`` (:mod:`repro_torch.obs`). When
+    on, the float64 telemetry ring rides the loop carry and is drained
+    once at exit into ``EngineStats.ring`` (``host_syncs`` unchanged),
+    and the fit publishes counters and an ``engine_fit`` event.
+    Results are bit-identical with obs on or off.
 
     Returns a :class:`KMeansResult` (tensors on ``device``); with
     ``return_stats=True`` returns ``(result, EngineStats)``."""
@@ -768,12 +989,21 @@ def fit(points, init_centroids, *, n_groups: int | None = None,
     points = as_float32(points, dev)
     init_c = as_float32(init_centroids, dev)
     k = init_c.shape[0]
-    n = points.shape[0]
+    n, d = points.shape
     weights = None if sample_weight is None else \
         as_float32(sample_weight, dev)
+    obs_cfg = normalize_obs(obs)
+    ring_iters = int(max_iters) + 1 if obs_cfg and obs_cfg.ring else 0
+    live_drain = bool(obs_cfg and obs_cfg.live_drain and ring_iters)
+    if tune == "force" and config is None:
+        from .. import tune as _tune
+        config = _tune.get_or_tune(points, init_c, n_groups=n_groups,
+                                   max_iters=int(max_iters), tol=float(tol),
+                                   device=dev)
     cfg, backend = _resolve_config(backend=backend, tile_n=tile_n,
                                    min_cap=min_cap, chunk=chunk,
-                                   config=config, tune=tune, n=n, k=k)
+                                   config=config, tune=tune, n=n, k=k, d=d,
+                                   device=dev)
     stats = EngineStats(backend=backend, config=cfg.to_dict(), n_points=n)
 
     if backend == "lloyd":
@@ -781,6 +1011,10 @@ def fit(points, init_centroids, *, n_groups: int | None = None,
                     weights=weights)
         stats.n_iters = res.n_iters
         stats.host_syncs = res.n_iters      # one shift read per iteration
+        if obs_cfg is not None:
+            # the dense loop has no filter pass, hence no ring; the
+            # registry still gets the fit's counters and event
+            _publish_fit(obs_cfg, stats, *_drain(res, None, stats, False))
         return (res, stats) if return_stats else res
 
     if n_groups is None:
@@ -791,23 +1025,28 @@ def fit(points, init_centroids, *, n_groups: int | None = None,
     groups = group_centroids(init_c, n_groups)
     members, gsize = build_group_tables(groups.cpu().numpy(), n_groups, dev)
     stats.host_syncs += 1
-    carry = _init_carry(points, init_c, groups, n_groups=n_groups)
+    carry = _init_carry(points, init_c, groups, n_groups=n_groups,
+                        ring_iters=ring_iters)
 
     if backend == "compact":
         carry, core, gmax = _fit_compact(
             points, weights, carry, groups, members, gsize, cfg=cfg, k=k,
             n_groups=n_groups, max_iters=int(max_iters), tol=float(tol),
-            max_bucket_switches=int(max_bucket_switches), stats=stats)
+            max_bucket_switches=int(max_bucket_switches), stats=stats,
+            ring_iters=ring_iters, live_drain=live_drain)
         stats.host_syncs += core.reads_gmax(gmax)
     else:
         core = PassCore.from_config(cfg, backend=backend, k=k,
-                                    n_groups=n_groups)
+                                    n_groups=n_groups, ring_iters=ring_iters,
+                                    live_drain=live_drain)
         cond = _loop_cond(max_iters=int(max_iters), tol=float(tol))
         body = _loop_body(core, points, weights, groups, members, gsize)
         shift = float("inf")
         while cond(carry.iteration, shift):
             carry = body(carry)
-            shift = float(carry.shift)      # the per-iteration host sync
+            # the per-iteration host sync
+            shift = _fetch(carry, [carry.shift.double()], True)[0] \
+                if live_drain else float(carry.shift)
             stats.host_syncs += 1
         gmax = None
     stats.n_iters = carry.iteration
@@ -816,6 +1055,9 @@ def fit(points, init_centroids, *, n_groups: int | None = None,
         core, points, weights, carry, groups, members, gsize, gmax)
     result = KMeansResult(carry.centroids, assignments, carry.iteration,
                           evals, inertia)
+    if obs_cfg is not None:
+        _publish_fit(obs_cfg, stats,
+                     *_drain(result, carry.ring, stats, live_drain))
     return (result, stats) if return_stats else result
 
 
@@ -851,3 +1093,90 @@ def assign(points, centroids, *, n_groups: int | None = None, groups=None,
         labels.append(nas)
         dists.append(nub)
     return torch.cat(labels), torch.cat(dists)
+
+
+# --------------------------------------------------------------------------
+# serve-side batched assignment (repro_torch.serve drives this)
+# --------------------------------------------------------------------------
+#
+# The serving hot path differs from `assign` in two ways:
+#
+# * centroids, norms and group tables are ARGUMENTS of every call: the
+#   double-buffered epoch swap (repro_torch.serve.CentroidIndex)
+#   republishes centroids continuously, and a batch binds one snapshot.
+# * the fused reduction is the min-trick, not argmin: the distance
+#   minimum, then the smallest index attaining it, which reproduces
+#   argmin's first-match rule exactly, as in the reference.
+#
+# Batches arrive padded to a pow2 bucket; nothing here writes into the
+# query tensor it is given (the reference's `donate` has no counterpart).
+
+def _serve_fused_impl(q, centroids, c2, *, chunk: int = 1024):
+    """Fused dense batched assignment: the norm-cached distance product
+    ``c2 - 2 q @ c.T`` (full fp32; ``||q||^2`` is constant per row and
+    left out) and the two-pass min trick, tiled by ``chunk`` rows.
+    Returns (B,) int32."""
+    _check_fp32_matmul(q)
+    k = centroids.shape[0]
+    iota = torch.arange(k, dtype=torch.int32, device=q.device)
+    out = []
+    for lo in range(0, q.shape[0], chunk):
+        d2 = c2[None, :] - 2.0 * (q[lo:lo + chunk] @ centroids.T)
+        mn = torch.min(d2, dim=1, keepdim=True).values
+        out.append(torch.min(torch.where(d2 <= mn, iota[None, :], k),
+                             dim=1).values)
+    return torch.cat(out).int() if len(out) > 1 else out[0].int()
+
+
+def serve_assign_grouped(q, centroids, c2, groups, members, gsize, *,
+                         core: PassCore):
+    """Group-table batched assignment: the :class:`PassCore` candidate
+    pass with vacuous bounds (the pass :func:`assign` tiles), on the
+    compact backend at ``cap_n = B`` or through the ``grouped_assign``
+    kernel. Every group survives vacuous bounds, so the compact pass is
+    handed ``gmax = G`` and reads nothing back. Returns (B,) int32."""
+    b = q.shape[0]
+    dev = q.device
+    a0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+    ub = torch.full((b,), float("inf"), device=dev)
+    lb = torch.zeros((b, core.n_groups), device=dev)
+    need = torch.ones((b,), dtype=torch.bool, device=dev)
+    nas, _, _, _, _ = core.candidate_pass(
+        q, centroids, a0, ub, lb, need, groups, members, gsize,
+        x2=row_norms_sq(q), c2=c2,
+        gmax=core.n_groups if core.backend == "compact" else None)
+    return nas
+
+
+SERVE_BACKENDS = ("fused", "grouped", "kernel")
+
+
+def make_serve_assign(snapshot_shape, *, backend: str = "fused",
+                      chunk: int = 1024):
+    """The serve-side batched assign for a centroid snapshot of shape
+    ``(k, n_groups)``.
+
+    Returns ``fn(q, centroids, c2, groups, members, gsize) -> labels``,
+    one signature over all backends (the fused one ignores the tables):
+    ``"fused"`` (the dense product + min trick, plain ``torch.matmul``
+    in full fp32, as the reference computes it outside any Pallas
+    kernel), ``"grouped"`` (the compact candidate pass over the group
+    tables) or ``"kernel"`` (alias ``"pallas"``: the ``grouped_assign``
+    kernel, one launch a batch). All three are exact."""
+    k, n_groups = snapshot_shape
+    if backend == "fused":
+        def run(q, centroids, c2, groups=None, members=None, gsize=None):
+            return _serve_fused_impl(q, centroids, c2, chunk=chunk)
+        return run
+    backend = ALIASES.get(backend, backend)
+    if backend not in ("grouped", "kernel"):
+        raise ValueError(f"unknown serve backend {backend!r}; expected "
+                         f"one of {SERVE_BACKENDS} or 'pallas'")
+    pc_backend = "kernel" if backend == "kernel" else "compact"
+
+    def run(q, centroids, c2, groups, members, gsize):
+        core = PassCore(backend=pc_backend, k=k, n_groups=n_groups,
+                        cap_n=q.shape[0], cap_g=n_groups, chunk=chunk)
+        return serve_assign_grouped(q, centroids, c2, groups, members,
+                                    gsize, core=core)
+    return run

@@ -9,6 +9,13 @@ Libraries go to ``build/repro_torch/<hash>/`` at the repository root
 (listed in ``.gitignore``), keyed by a hash of the source and the
 flags, so an edit always rebuilds and an unchanged source never does.
 
+Threads: the serving thread and the caller may touch a kernel first
+at the same time. One lock guards the loaded libraries, the build and
+the cached C functions, so a library is built once per process; each
+build writes a temporary named by process and thread, renamed into
+place in one step. :func:`count_launch` adds to a wrapper's launch
+counter under a lock of its own, so the counts stay exact.
+
 Calling convention of every C entry point: pointers and the CUDA stream
 are ``void*`` (``ctypes.c_void_p``; a bare Python int would be cut to
 32 bits), sizes are ``int``, and the function returns
@@ -23,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -32,6 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict = {}
+# guards _LIBS, the build and _ENTRIES (re-entrant: entry() calls load())
+_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -58,7 +69,7 @@ def _start(name: str):
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -90,33 +101,43 @@ def build_all() -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(library_path(name)))
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return lib
+    """The loaded library for ``csrc/<name>.cu``, built if needed (once
+    per process, whichever thread asks first)."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(library_path(name)))
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
 
 
 def entry(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """The C function ``symbol`` of ``csrc/<name>.cu``'s library with its
     ctypes signature, set once per library (setting it on every call
     costs a launch more host time than the kernel takes)."""
-    lib = load(name)
-    cached = _ENTRIES.get((name, symbol))
-    # the library object itself is held and compared: a library swapped
-    # into _LIBS never reaches a function of the one it replaced
-    if cached is not None and cached[0] is lib:
-        return cached[1]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = restype
-    _ENTRIES[(name, symbol)] = (lib, fn)
-    return fn
+    with _LOCK:
+        lib = load(name)
+        cached = _ENTRIES.get((name, symbol))
+        # the library object itself is held and compared: a library
+        # swapped into _LIBS never reaches a function of the one it
+        # replaced
+        if cached is not None and cached[0] is lib:
+            return cached[1]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _ENTRIES[(name, symbol)] = (lib, fn)
+        return fn
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.<attr>``, exactly, from any thread."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def on_device(device):

@@ -171,7 +171,7 @@ def centroid_update(points, labels, k: int, weights=None):
                 p.rows_per_warp, p.warp_floats, p.smem,
                 _build.stream_ptr(dev))
     _build.check(NAME, rc)
-    centroid_update.launches += 1
+    _build.count_launch(centroid_update)
     return sums, counts
 
 

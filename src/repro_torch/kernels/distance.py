@@ -88,7 +88,7 @@ def pairwise_sq_dists(x, c, *, tile_n: int = 256, tile_k: int = 128):
     if not x.is_cuda:
         return pairwise_sq_dists_plain(x, c, tile_n=tile_n, tile_k=tile_k)
     out = _launch("pairwise_sq_dists_launch", x, c, tile_n, tile_k)
-    pairwise_sq_dists.launches += 1
+    _build.count_launch(pairwise_sq_dists)
     return out
 
 

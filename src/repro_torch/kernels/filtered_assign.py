@@ -137,7 +137,7 @@ def filtered_assign(x, c, block_mask, *, tile_n: int = 256,
         return filtered_assign_plain(x, c, block_mask, tile_n=tile_n,
                                      tile_k=tile_k, x2=x2, c2=c2)
     out = _launch(False, x, c, block_mask, tile_n, tile_k, x2, c2)
-    filtered_assign.launches += 1
+    _build.count_launch(filtered_assign)
     return out
 
 

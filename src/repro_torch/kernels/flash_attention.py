@@ -141,11 +141,11 @@ def _launch(q, k, v, out, b, s, h, kv, axes, route):
                 b, s, h, kv, q.shape[-1], *strides, *extra,
                 _build.stream_ptr(q.device))
     _build.check(NAME, rc)
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     if route == "tc":
-        flash_attention.launches_tc += 1
+        _build.count_launch(flash_attention, "launches_tc")
     else:
-        flash_attention.launches_ffma += 1
+        _build.count_launch(flash_attention, "launches_ffma")
     return out
 
 

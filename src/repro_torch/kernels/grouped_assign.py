@@ -146,7 +146,7 @@ def grouped_assign(x, c_grouped, ids, block_mask, *, tile_n: int = 256,
         return grouped_assign_plain(x, c_grouped, ids, block_mask,
                                     tile_n=tile_n, x2=x2, c2g=c2g)
     out = _launch(False, x, c_grouped, ids, block_mask, tile_n, x2, c2g)
-    grouped_assign.launches += 1
+    _build.count_launch(grouped_assign)
     return out
 
 

@@ -61,7 +61,7 @@ def _launch(c, b, x, cum, out, outer, heads, groups, q, n, p, strides):
                 out.data_ptr(), outer, heads, groups, q, n, p, *strides,
                 _build.stream_ptr(x.device))
     _build.check(NAME, rc)
-    ssd_intra.launches += 1
+    _build.count_launch(ssd_intra)
     return out
 
 

@@ -12,7 +12,7 @@ import torch
 
 from repro.core import KMeans as JaxKMeans
 from repro.data import make_points
-from repro_torch import KMeans, NotFittedError
+from repro_torch import KMeans, NotFittedError, tune
 from repro_torch.convert import kmeans_state_from_numpy
 from repro_torch.core import engine
 
@@ -140,6 +140,6 @@ def test_later_slices_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         km.partial_fit(np.zeros((4, 2), np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KMeans(n_clusters=2, obs=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         KMeans(n_clusters=2, engine="ladder", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tune.lookup(n=64, k=2, d=2, platform="cpu", shards=2)

@@ -730,3 +730,111 @@ def test_hymba_prefill_on_card_matches_cpu():
 def _to_cuda(tree):
     return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda()
             for k, v in tree.items()}
+
+
+# -- observability, serving: on the card -----------------------------------
+
+def _fp64_labels_or_tie(q, c, labels):
+    """Labels against argmin of the fp64 distance matrix; a differing
+    label only at an fp32 near-tie (relative gap of the two best under
+    1e-5). Returns the count of ties."""
+    d2 = ((q.double()[:, None, :] - c.double()[None]) ** 2).sum(-1)
+    ref = d2.argmin(1)
+    bad = (labels.long() != ref).nonzero()[:, 0]
+    if len(bad):
+        two = d2[bad].topk(2, dim=1, largest=False).values
+        assert bool((two[:, 1] - two[:, 0] <= 1e-5 * two[:, 1]).all())
+        got = d2[bad, labels[bad].long()]
+        assert bool((got - two[:, 0] <= 1e-5 * two[:, 1]).all())
+    return len(bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fused", "grouped", "kernel"])
+def test_serve_backends_on_card_match_fp64_oracle(backend):
+    _need_card()
+    from repro_torch.core.distances import row_norms_sq
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((8192, 32)).astype(
+        np.float32)).cuda()
+    c = torch.from_numpy(rng.standard_normal((256, 32)).astype(
+        np.float32)).cuda()
+    groups, members, gsize = engine.build_assign_tables(c, 25)
+    fn = engine.make_serve_assign((256, 25), backend=backend)
+    q0 = q.clone()
+    before = kernels.grouped_assign.launches
+    labels = fn(q, c, row_norms_sq(c), groups, members, gsize)
+    torch.cuda.synchronize()
+    assert kernels.grouped_assign.launches - before == (
+        1 if backend == "kernel" else 0)
+    assert torch.equal(q, q0)
+    assert _fp64_labels_or_tie(q, c, labels) <= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["kernel", "compact"])
+def test_float64_ring_reconciles_exactly_at_2_18_points(backend):
+    _need_card()
+    from repro_torch.obs import MetricsRegistry, ObsConfig
+    from repro_torch.obs.ring import COL_EVALS
+    pts, _, _ = make_points(1 << 18, 32, 256, seed=0)
+    init = pts[:: (1 << 18) // 256][:256].copy()
+    kw = dict(max_iters=20, tol=1e-4, backend=backend, tune="off",
+              device="cuda", return_stats=True)
+    r0, s0 = engine.fit(pts, init, **kw)
+    r1, s1 = engine.fit(pts, init, obs=ObsConfig(registry=MetricsRegistry()),
+                        **kw)
+    assert torch.equal(r0.assignments, r1.assignments)
+    assert float(r0.inertia) == float(r1.inertia)
+    assert s0.host_syncs == s1.host_syncs
+    assert s1.ring.shape == (int(r1.n_iters) + 1, 8)
+    # one kernel pass scores ~6.7e7 pairs here, above 2^24
+    assert s1.ring[:, COL_EVALS].max() > 2 ** 24 or backend == "compact"
+    assert s1.init_evals + s1.ring[:, COL_EVALS].sum() == \
+        int(r1.distance_evals)
+
+
+FIRST_LAUNCH_FROM_SERVE_THREAD = r"""
+import numpy as np, torch
+import repro_torch.kernels as kernels
+from repro_torch.core import engine
+from repro_torch.kernels import _build
+from repro_torch.serve import CentroidIndex, ServeEngine
+from repro_torch.tune import ServeConfig
+rng = np.random.default_rng(0)
+c = rng.standard_normal((64, 16)).astype(np.float32)
+q = rng.standard_normal((3000, 16)).astype(np.float32)
+idx = CentroidIndex(c, device="cuda")    # its tables use centroid_update
+assert "grouped_assign" not in _build._LIBS
+cfg = ServeConfig(backend="kernel", min_bucket=256, max_batch=1024)
+with ServeEngine(idx, config=cfg, tune="off") as eng:
+    futs = [eng.submit(q[lo:lo + 500]) for lo in range(0, 3000, 500)]
+    # the caller touches the same kernel while the thread serves
+    mine, _ = engine.assign(q, c, device="cuda")
+    labels = np.concatenate([f.result(timeout=600).labels for f in futs])
+    batches = eng.batches
+x, cc = torch.from_numpy(q).double(), torch.from_numpy(c).double()
+ref = ((x[:, None] - cc[None]) ** 2).sum(-1).argmin(1).numpy()
+print("mismatch", int((labels != ref).sum()), "caller",
+      int((mine.cpu().numpy() != ref).sum()), "batches", batches,
+      "launches", kernels.grouped_assign.launches)
+assert kernels.grouped_assign.launches == batches + 1
+"""
+
+
+@pytest.mark.cuda
+def test_serve_thread_makes_the_first_kernel_launch():
+    _need_card()
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", FIRST_LAUNCH_FROM_SERVE_THREAD],
+        cwd=root, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert out.returncode == 0, out.stderr[-3000:]
+    words = out.stdout.split()
+    assert int(words[words.index("mismatch") + 1]) <= 3
+    assert int(words[words.index("caller") + 1]) <= 3

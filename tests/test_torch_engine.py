@@ -210,8 +210,10 @@ def test_backend_resolution():
         engine.fit(pts, init, backend="ladder", device="cpu")
     with pytest.raises(ValueError):
         engine.fit(pts, init, backend="nope", device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.fit(pts, init, tune="force", device="cpu")
+    # tune="force" runs the search now (tests/test_torch_tune.py); an
+    # unknown mode is refused
+    with pytest.raises(ValueError):
+        engine.fit(pts, init, tune="sometimes", device="cpu")
     cfg = engine.EngineConfig.from_dict(jengine.EngineConfig().to_dict())
     assert cfg == engine.EngineConfig()
 

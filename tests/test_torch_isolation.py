@@ -40,7 +40,8 @@ def _run(args, cwd, env_extra=None):
 def test_import_leaves_jax_out():
     out = _run(["-c", "import sys, repro_torch, repro_torch.kernels, "
                 "repro_torch.convert, repro_torch.models, "
-                "repro_torch.configs, repro_torch.train; "
+                "repro_torch.configs, repro_torch.train, "
+                "repro_torch.obs, repro_torch.tune, repro_torch.serve; "
                 "assert 'jax' not in sys.modules, 'jax imported'; "
                 "assert not any(m == 'repro' or m.startswith('repro.') "
                 "for m in sys.modules), 'repro imported'; print('ok')"],

@@ -1,0 +1,320 @@
+"""The port's observability (``repro_torch.obs`` and the engine's
+telemetry ring) against the JAX package's, on the CPU.
+
+Same numpy points and JAX's k-means++ starting centroids on both sides;
+JAX runs its Pallas kernel in interpret mode, the port's kernel backend
+takes the plain version of ``grouped_assign`` here.
+
+What must agree, and how closely:
+
+* obs on against obs off: labels, centroids, ``n_iters`` and inertia
+  bit for bit, and ``host_syncs`` equal;
+* the ring's evals column reconciles with ``distance_evals`` exactly;
+* the port's drained ring against JAX's on the same fit: the same
+  shape and columns; ``shift`` to fp32 tolerance (rtol 1e-5, atol
+  1e-6), ``cap_n`` and ``cap_g`` exactly; the ``n_cand`` and ``evals``
+  columns' totals within rtol 5e-2, the rtol
+  ``test_engine_fit_matches_jax`` holds ``distance_evals`` to (ROADMAP
+  Queue 3 item 1: the ``best_d < ub_t`` rounding), and their first row
+  exactly; the final row's exact inertia to rtol 1e-5. Row by row the
+  filtered backends' counts part further, because a row holds a few
+  dozen points and one flipped lower bound moves it: at
+  ``make_points(2000, 10, 16, seed=3)`` a row's ``evals`` differs by up
+  to 40% (the kernel backend's, which counts whole tiles, by 0.1%);
+* the registry, span, shard-ring and summary helpers: the same output
+  as the JAX package's on the same input.
+"""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import obs as jobs
+from repro.core import KMeans as JaxKMeans
+from repro.core import engine as jengine
+from repro.core import kmeans_plusplus
+from repro.data import make_points
+from repro_torch import KMeans
+from repro_torch import obs
+from repro_torch.core import engine
+from repro_torch.obs.ring import (COL_CAP_G, COL_CAP_N, COL_EVALS,
+                                  COL_INERTIA, COL_N_CAND, COL_SHIFT,
+                                  N_COUNTERS, RING_COLUMNS)
+
+# (JAX backend, the port's)
+BACKENDS = [("oracle", "oracle"), ("compact", "compact"),
+            ("pallas", "kernel")]
+EVALS_RTOL = 5e-2
+
+
+def _dataset(n=1500, d=8, k=12, seed=0):
+    pts, _, _ = make_points(n, d, k, seed=seed)
+    init = kmeans_plusplus(jax.random.PRNGKey(seed + 1), jnp.asarray(pts), k)
+    return pts, np.asarray(init)
+
+
+def _fit(pts, init, backend, obs_arg=None, **kw):
+    return engine.fit(pts, init, backend=backend, tune="off",
+                      return_stats=True, obs=obs_arg, device="cpu", **kw)
+
+
+# -- free: obs on == obs off, bit for bit, same host syncs -----------------
+
+@pytest.mark.parametrize("jb,tb", BACKENDS)
+def test_obs_bit_identical_and_host_syncs_unchanged(jb, tb):
+    pts, init = _dataset()
+    kw = dict(n_groups=3, max_iters=40, tol=1e-5)
+    r_off, s_off = _fit(pts, init, tb, **kw)
+    r_on, s_on = _fit(pts, init, tb,
+                      obs.ObsConfig(registry=obs.MetricsRegistry()), **kw)
+    assert torch.equal(r_off.assignments, r_on.assignments)
+    assert torch.equal(r_off.centroids, r_on.centroids)
+    assert float(r_off.inertia) == float(r_on.inertia)
+    assert int(r_off.n_iters) == int(r_on.n_iters)
+    assert int(r_off.distance_evals) == int(r_on.distance_evals)
+    assert s_on.host_syncs == s_off.host_syncs
+    assert s_off.ring is None and s_on.ring is not None
+    # and the fit is JAX's, obs on
+    r_j = jengine.fit(jnp.asarray(pts), jnp.asarray(init), backend=jb,
+                      interpret=True, tune="off", obs=True, **kw)
+    np.testing.assert_array_equal(r_on.assignments.numpy(),
+                                  np.asarray(r_j.assignments))
+    assert int(r_on.n_iters) == int(r_j.n_iters)
+
+
+# -- truthful: the ring reconciles exactly with the engine's counters -----
+
+@pytest.mark.parametrize("jb,tb", BACKENDS)
+def test_ring_evals_sum_matches_evalcount_exactly(jb, tb):
+    pts, init = _dataset(n=2000, d=10, k=16)
+    res, stats = _fit(pts, init, tb,
+                      obs.ObsConfig(registry=obs.MetricsRegistry()),
+                      n_groups=4, max_iters=30, tol=1e-6)
+    ring = stats.ring
+    assert ring.dtype == np.float64
+    assert ring.shape == (int(res.n_iters) + 1, N_COUNTERS)
+    assert stats.init_evals + ring[:, COL_EVALS].sum() == \
+        int(res.distance_evals)                          # EXACT
+    np.testing.assert_allclose(ring[-1, COL_INERTIA], float(res.inertia),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("jb,tb", BACKENDS)
+def test_ring_columns_match_jax(jb, tb):
+    pts, init = _dataset(n=2000, d=10, k=16)
+    kw = dict(n_groups=4, max_iters=30, tol=1e-6)
+    res, stats = _fit(pts, init, tb,
+                      obs.ObsConfig(registry=obs.MetricsRegistry()), **kw)
+    r_j, s_j = jengine.fit(jnp.asarray(pts), jnp.asarray(init), backend=jb,
+                           interpret=True, tune="off", return_stats=True,
+                           obs=jobs.ObsConfig(
+                               registry=jobs.MetricsRegistry()), **kw)
+    ring, jring = stats.ring, np.asarray(s_j.ring, np.float64)
+    assert ring.shape == jring.shape
+    assert stats.ring_columns == tuple(s_j.ring_columns) == RING_COLUMNS
+    assert stats.init_evals == s_j.init_evals
+    np.testing.assert_allclose(ring[:, COL_SHIFT], jring[:, COL_SHIFT],
+                               rtol=1e-5, atol=1e-6)
+    for col in (COL_CAP_N, COL_CAP_G):
+        np.testing.assert_array_equal(ring[:, col], jring[:, col])
+    for col in (COL_N_CAND, COL_EVALS):
+        assert ring[0, col] == jring[0, col]
+        np.testing.assert_allclose(ring[:, col].sum(), jring[:, col].sum(),
+                                   rtol=EVALS_RTOL)
+    np.testing.assert_allclose(ring[-1, COL_INERTIA], jring[-1, COL_INERTIA],
+                               rtol=1e-5)
+    # the host-side readers give JAX's answers on the port's ring
+    assert obs.caps_from_ring(ring) == jobs.caps_from_ring(ring)
+    if tb == "compact":
+        assert obs.caps_from_ring(ring) == \
+            [tuple(c) for c in stats.caps_history]
+    assert obs.summarize_ring(ring, 2000, init_evals=stats.init_evals) == \
+        jobs.summarize_ring(ring, 2000, init_evals=stats.init_evals)
+    assert obs.format_ring_table(ring, 2000) == \
+        jobs.format_ring_table(ring, 2000)
+
+
+def test_engine_stats_to_dict_json_serializable():
+    pts, init = _dataset()
+    _, stats = _fit(pts, init, "compact",
+                    obs.ObsConfig(registry=obs.MetricsRegistry()),
+                    n_groups=3, max_iters=20, tol=1e-5)
+    d = stats.to_dict()
+    json.dumps(d)                       # must not raise
+    assert d["ring_columns"] == list(RING_COLUMNS)
+    assert d["telemetry"]["iters"] == int(stats.n_iters)
+    assert 0.0 < d["telemetry"]["mean_candidate_fraction"] <= 1.0
+    _, plain = _fit(pts, init, "compact", n_groups=3, max_iters=20,
+                    tol=1e-5)
+    assert "ring" not in plain.to_dict()
+    json.dumps(plain.to_dict())
+
+
+def test_kmeans_api_obs_and_stats(monkeypatch):
+    pts, _ = _dataset()
+    kw = dict(n_clusters=12, engine="compact", max_iters=25, tune="off",
+              seed=0)
+    km_j = JaxKMeans(**kw).fit(pts)
+
+    def jax_init(self, points, weights=None):
+        c = km_j._init_centroids(jnp.asarray(points.numpy()), None)
+        return torch.from_numpy(np.array(c)).to(points.device)
+    monkeypatch.setattr(KMeans, "_init_centroids", jax_init)
+    reg = obs.MetricsRegistry()
+    km = KMeans(obs=reg, device="cpu", **kw).fit(pts)
+    assert km.stats_ is not None and km.stats_.ring is not None
+    assert km.stats_.telemetry()["iters"] == km.n_iter_
+    km_plain = KMeans(device="cpu", **kw).fit(pts)
+    np.testing.assert_array_equal(km.labels_, km_plain.labels_)
+    np.testing.assert_array_equal(km.labels_, np.asarray(km_j.labels_))
+    assert km_plain.stats_.ring is None
+    evts = [e for e in reg.events if e["event"] == "engine_fit"]
+    assert len(evts) == 1 and evts[0]["n_iters"] == km.n_iter_
+    assert evts[0]["distance_evals"] == km.distance_evals_
+    assert reg.counter("engine_fits_total",
+                       labels={"backend": "compact"}).value == 1
+    with pytest.raises(TypeError):
+        KMeans(n_clusters=2, obs="yes", device="cpu")
+
+
+def test_lloyd_route_publishes_without_ring():
+    pts, init = _dataset()
+    reg = obs.MetricsRegistry()
+    res, stats = _fit(pts, init, "lloyd", reg, max_iters=20)
+    assert stats.ring is None
+    (evt,) = [e for e in reg.events if e["event"] == "engine_fit"]
+    assert evt["backend"] == "lloyd" and evt["n_iters"] == res.n_iters
+    assert "telemetry" not in evt
+
+
+# -- live drain ------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", ["compact", "kernel"])
+def test_live_drain_emits_every_iteration(backend):
+    pts, init = _dataset(n=1200, d=6, k=8)
+    rows = []
+    cb = lambda it, row: rows.append((int(it), np.asarray(row)))  # noqa
+    kw = dict(n_groups=2, max_iters=20, tol=1e-6)
+    _, s_off = _fit(pts, init, backend, **kw)
+    obs.add_ring_listener(cb)
+    try:
+        res, stats = _fit(pts, init, backend, obs.ObsConfig(
+            live_drain=True, registry=obs.MetricsRegistry()), **kw)
+    finally:
+        obs.remove_ring_listener(cb)
+    # one row per iteration + the epilogue row, in order, each the
+    # drained ring's row, and no read of its own
+    assert [it for it, _ in rows] == list(range(int(res.n_iters) + 1))
+    np.testing.assert_array_equal(np.stack([r for _, r in rows]),
+                                  stats.ring)
+    assert stats.host_syncs == s_off.host_syncs
+
+
+# -- shard-ring reductions, registry, spans, coercion ----------------------
+
+def test_reduce_shard_rings_and_skew_arithmetic():
+    s0 = np.zeros((3, N_COUNTERS))
+    s1 = np.zeros((3, N_COUNTERS))
+    s0[:, COL_EVALS] = [10.0, 20.0, 30.0]
+    s1[:, COL_EVALS] = [30.0, 60.0, 90.0]
+    s0[:, COL_N_CAND] = [5, 4, 3]
+    s1[:, COL_N_CAND] = [1, 1, 1]
+    s0[:, 1] = [1.0, 2.0, 3.0]          # gmax: reduced by max
+    s1[:, 1] = [4.0, 1.0, 1.0]
+    rings = np.stack([s0, s1])
+    g = obs.reduce_shard_rings(rings)
+    np.testing.assert_allclose(g[:, COL_EVALS], [40.0, 80.0, 120.0])
+    np.testing.assert_allclose(g[:, COL_N_CAND], [6, 5, 4])
+    np.testing.assert_allclose(g[:, 1], [4.0, 2.0, 3.0])
+    np.testing.assert_array_equal(g, jobs.reduce_shard_rings(rings))
+    np.testing.assert_allclose(obs.shard_skew(rings), [1.5, 1.5, 1.5])
+    np.testing.assert_array_equal(obs.shard_skew(rings),
+                                  jobs.shard_skew(rings))
+    # the port keeps float64: a count above 2^24 survives the reduction
+    big = np.zeros((2, 1, N_COUNTERS))
+    big[:, 0, COL_EVALS] = [2.0 ** 24, 1.0]
+    assert obs.reduce_shard_rings(big)[0, COL_EVALS] == 2.0 ** 24 + 1
+
+
+def _fill(reg):
+    reg.counter("fits_total", "fits", labels={"backend": "compact"}).inc(3)
+    reg.gauge("last_iters", "iters").set(7.0)
+    h = reg.histogram("lat_s", "latency", buckets=(0.1, 1.0))
+    h.observe(0.05)
+    h.observe(0.5)
+
+
+def test_registry_metrics_and_prometheus_text(tmp_path):
+    reg, jreg = obs.MetricsRegistry(), jobs.MetricsRegistry()
+    _fill(reg)
+    _fill(jreg)
+    text = reg.to_prometheus()
+    assert text == jreg.to_prometheus()
+    assert "# TYPE fits_total counter" in text
+    assert 'fits_total{backend="compact"} 3' in text
+    assert 'lat_s_bucket{le="+Inf"} 2' in text
+    assert reg.counter("fits_total",
+                       labels={"backend": "compact"}).value == 3
+    with pytest.raises(TypeError):
+        reg.gauge("fits_total", labels={"backend": "compact"})
+    assert reg.to_dict() == jreg.to_dict()
+    reg.export_prometheus(tmp_path / "m.prom")
+    assert (tmp_path / "m.prom").read_text() == text
+
+
+def test_registry_jsonl_export_and_span(tmp_path):
+    reg = obs.MetricsRegistry()
+    with obs.span("unit.region", registry=reg, tag="x") as s:
+        s["result"] = 42
+    reg.log_event("custom", foo="bar", arr=np.arange(3))
+    path = reg.export_jsonl(tmp_path / "ev.jsonl")
+    lines = [json.loads(line) for line in open(path)]
+    assert [e["event"] for e in lines] == ["span", "custom"]
+    ev = lines[0]
+    assert ev["name"] == "unit.region" and ev["tag"] == "x"
+    assert ev["result"] == 42 and ev["seconds"] >= 0.0
+    assert lines[1]["arr"] == [0, 1, 2]
+    assert reg.histogram("span_seconds",
+                         labels={"span": "unit.region"}).count == 1
+
+
+def test_normalize_obs_coercions():
+    assert obs.normalize_obs(None) is None
+    assert obs.normalize_obs(False) is None
+    cfg = obs.normalize_obs(True)
+    assert isinstance(cfg, obs.ObsConfig) and cfg.ring
+    assert not cfg.live_drain and cfg.resolve_registry() is \
+        obs.default_registry()
+    reg = obs.MetricsRegistry()
+    assert obs.normalize_obs(reg).resolve_registry() is reg
+    cfg2 = obs.ObsConfig(registry=reg)
+    assert obs.normalize_obs(cfg2) is cfg2
+    with pytest.raises(TypeError):
+        obs.normalize_obs(jobs.MetricsRegistry())   # not the port's
+
+
+def test_provenance_shape():
+    p = obs.provenance()
+    for key in ("timestamp", "git_sha", "torch_version", "platform",
+                "device_name", "device_count"):
+        assert key in p
+    assert p["torch_version"] == torch.__version__
+    assert p["platform"] == ("cuda" if torch.cuda.is_available() else "cpu")
+    json.dumps(p)
+
+
+def test_profile_writes_trace_with_phase_ranges(tmp_path):
+    pts, init = _dataset(n=1200, d=6, k=8)
+    reg = obs.MetricsRegistry()
+    (res, _), path = obs.profile(_fit, pts, init, "kernel", n_groups=2,
+                                 max_iters=5, trace_dir=str(tmp_path),
+                                 registry=reg)
+    names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
+    for ph in ("kpynq/candidate_pass", "kpynq/move_and_bounds"):
+        assert ph in names
+    assert 1 <= int(res.n_iters) <= 5
+    (evt,) = [e for e in reg.events if e["event"] == "profile"]
+    assert evt["trace"] == path
