@@ -109,6 +109,20 @@ the order they run:
    launched once a batch on ``kernel`` and no port kernel on the
    others; points/s, request latency, a traced batch's idle share, and
    ``autotune_serve`` at K = 256, D = 32;
+14. streaming k-means at uci-xlarge (``repro_torch.streaming``): the
+   2^20 points as 16 shards of 65,536 through ``StreamingKMeans`` for 3
+   epochs (decay 1.0, the cold start from one shard, a
+   ``CentroidIndex`` attached with a publish every 4 batches), counts
+   reset just before and read just after the stream, ``predict`` and
+   ``inertia_of`` (``centroid_update`` at least once a batch,
+   ``grouped_assign`` in the last two); epochs 2-3 all cache hits; cold
+   and warm points/s and ``distance_evals`` against N*K per epoch; the
+   final inertia over a batch fit's from the same seeds (under 1.05x);
+   the same stream with both kernels swapped for their plain versions
+   (the first batch's labels equal, final inertia within rtol 1e-3);
+   65,536 queries through a ``ServeEngine`` on the index, which holds
+   the last batch's centroids, against the fp64 yardstick by phase
+   13's near-tie rule; a traced warm batch and a traced cold one;
 2c. ``flash_attention`` and ``ssd_intra`` against their plain versions
    (after phase 7, so the LM's allocations follow the k-means ones): the
    entry points at the reference's contract and at hymba-1.5b's heads,
@@ -143,10 +157,12 @@ the order they run:
    tokens/s, peak memory, one traced prefill and one traced decode
    step.
 
-Phases 11-13 run after phase 7, before 2c. The last lines are a
-``kernels`` JSON line (``grouped_assign``'s launches: the main path's
-and phase 13's ``kernel`` backend's), the card's name and power
-limit from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``. The
+Phases 11-14 run after phase 7, before 2c. The last lines are a
+``kernels`` JSON line (each kernel's ``launches`` is the sum of its
+``launches_by_path``: the k-means kernels' on the main fit and predict,
+phase 13's ``kernel`` backend and phase 14's stream), the card's name
+and power limit from ``nvidia-smi``, and ``{"ok": true, "device":
+{...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
 port's sources are not beside it.
 """
@@ -1310,6 +1326,202 @@ def serve_index_phase(dev, wrappers, centroids, queries_np, queries_dev,
     return out
 
 
+# -- phase 14: streaming k-means with carried bounds -------------------------
+
+STREAM = dict(shard=65_536, epochs=3, publish_every=4, queries=65_536,
+              request=4096)
+
+
+def stream_phase(dev, wrappers, pts_np, plain_versions, fit_kw, k,
+                 n_groups, shard=STREAM["shard"], epochs=STREAM["epochs"]):
+    """Phase 14: ``StreamingKMeans`` over uci-xlarge's points in shards
+    of ``shard`` (16 at full size), ``epochs`` passes, decay 1.0, the
+    cold start from one shard, a ``CentroidIndex`` attached (a publish
+    every 4 batches): counts reset just before the stream and read just
+    after it, ``predict`` and ``inertia_of``; epochs 2+ all cache hits;
+    points/s and ``distance_evals`` against N*K per epoch; the final
+    inertia over the batch fit's from the same seeds; the same stream
+    through the plain versions (first batch's labels equal, inertia
+    within 1e-3); the index served against an fp64 yardstick (phase
+    13's near-tie rule); one traced warm batch and one traced cold one."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.data import PointStream
+    from repro_torch.serve import CentroidIndex, ServeEngine
+    from repro_torch.streaming import StreamingKMeans
+    from repro_torch.tune import ServeConfig
+
+    n, d = pts_np.shape
+    stream = PointStream(shard_size=shard, data=pts_np)
+    n_shards = stream.n_shards
+
+    def estimator():
+        return StreamingKMeans(k, n_groups=n_groups, decay=1.0,
+                               init_size=shard, seed=0, device=dev)
+
+    def run(est, index=None):
+        """The stream, epoch by epoch: (first batch's labels, per-epoch
+        records)."""
+        if index is not None:
+            est.attach_index(index, every=STREAM["publish_every"])
+        first, per_epoch = None, []
+        for ep in range(epochs):
+            st = est.stats_
+            ev0, hits0, miss0 = st.distance_evals, st.cache_hits, \
+                st.cache_misses
+            t0 = time.perf_counter()
+            for sid, pts in stream.batches(1):
+                est.partial_fit(pts, shard_id=sid)
+                if first is None and est.initialized:
+                    first = est.labels_.copy()
+            sync()
+            dt = time.perf_counter() - t0
+            per_epoch.append(dict(
+                seconds=dt, points_per_s=n / dt,
+                distance_evals=st.distance_evals - ev0,
+                evals_vs_nk=(st.distance_evals - ev0) / (n * k),
+                cache_hits=st.cache_hits - hits0,
+                cache_misses=st.cache_misses - miss0))
+        return first, per_epoch
+
+    index = CentroidIndex(device=dev)
+    est = estimator()
+    reset_launches(wrappers)
+    sync()
+    first, per_epoch = run(est, index)
+    t0 = time.perf_counter()
+    labels = est.predict(pts_np)
+    inertia = est.inertia_of(pts_np)
+    sync()
+    predict_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    st = est.stats_
+    stats = st.to_dict()
+    for ep, rec in enumerate(per_epoch, 1):
+        log(f"stream epoch {ep}: {rec['seconds']:.3f} s, "
+            f"{rec['points_per_s']:.4g} points/s, distance_evals "
+            f"{rec['distance_evals']:.0f} = {rec['evals_vs_nk']:.4f} of "
+            f"N*K, cache hits {rec['cache_hits']}, misses "
+            f"{rec['cache_misses']}")
+    log(f"stream: {st.batches} batches, {st.cache_hits} hits, "
+        f"{st.cache_misses} misses, {st.drift_resets} drift resets, "
+        f"{st.reseeds} reseeds, distance_evals {st.distance_evals:.0f}, "
+        f"inertia {inertia:.9g}, predict + inertia_of {predict_s:.3f} s; "
+        f"launches {launches}; index: {index.publishes} publishes, "
+        f"{index.rebuilds} rebuilds, {index.reuses} reuses")
+    check(st.batches == epochs * n_shards and st.cache_misses == n_shards
+          and st.cache_hits == (epochs - 1) * n_shards
+          and st.drift_resets == 0,
+          f"stream: {st.batches} batches, {st.cache_hits} hits, "
+          f"{st.cache_misses} misses, {st.drift_resets} drift resets: "
+          f"epochs 2+ are not all cache hits")
+    check(launches["centroid_update"] >= st.batches,
+          f"stream: centroid_update launched {launches['centroid_update']} "
+          f"times for {st.batches} batches")
+    check(launches["grouped_assign"] >= 2, "stream: predict and inertia_of "
+          "did not launch grouped_assign")
+    for nm in ("pairwise_sq_dists", "filtered_assign"):
+        check(launches[nm] == 0, f"stream: {nm} launched {launches[nm]}")
+    cents = est._centroids
+    check(tuple(cents.shape) == (k, d) and bool(torch.isfinite(cents).all())
+          and math.isfinite(inertia) and labels.shape == (n,)
+          and labels.min() >= 0 and labels.max() < k,
+          "stream: non-finite or misshapen centroids, inertia or labels")
+    check(index.publishes == st.batches // STREAM["publish_every"],
+          f"stream: {index.publishes} publishes for {st.batches} batches")
+
+    # the batch fit from the stream's own seeds
+    seeds = est._seed_centroids(torch.from_numpy(stream.shard(0)).to(dev),
+                                None)
+    t0 = time.perf_counter()
+    r_b = engine.fit(torch.from_numpy(pts_np).to(dev), seeds, **fit_kw)
+    sync()
+    batch_s = time.perf_counter() - t0
+    ratio = inertia / float(r_b.inertia)
+    log(f"stream inertia {inertia:.9g} over the batch fit's "
+        f"{float(r_b.inertia):.9g} from the same seeds ({r_b.n_iters} "
+        f"iterations, {batch_s:.3f} s): {ratio:.6f}")
+    check(ratio < 1.05, f"stream inertia {ratio:.4f}x the batch fit's")
+
+    # the same stream through the plain versions
+    with plain_versions():
+        p_est = estimator()
+        t0 = time.perf_counter()
+        p_first, p_epochs = run(p_est)
+        p_inertia = p_est.inertia_of(pts_np)
+        sync()
+        plain_s = time.perf_counter() - t0
+    rel = abs(inertia - p_inertia) / p_inertia
+    log(f"stream through the plain versions: {plain_s:.3f} s, first "
+        f"batch's labels {'equal' if np.array_equal(first, p_first) else 'DIFFER'}"
+        f", inertia {p_inertia:.9g} (rel {rel:.3g}), distance_evals "
+        f"{p_est.stats_.distance_evals:.0f}, centroids max err "
+        f"{float((p_est._centroids - cents).abs().max()):.3g}")
+    check(np.array_equal(first, p_first), "stream: the first batch's labels "
+          "differ between the kernels and their plain versions")
+    check(rel <= 1e-3, f"stream: inertia of the plain route {rel:.3g} apart")
+
+    # the served index: the last publish is the stream's final centroids
+    snap = index.acquire()
+    check(torch.equal(snap.centroids, cents), "stream: the index does not "
+          "hold the stream's last centroids")
+    queries = stream.shard(0)[:STREAM["queries"]]
+    ref = exact_labels(torch.from_numpy(queries).to(dev), cents)
+    c64 = cents.double().cpu().numpy()
+    with ServeEngine(index, config=ServeConfig(backend="kernel"),
+                     tune="off") as eng:
+        futs = [(lo, eng.submit(queries[lo:lo + STREAM["request"]]))
+                for lo in range(0, len(queries), STREAM["request"])]
+        served = {lo: f.result(timeout=600) for lo, f in futs}
+    got = np.concatenate([served[lo].labels for lo, _ in futs])
+    check({r.epoch for r in served.values()} == {snap.epoch},
+          "stream: a request was served from another epoch")
+    bad = np.nonzero(got != ref)[0]
+    norms = near_ties(queries[bad], c64, got[bad], ref[bad])[1] \
+        if len(bad) else np.zeros(0)
+    log(f"stream index: {len(queries)} queries at epoch {snap.epoch}, "
+        f"{len(bad)} labels apart from the fp64 yardstick, largest squared "
+        f"gap {norms.max() if len(bad) else 0:.3g} of phase 2b's scale")
+    check(bool(np.all(norms <= 2.0)), "stream index: labels differ from the "
+          "fp64 yardstick off an fp32 near-tie")
+
+    # where a batch's time goes: a warm batch on the host's clock by
+    # function (cProfile), then a warm and a cold one traced
+    import cProfile
+    import pstats
+    est.attach_index(None)
+    shard1 = stream.shard(1)
+    prof = cProfile.Profile()
+    prof.runcall(lambda: (est.partial_fit(shard1, shard_id=1), sync()))
+    host = sorted(((fn[2], fn[0].rsplit("/", 1)[-1], fn[1], row[2], row[3])
+                   for fn, row in pstats.Stats(prof).stats.items()),
+                  key=lambda r: -r[3])[:12]
+    log(f"stream: a warm batch's host time by function, "
+        f"{pstats.Stats(prof).total_tt * 1e3:.2f} ms (own ms, cumulative "
+        f"ms):")
+    for name_, file_, line_, own, cum in host:
+        log(f"  {own * 1e3:8.3f} {cum * 1e3:8.3f}  {name_} ({file_}:{line_})")
+    warm = traced(lambda: est.partial_fit(shard1, shard_id=1),
+                  "stream: traced warm batch")
+    cold = traced(lambda: est.partial_fit(stream.shard(1),
+                                          shard_id="cold"),
+                  "stream: traced cold batch")
+    return dict(n=n, d=d, k=k, n_groups=n_groups, shard=shard,
+                n_shards=n_shards, epochs=per_epoch, stats=stats,
+                inertia=inertia, batch_fit_inertia=float(r_b.inertia),
+                batch_fit_iters=r_b.n_iters, inertia_ratio=ratio,
+                predict_s=predict_s, launches=launches,
+                plain=dict(seconds=plain_s, inertia=p_inertia, rel=rel,
+                           epochs=p_epochs,
+                           distance_evals=p_est.stats_.distance_evals),
+                index=dict(publishes=index.publishes,
+                           rebuilds=index.rebuilds, reuses=index.reuses,
+                           near_ties=len(bad)),
+                host_warm=[list(r) for r in host], trace_warm=warm,
+                trace_cold=cold)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2288,6 +2500,13 @@ def main() -> None:
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
     serve_ga = report["serve_index"]["kernel"]["launches"]["grouped_assign"]
 
+    # -- 14. streaming k-means with carried bounds at uci-xlarge ---------
+    t0 = time.perf_counter()
+    report["stream"] = stream_phase(dev, wrappers, pts_np, plain_versions,
+                                    fit_kw, k, max(k // 10, 1))
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    stream_launches = report["stream"]["launches"]
+
     # -- 2c. the LM kernels against their plain versions -----------------
     from repro_torch.configs import get_config
     lm_cfg = get_config(SERVE["arch"])
@@ -2301,9 +2520,13 @@ def main() -> None:
                             SERVE["steps"])
     report["serve"] = serve_rep
 
-    def row(nm, entry, source, replaces, path_launches):
+    def row(nm, entry, source, replaces, by_path):
+        """``by_path``: {path: that path's launch counts}; ``launches``
+        is their sum."""
+        paths = {p_: counts[nm] for p_, counts in by_path.items()}
         r = {"name": nm, "route": "cuda", "source": source,
-             "replaces": replaces, "launches": path_launches[nm],
+             "replaces": replaces, "launches": sum(paths.values()),
+             "launches_by_path": paths,
              "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
              "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
              "bound_by": entry["bound_by"], "library_ms": entry["library_ms"]}
@@ -2313,29 +2536,35 @@ def main() -> None:
             r["write_floor_ms"] = entry["write_floor_ms"]
         return r
 
+    kmeans_paths = {"fit": launches,                     # phase 3
+                    "serve_index": {"grouped_assign": serve_ga,
+                                    "centroid_update": 0},  # phase 13
+                    "stream": stream_launches}           # phase 14
     line = {"kernels": [
-        # the main path's launches and the serving index's (phase 13)
         row("grouped_assign", ga_main,
             "src/repro_torch/kernels/csrc/grouped_assign.cu",
-            "src/repro/kernels/grouped_assign.py:83",
-            {"grouped_assign": launches["grouped_assign"] + serve_ga}),
+            "src/repro/kernels/grouped_assign.py:83", kmeans_paths),
         row("centroid_update", cu_main,
             "src/repro_torch/kernels/csrc/centroid_update.cu",
-            "src/repro/kernels/centroid_update.py:39", launches),
+            "src/repro/kernels/centroid_update.py:39", kmeans_paths),
         # launched by the block-skip entry point's path (phase 4c)
         row("pairwise_sq_dists", psd_main,
             "src/repro_torch/kernels/csrc/pairwise_sq_dists.cu",
-            "src/repro/kernels/distance.py:35", entry_launches),
+            "src/repro/kernels/distance.py:35",
+            {"entry_point": entry_launches}),
         row("filtered_assign", fa_main,
             "src/repro_torch/kernels/csrc/filtered_assign.cu",
-            "src/repro/kernels/filtered_assign.py:61", entry_launches),
+            "src/repro/kernels/filtered_assign.py:61",
+            {"entry_point": entry_launches}),
         # launched by the LM serving path (phase 10)
         row("flash_attention", attn_main,
             "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:77", serve_rep["launches"]),
+            "src/repro/kernels/flash_attention.py:77",
+            {"lm_serve": serve_rep["launches"]}),
         row("ssd_intra", ssd_main,
             "src/repro_torch/kernels/csrc/ssd_intra.cu",
-            "src/repro/kernels/ssd_intra.py:44", serve_rep["launches"]),
+            "src/repro/kernels/ssd_intra.py:44",
+            {"lm_serve": serve_rep["launches"]}),
     ]}
     report["kernels"] = line["kernels"]
     if args.out:

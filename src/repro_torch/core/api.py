@@ -42,8 +42,6 @@ class KMeans:
         then carries the drained ring.
     device : None (= 'cuda', raising when CUDA is not there) or a
         device.
-
-    ``partial_fit`` belongs to a later slice of the port.
     """
 
     def __init__(self, n_clusters: int, algorithm: str = "yinyang",
@@ -73,6 +71,7 @@ class KMeans:
         self.device = resolve_device(device)
         self.stats_: _engine.EngineStats | None = None
         self.result_: _km.KMeansResult | None = None
+        self._stream = None
         self._assign_tables = None
 
     @classmethod
@@ -123,13 +122,40 @@ class KMeans:
                     sample_weight=weights, return_stats=True,
                     obs=self.obs, device=self.device)
         self.result_ = res
+        self._stream = None       # a batch fit supersedes any stream state
         self._assign_tables = None
         return self
 
-    def partial_fit(self, points, shard_id=None, sample_weight=None):
-        raise NotImplementedError(
-            "partial_fit is not ported yet: ROADMAP Queue 1 item 7 "
-            "(streaming)")
+    def partial_fit(self, points, shard_id=None,
+                    sample_weight=None) -> "KMeans":
+        """Streaming mini-batch update, delegated to
+        :class:`repro_torch.streaming.StreamingKMeans` (decayed
+        count-weighted EMA with ``self.decay``; ``shard_id`` keys the
+        carried-bounds cache). The first calls may only buffer points
+        for the cold start; the accessors raise ``NotFittedError`` until
+        then. Afterwards ``inertia_`` is the EWA per-point batch cost (an
+        upper-bound estimate) and ``n_iter_`` counts batches."""
+        from .. import streaming as _streaming
+        if self._stream is None:
+            n_groups = 1 if self.algorithm in ("lloyd", "hamerly") \
+                else self.n_groups
+            self._stream = _streaming.StreamingKMeans(
+                self.n_clusters, n_groups=n_groups, init=self.init,
+                decay=self.decay, seed=self.seed, tune=self.tune,
+                obs=self.obs, device=self.device)
+        s = self._stream.partial_fit(points, shard_id=shard_id,
+                                     sample_weight=sample_weight)
+        if s.initialized:
+            dev = self.device
+            self.result_ = _km.KMeansResult(
+                s._centroids, torch.from_numpy(s.labels_.copy()).to(dev),
+                int(s.stats_.batches),
+                torch.tensor(int(s.stats_.distance_evals),
+                             dtype=torch.int64, device=dev),
+                torch.tensor(s.ewa_inertia_, dtype=torch.float32,
+                             device=dev))
+            self._assign_tables = None    # the centroids moved
+        return self
 
     def _fitted(self) -> _km.KMeansResult:
         if self.result_ is None:

@@ -152,20 +152,51 @@ def _bucket_cap(count: int, floor: int, ceil: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ConvergenceUpdate:
     """Batch-fit centroid rule: mean of the sums; an empty cluster keeps
-    its centroid. An empty group's max drift stays ``-inf``, which the
-    bound decay turns into a vacuous (+inf) lower bound."""
+    its centroid. ``clamp_gdrift`` stays False: an empty group's max
+    drift stays ``-inf``, which the bound decay turns into a vacuous
+    (+inf) lower bound. ``carry_counts`` and ``decay`` are unused."""
+    clamp_gdrift: bool = False
 
-    def apply(self, sums, counts, centroids):
+    def apply(self, sums, counts, centroids, carry_counts, decay):
         return centroids_from_sums(sums, counts, centroids), counts
 
 
+@dataclasses.dataclass(frozen=True)
+class EMAUpdate:
+    """Streaming centroid rule, the decayed count-weighted EMA
+    ``c <- (decay * n_c * c + sum_batch) / (decay * n_c + b_c)``:
+    ``decay=1`` is pure count-weighting (a per-centroid 1/n learning
+    rate), ``decay<1`` caps the memory at about 1/(1-decay) batches.
+    ``clamp_gdrift=True``: an empty group's ``-inf`` drift would poison
+    the caller's cumulative drift ledger (inf - inf = NaN on the next
+    inflation)."""
+    clamp_gdrift: bool = True
+
+    def apply(self, sums, counts, centroids, carry_counts, decay):
+        dec = carry_counts * decay
+        new_counts = dec + counts
+        tot = dec[:, None] * centroids + sums
+        # fractional decayed counts: an epsilon guard, not the batch
+        # fit's max(counts, 1), which assumes integer counts
+        new_c = torch.where(new_counts[:, None] > 1e-6,
+                            tot / torch.clamp_min(new_counts, 1e-6)[:, None],
+                            centroids)
+        return new_c, new_counts
+
+
 CONVERGENCE_UPDATE = ConvergenceUpdate()
+EMA_UPDATE = EMAUpdate()
 
 
 class MoveOut(NamedTuple):
+    """What :func:`move_and_bounds` produces. The batch drivers read the
+    centroids, norms, bounds, ``need``, ``shift`` and ``tightened``; the
+    streaming step also reads ``counts`` (the carried effective counts
+    after the EMA), ``drift``/``gdrift`` (for the host drift ledger) and
+    ``batch_counts`` (this pass's weighted mass a centroid, pre-EMA)."""
     centroids: torch.Tensor    # (K, D) after the update rule
     c2: torch.Tensor           # (K,) ||centroids||^2, once per iteration
-    counts: torch.Tensor       # (K,)
+    counts: torch.Tensor       # (K,) rule-dependent carried counts
     ub: torch.Tensor           # (N,) drift-inflated, refreshed
     lb: torch.Tensor           # (N, G) drift-decayed
     need: torch.Tensor         # (N,) pending candidate mask
@@ -173,6 +204,7 @@ class MoveOut(NamedTuple):
     tightened: torch.Tensor    # int64 own-distance refreshes
     drift: torch.Tensor        # (K,)
     gdrift: torch.Tensor       # (G,)
+    batch_counts: torch.Tensor  # (K,) this pass's weighted mass
 
 
 # --------------------------------------------------------------------------
@@ -181,21 +213,30 @@ class MoveOut(NamedTuple):
 
 def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
                     k: int, n_groups: int, update=CONVERGENCE_UPDATE,
-                    weights=None, x2=None, refresh: bool = True) -> MoveOut:
+                    counts=None, decay=None, weights=None, x2=None,
+                    refresh: bool = True) -> MoveOut:
     """Centroid move + triangle-inequality bound upkeep + the point-level
-    filter (local reduction only).
+    filter (local reduction only), shared by the batch drivers and the
+    streaming step.
 
-    ``refresh=False`` (the compact backend's in-pass placement) skips
-    the own-distance refresh: the returned ``ub`` is the drift-inflated
-    bound and ``need`` the *maybe* mask, and
-    :func:`compact_candidate_pass` refreshes on its compacted buffer.
+    ``update``: :data:`CONVERGENCE_UPDATE` (batch mean) or
+    :data:`EMA_UPDATE` (the streaming EMA, which needs the carried
+    ``counts`` and ``decay``). With ``update.clamp_gdrift`` an empty
+    group's drift is 0, not ``-inf``.
+
+    ``refresh=False`` (the compact backend's in-pass placement, and the
+    streaming step, whose refresh belongs to the next visit's
+    :func:`stream_bounds`) skips the own-distance refresh: the returned
+    ``ub`` is the drift-inflated bound and ``need`` the *maybe* mask.
     ``tightened`` counts the *maybe* rows either way."""
     a = assignments.long()
     sums, bcounts = centroid_sums(points, assignments, k, weights=weights)
-    new_c, new_counts = update.apply(sums, bcounts, centroids)
+    new_c, new_counts = update.apply(sums, bcounts, centroids, counts, decay)
     new_c2 = row_norms_sq(new_c)
     drift = torch.sqrt(torch.sum((new_c - centroids) ** 2, dim=-1))
     group_drift = segment_max(drift, groups, n_groups)
+    if update.clamp_gdrift:
+        group_drift = torch.clamp_min(group_drift, 0.0)
     shift = torch.max(drift)
     ub = ub + drift[a]
     lb_dec = torch.clamp_min(lb - group_drift[None, :], 0.0)
@@ -213,7 +254,7 @@ def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
     else:
         ub_t, need = ub, maybe
     return MoveOut(new_c, new_c2, new_counts, ub_t, lb_dec, need, shift,
-                   maybe.sum(), drift, group_drift)
+                   maybe.sum(), drift, group_drift, bcounts)
 
 
 def _finish_pass(best_d, best_id, lb_comp, assignments, ub_t, lb, groups,
@@ -1059,6 +1100,82 @@ def fit(points, init_centroids, *, n_groups: int | None = None,
         _publish_fit(obs_cfg, stats,
                      *_drain(result, carry.ring, stats, live_drain))
     return (result, stats) if return_stats else result
+
+
+# --------------------------------------------------------------------------
+# the streaming step (repro_torch.streaming drives this)
+# --------------------------------------------------------------------------
+
+class StreamStepOut(NamedTuple):
+    """Outputs of one mini-batch :func:`stream_step`. ``ub``/``lb`` are
+    already decayed by this step's drift, i.e. valid against the
+    returned centroids: what the caller's per-shard cache stores."""
+    centroids: torch.Tensor    # (K, D) after the decayed update
+    counts: torch.Tensor       # (K,) decayed effective counts
+    assignments: torch.Tensor  # (B,) int32
+    ub: torch.Tensor           # (B,) post-move upper bounds
+    lb: torch.Tensor           # (B, G) post-move lower bounds
+    pairs: torch.Tensor        # int64 point-centroid pairs scored
+    gmax: torch.Tensor         # int64 surviving-group high-water
+    drift: torch.Tensor        # (K,) this step's per-centroid drift
+    gdrift: torch.Tensor       # (G,) this step's per-group max drift
+    batch_counts: torch.Tensor  # (K,) this batch's weighted mass
+    batch_cost: torch.Tensor   # f32 pre-move sum(ub^2) (weighted): an
+                               # upper bound on the batch's inertia
+
+
+def stream_bounds(points, centroids, assignments, ub, lb):
+    """The point-level filter over CARRIED (drift-inflated) bounds: the
+    first half of :func:`move_and_bounds` without the move. ``ub`` must
+    bound d(x, centroids[assignments]) from above and ``lb`` the
+    per-group minimum without the assignment from below (the contract
+    of :func:`repro_torch.streaming.inflate_bounds`).
+
+    Returns device tensors ``(ub_t, need, n_cand, n_tightened)``: the
+    tightened upper bounds, the pending candidate mask, its popcount
+    and how many own-centroid distances the tightening spent (int64).
+    Nothing is read to the host here."""
+    glb = torch.min(lb, dim=1).values
+    maybe = ub > glb
+    d_own = rowwise_dists(points, centroids[assignments.long()])
+    ub_t = torch.where(maybe, d_own, ub)
+    need = ub_t > glb
+    return ub_t, need, need.sum(), maybe.sum()
+
+
+def stream_step(points, centroids, counts, decay, groups, members, gsize,
+                assignments, ub_t, lb, need, weights=None, *,
+                core: PassCore, gmax: int | None = None) -> StreamStepOut:
+    """One mini-batch against external carry (centroids and effective
+    counts): the :class:`PassCore` candidate pass, then the decayed
+    count-weighted EMA (:data:`EMA_UPDATE` through
+    :func:`move_and_bounds`), then the post-move bound decay.
+
+    ``core`` is a compact :class:`PassCore`, as the reference's stream
+    runs: its pairs are the compact pass's, and it returns ``gmax``.
+    ``core.cap_n`` must be at least the candidate count (the caller has
+    it from :func:`stream_bounds`); ``core.cap_g`` is a guess the
+    compact pass spills past into its dense branch. ``gmax`` is the
+    pass's surviving-group high-water where the caller knows it, so the
+    compact pass takes its branch without a host read. ``weights``
+    enter the batch sums, counts and cost only."""
+    x2 = row_norms_sq(points)
+    c2 = row_norms_sq(centroids)
+    decay = torch.as_tensor(decay, dtype=torch.float32,
+                            device=points.device)
+    with phase("kpynq/candidate_pass", points.is_cuda):
+        new_as, nub, nlb, pairs, pass_gmax = core.candidate_pass(
+            points, centroids, assignments, ub_t, lb, need, groups,
+            members, gsize, x2=x2, c2=c2, gmax=gmax)
+    with phase("kpynq/move_and_bounds", points.is_cuda):
+        mv = move_and_bounds(points, centroids, new_as, nub, nlb, groups,
+                             k=core.k, n_groups=core.n_groups,
+                             update=EMA_UPDATE, counts=counts, decay=decay,
+                             weights=weights, refresh=False)
+    cost = nub * nub if weights is None else weights * nub * nub
+    return StreamStepOut(mv.centroids, mv.counts, new_as, mv.ub, mv.lb,
+                         pairs, pass_gmax, mv.drift, mv.gdrift,
+                         mv.batch_counts, torch.sum(cost))
 
 
 def assign(points, centroids, *, n_groups: int | None = None, groups=None,

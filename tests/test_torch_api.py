@@ -15,6 +15,7 @@ from repro.data import make_points
 from repro_torch import KMeans, NotFittedError, tune
 from repro_torch.convert import kmeans_state_from_numpy
 from repro_torch.core import engine
+from repro_torch.streaming import StreamingKMeans
 
 
 def _blobs(n=1500, d=8, k=8, seed=0):
@@ -136,9 +137,9 @@ def test_uniform_weights_bit_identical(backend):
 
 
 def test_later_slices_raise_not_implemented():
-    km = KMeans(n_clusters=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        km.partial_fit(np.zeros((4, 2), np.float32))
+    skm = StreamingKMeans(2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
+        skm.save("unused", 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KMeans(n_clusters=2, engine="ladder", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -308,6 +308,62 @@ def test_kernel_fit_on_card_matches_cpu_and_repeats():
         assert float(r.inertia) == float(r_gpu.inertia)
 
 
+def _stream_on_card(weighted, plain):
+    """Three epochs of a 6-shard stream on the card, with both k-means
+    kernels swapped for their plain versions when ``plain``; the first
+    batch's labels, the estimator and the kernels' launches."""
+    from repro_torch.data import PointStream
+    from repro_torch.streaming import StreamingKMeans
+    ps = PointStream(shard_size=4096, n_shards=6, n_dims=16, k=32, seed=3)
+    skm = StreamingKMeans(32, n_groups=4, seed=0, tune="off", device="cuda")
+    skm._seed_centroids = lambda p, w: p[::128][:32].clone()
+    saved = kernels.centroid_update, kernels.grouped_assign
+    if plain:
+        kernels.centroid_update = cu.centroid_update_plain
+        kernels.grouped_assign = ga.grouped_assign_plain
+    before = (cu.centroid_update.launches, ga.grouped_assign.launches)
+    try:
+        first = None
+        for _ in range(3):
+            for s in range(ps.n_shards):
+                w = np.random.default_rng(s).uniform(0.5, 2, 4096).astype(
+                    np.float32) if weighted else None
+                skm.partial_fit(ps.shard(s), shard_id=s, sample_weight=w)
+                if first is None:
+                    first = skm.labels_.copy()
+        pts = np.concatenate([ps.shard(s) for s in range(ps.n_shards)])
+        labels = skm.predict(pts)
+        inertia = skm.inertia_of(pts)
+    finally:
+        kernels.centroid_update, kernels.grouped_assign = saved
+    launched = (cu.centroid_update.launches - before[0],
+                ga.grouped_assign.launches - before[1])
+    return skm, first, labels, inertia, launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_stream_on_card_matches_plain_route(weighted):
+    _need_card()
+    k_est, k_first, k_lab, k_in, k_launched = _stream_on_card(weighted,
+                                                              False)
+    p_est, p_first, p_lab, p_in, p_launched = _stream_on_card(weighted, True)
+    # a launch a batch of centroid_update, grouped_assign in predict
+    # and inertia_of; none through the plain route
+    assert k_launched[0] >= k_est.stats_.batches and k_launched[1] >= 2
+    assert p_launched == (0, 0)
+    np.testing.assert_array_equal(k_first, p_first)
+    for f in ("batches", "cache_hits", "cache_misses", "reseeds",
+              "drift_resets"):
+        assert getattr(k_est.stats_, f) == getattr(p_est.stats_, f), f
+    assert k_est.stats_.cache_hits == 12
+    # past the first batch the two summation orders part at boundary
+    # points (ROADMAP Queue 3 item 2): the whole stream is held by its
+    # inertia and its labels
+    np.testing.assert_allclose(k_in, p_in, rtol=1e-3)
+    assert (k_lab != p_lab).mean() < 1e-3
+
+
 def _norm_atol(x, c):
     x, c = x.float(), c.float()
     return 1e-5 * float((x * x).sum(1).max() + (c * c).sum(1).max())
