@@ -123,6 +123,25 @@ the order they run:
    65,536 queries through a ``ServeEngine`` on the index, which holds
    the last batch's centroids, against the fp64 yardstick by phase
    13's near-tie rule; a traced warm batch and a traced cold one;
+15. the resilient stream (``fit_stream(resilient=True)``,
+   ``repro_torch.checkpoint``, ``repro_torch.runtime``) with phase 14's
+   arguments, async checkpoints every 8 batches into a temporary
+   directory removed afterwards: one run survives a ``FailureInjector``
+   failure off the checkpoint lattice, a tear mid-batch through
+   ``chaos_hook`` and a crash onto a newest checkpoint whose
+   ``shard_0.npz`` was torn (3 restores, batches replayed), counts reset
+   just before and read just after it, ``predict`` and ``inertia_of``
+   (``centroid_update`` at least once a batch run, replays included);
+   its centroids, counts and both drift-ledger arrays bit for bit
+   (``torch.equal``, ``np.array_equal``) those of phase 14's
+   uninterrupted stream, and again after a ``restore_state`` of its
+   terminal checkpoint; a ``StreamingKMeans.restore`` from a 2-epoch
+   resilient run's terminal checkpoint streamed on to 3 epochs (1
+   restore, 0 replays) and a cold restart from a failure before any
+   checkpoint (k-means++ seeding on the card again), both bit for bit;
+   the bytes of one checkpoint, the snapshot seconds
+   (``ckpt_save_seconds``), the seconds of a restore and the points/s
+   against phase 14's;
 2c. ``flash_attention`` and ``ssd_intra`` against their plain versions
    (after phase 7, so the LM's allocations follow the k-means ones): the
    entry points at the reference's contract and at hymba-1.5b's heads,
@@ -157,10 +176,11 @@ the order they run:
    tokens/s, peak memory, one traced prefill and one traced decode
    step.
 
-Phases 11-14 run after phase 7, before 2c. The last lines are a
+Phases 11-15 run after phase 7, before 2c. The last lines are a
 ``kernels`` JSON line (each kernel's ``launches`` is the sum of its
 ``launches_by_path``: the k-means kernels' on the main fit and predict,
-phase 13's ``kernel`` backend and phase 14's stream), the card's name
+phase 13's ``kernel`` backend, phase 14's stream and phase 15's
+resilient stream), the card's name
 and power limit from ``nvidia-smi``, and ``{"ok": true, "device":
 {...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
@@ -1332,6 +1352,14 @@ STREAM = dict(shard=65_536, epochs=3, publish_every=4, queries=65_536,
               request=4096)
 
 
+def stream_estimator(dev, k, n_groups, shard, obs=None):
+    """Phases 14 and 15's estimator: decay 1.0, the cold start from one
+    shard, seed 0."""
+    from repro_torch.streaming import StreamingKMeans
+    return StreamingKMeans(k, n_groups=n_groups, decay=1.0,
+                           init_size=shard, seed=0, obs=obs, device=dev)
+
+
 def stream_phase(dev, wrappers, pts_np, plain_versions, fit_kw, k,
                  n_groups, shard=STREAM["shard"], epochs=STREAM["epochs"]):
     """Phase 14: ``StreamingKMeans`` over uci-xlarge's points in shards
@@ -1343,13 +1371,15 @@ def stream_phase(dev, wrappers, pts_np, plain_versions, fit_kw, k,
     inertia over the batch fit's from the same seeds; the same stream
     through the plain versions (first batch's labels equal, inertia
     within 1e-3); the index served against an fp64 yardstick (phase
-    13's near-tie rule); one traced warm batch and one traced cold one."""
+    13's near-tie rule); one traced warm batch and one traced cold one.
+    Returns the report and the stream's final state (centroids, counts
+    and both ledger arrays, taken before the traced batches), phase
+    15's yardstick."""
     import torch
 
     from repro_torch.core import engine
     from repro_torch.data import PointStream
     from repro_torch.serve import CentroidIndex, ServeEngine
-    from repro_torch.streaming import StreamingKMeans
     from repro_torch.tune import ServeConfig
 
     n, d = pts_np.shape
@@ -1357,8 +1387,7 @@ def stream_phase(dev, wrappers, pts_np, plain_versions, fit_kw, k,
     n_shards = stream.n_shards
 
     def estimator():
-        return StreamingKMeans(k, n_groups=n_groups, decay=1.0,
-                               init_size=shard, seed=0, device=dev)
+        return stream_estimator(dev, k, n_groups, shard)
 
     def run(est, index=None):
         """The stream, epoch by epoch: (first batch's labels, per-epoch
@@ -1390,6 +1419,10 @@ def stream_phase(dev, wrappers, pts_np, plain_versions, fit_kw, k,
     reset_launches(wrappers)
     sync()
     first, per_epoch = run(est, index)
+    final = dict(centroids=est._centroids.clone(),
+                 counts=est._counts.clone(),
+                 ledger_centroid=est._ledger.centroid.copy(),
+                 ledger_group=est._ledger.group.copy())
     t0 = time.perf_counter()
     labels = est.predict(pts_np)
     inertia = est.inertia_of(pts_np)
@@ -1519,7 +1552,225 @@ def stream_phase(dev, wrappers, pts_np, plain_versions, fit_kw, k,
                            rebuilds=index.rebuilds, reuses=index.reuses,
                            near_ties=len(bad)),
                 host_warm=[list(r) for r in host], trace_warm=warm,
-                trace_cold=cold)
+                trace_cold=cold), final
+
+
+# -- phase 15: the resilient stream: checkpoints, restore and replay ---------
+
+# ckpt_every batches a checkpoint; the chaos run's three faults, each at
+# a schedule step: a FailureInjector failure off the checkpoint lattice,
+# a tear mid-batch (chaos_hook) and a crash onto a torn newest
+# checkpoint; the cold restart's failure before any checkpoint
+RESILIENT = dict(ckpt_every=8, fail_at=13, tear_at=21, corrupt_at=35,
+                 cold_fail_at=5)
+
+
+def resilient_phase(dev, wrappers, pts_np, k, n_groups, yardstick,
+                    stream_pps, shard=STREAM["shard"],
+                    epochs=STREAM["epochs"]):
+    """Phase 15: ``fit_stream(resilient=True)`` with phase 14's
+    arguments (uci-xlarge as shards of ``shard``, ``epochs`` passes),
+    async checkpoints every 8 batches into a temporary directory removed
+    afterwards. One run survives a ``FailureInjector`` failure off the
+    lattice, a tear mid-batch through ``chaos_hook`` and a crash onto a
+    newest checkpoint whose ``shard_0.npz`` was torn: 3 restores, batches
+    replayed, and centroids, counts and both ledger arrays bit for bit
+    ``yardstick`` (phase 14's uninterrupted stream); counts reset just
+    before it and read just after it, ``predict`` and ``inertia_of``
+    (``centroid_update`` once a batch run, replays included). Then a
+    ``StreamingKMeans.restore`` from a 2-epoch resilient run's terminal
+    checkpoint streamed on to ``epochs`` (restores 1, replays 0) and a
+    cold restart from a failure before any checkpoint, both bit for bit.
+    Logs the bytes of one checkpoint, the snapshot seconds
+    (``ckpt_save_seconds``), the seconds of one ``restore_state`` and the
+    points/s against phase 14's ``stream_pps``."""
+    import torch
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.data import PointStream
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.runtime import FailureInjector, InjectedFailure
+    from repro_torch.streaming import StreamingKMeans
+
+    n = len(pts_np)
+    stream = PointStream(shard_size=shard, data=pts_np)
+    n_steps = epochs * stream.n_shards
+    every = RESILIENT["ckpt_every"]
+
+    def same_bits(est, label):
+        y = yardstick
+        gaps = (float((est._centroids - y["centroids"]).abs().max()),
+                float((est._counts - y["counts"]).abs().max()),
+                float(np.abs(est._ledger.centroid
+                             - y["ledger_centroid"]).max()),
+                float(np.abs(est._ledger.group - y["ledger_group"]).max()))
+        same = (torch.equal(est._centroids, y["centroids"])
+                and torch.equal(est._counts, y["counts"])
+                and np.array_equal(est._ledger.centroid,
+                                   y["ledger_centroid"])
+                and np.array_equal(est._ledger.group, y["ledger_group"]))
+        log(f"{label}: {'bit for bit' if same else 'NOT bit for bit'} the "
+            f"uninterrupted stream (max abs gaps of centroids, counts, "
+            f"ledger centroid and group {gaps})")
+        check(same, f"{label}: centroids, counts or ledger differ from the "
+              f"uninterrupted stream's")
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_resilient_"))
+    try:
+        # -- the chaos run: three faults, three restores ------------------
+        ckpt = root / "chaos"
+        fired = {}
+
+        def chaos(est, sid):
+            step = est.stats_.batches        # the schedule step under way
+            if step == RESILIENT["tear_at"] and "tear" not in fired:
+                fired["tear"] = step
+                raise InjectedFailure("torn mid-batch")
+            if step == RESILIENT["corrupt_at"] and "corrupt" not in fired:
+                newest = step // every * every
+                t_wait = time.perf_counter()
+                while latest_step(ckpt) != newest:   # its writer's publish
+                    check(time.perf_counter() - t_wait < 120,
+                          f"resilient: step {newest} was never published")
+                    time.sleep(0.01)
+                (ckpt / f"step_{newest:06d}" / "shard_0.npz").write_bytes(
+                    b"torn write")
+                fired["corrupt"] = newest
+                raise InjectedFailure("crash onto a torn checkpoint")
+
+        reg = MetricsRegistry()
+        est = stream_estimator(dev, k, n_groups, shard, obs=reg)
+        est.chaos_hook = chaos
+        inj = FailureInjector(fail_at=(RESILIENT["fail_at"],))
+        reset_launches(wrappers)
+        sync()
+        t0 = time.perf_counter()
+        est.fit_stream(stream, epochs=epochs, resilient=True, ckpt_dir=ckpt,
+                       ckpt_every=every, injector=inj)
+        sync()
+        chaos_s = time.perf_counter() - t0
+        est.chaos_hook = None
+        labels = est.predict(pts_np)
+        inertia = est.inertia_of(pts_np)
+        sync()
+        launches = read_launches(wrappers)
+        st = est.stats_
+        replayed = st.replayed_batches
+        m = reg.to_dict()
+        saves = m["ckpt_save_seconds"]
+        step_dir = ckpt / f"step_{n_steps:06d}"
+        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        runs = n_steps + replayed
+        log(f"resilient: {st.restores} restores, {replayed} batches "
+            f"replayed, faults {fired} and a failure at step "
+            f"{RESILIENT['fail_at']} ({inj.seen}); {m['ckpt_saves_total']:.0f}"
+            f" saves; {chaos_s:.3f} s; launches {launches}")
+        check(st.restores == 3 and m["restore_total"] == 3,
+              f"resilient: {st.restores} restores (registry "
+              f"{m['restore_total']}), not 3")
+        check(replayed > 0 and m["replay_batches_total"] == replayed,
+              f"resilient: {replayed} batches replayed (registry "
+              f"{m['replay_batches_total']})")
+        check(set(fired) == {"tear", "corrupt"}
+              and inj.seen == {RESILIENT["fail_at"]},
+              f"resilient: faults fired {fired}, injector {inj.seen}")
+        events = {e["event"] for e in reg.events}
+        check({"ckpt_save", "restore"} <= events,
+              f"resilient: events {sorted(events)}")
+        same_bits(est, "resilient stream after 3 faults")
+        check(st.batches == n_steps, f"resilient: {st.batches} batches "
+              f"committed, not {n_steps}")
+        check(launches["centroid_update"] >= runs,
+              f"resilient: centroid_update launched "
+              f"{launches['centroid_update']} times for {runs} batches run")
+        check(launches["grouped_assign"] >= 2, "resilient: predict and "
+              "inertia_of did not launch grouped_assign")
+        for nm in ("pairwise_sq_dists", "filtered_assign"):
+            check(launches[nm] == 0, f"resilient: {nm} launched "
+                  f"{launches[nm]}")
+        check(labels.shape == (n,) and math.isfinite(inertia),
+              "resilient: misshapen labels or non-finite inertia")
+
+        # the terminal checkpoint: its size, and one restore_state of it;
+        # then a save's parts: the state's host copy alone, and a
+        # synchronous save (the copy and the write)
+        t0 = time.perf_counter()
+        got_step = est.restore_state(ckpt)
+        sync()
+        restore_s = time.perf_counter() - t0
+        check(got_step == n_steps, f"resilient: LATEST is {got_step}")
+        same_bits(est, "the terminal checkpoint restored")
+        t0 = time.perf_counter()
+        est._pack_state()
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        est.save(ckpt, n_steps + 1, async_=False)
+        sync_save_s = time.perf_counter() - t0
+        shutil.rmtree(ckpt)
+        pps = n * epochs / chaos_s
+        log(f"resilient: one checkpoint {nbytes} bytes ({len(est._cache)} "
+            f"cached shards); ckpt_save_seconds (the snapshot of an async "
+            f"save) mean {saves['mean'] * 1e3:.2f} ms over {saves['count']}; "
+            f"the state's host copy alone {pack_s * 1e3:.2f} ms, a "
+            f"synchronous save {sync_save_s * 1e3:.2f} ms; "
+            f"restore_state {restore_s * 1e3:.2f} ms; "
+            f"{pps:.4g} points/s committed, "
+            f"{runs * shard / chaos_s:.4g} run, against phase 14's "
+            f"{stream_pps:.4g} ({pps / stream_pps:.3f}x)")
+
+        # -- a resume across estimators -----------------------------------
+        ckpt = root / "resume"
+        two = epochs - 1
+        a = stream_estimator(dev, k, n_groups, shard)
+        t0 = time.perf_counter()
+        a.fit_stream(stream, epochs=two, resilient=True, ckpt_dir=ckpt,
+                     ckpt_every=every)
+        sync()
+        clean_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b, got_step = StreamingKMeans.restore(ckpt, device=dev)
+        sync()
+        restore_cls_s = time.perf_counter() - t0
+        check(got_step == two * stream.n_shards,
+              f"resume: the terminal checkpoint is at {got_step}")
+        for step in range(got_step, n_steps):
+            batch = stream.global_batch(step)
+            b.partial_fit(batch["points"], shard_id=batch["shard_id"])
+        check(b.stats_.restores == 1 and b.stats_.replayed_batches == 0,
+              f"resume: {b.stats_.restores} restores, "
+              f"{b.stats_.replayed_batches} replayed")
+        same_bits(b, f"restored from epoch {two}, streamed to {epochs}")
+        clean_pps = n * two / clean_s
+        log(f"resume: a {two}-epoch resilient run without faults "
+            f"{clean_s:.3f} s, {clean_pps:.4g} points/s "
+            f"({clean_pps / stream_pps:.3f}x phase 14's); "
+            f"StreamingKMeans.restore {restore_cls_s * 1e3:.2f} ms")
+        shutil.rmtree(ckpt)
+
+        # -- a cold restart: the failure lands before any checkpoint ------
+        ckpt = root / "cold"
+        c = stream_estimator(dev, k, n_groups, shard)
+        c.fit_stream(stream, epochs=epochs, resilient=True, ckpt_dir=ckpt,
+                     ckpt_every=10 * n_steps,
+                     injector=FailureInjector(
+                         fail_at=(RESILIENT["cold_fail_at"],)))
+        check(c.stats_.restores == 1
+              and c.stats_.replayed_batches == RESILIENT["cold_fail_at"],
+              f"cold restart: {c.stats_.restores} restores, "
+              f"{c.stats_.replayed_batches} replayed")
+        same_bits(c, "cold restart from step 0")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(n=n, shard=shard, epochs=epochs, ckpt_every=every,
+                faults=dict(RESILIENT, fired=fired), restores=st.restores,
+                replayed_batches=replayed, batches_run=runs,
+                ckpt_saves=m["ckpt_saves_total"], ckpt_bytes=nbytes,
+                ckpt_save_seconds=saves,
+                restore_state_s=restore_s, restore_s=restore_cls_s,
+                pack_s=pack_s, sync_save_s=sync_save_s,
+                seconds=chaos_s, points_per_s=pps,
+                clean_points_per_s=clean_pps, stream_points_per_s=stream_pps,
+                launches=launches, inertia=inertia)
 
 
 def main() -> None:
@@ -2502,10 +2753,20 @@ def main() -> None:
 
     # -- 14. streaming k-means with carried bounds at uci-xlarge ---------
     t0 = time.perf_counter()
-    report["stream"] = stream_phase(dev, wrappers, pts_np, plain_versions,
-                                    fit_kw, k, max(k // 10, 1))
+    report["stream"], stream_final = stream_phase(
+        dev, wrappers, pts_np, plain_versions, fit_kw, k, max(k // 10, 1))
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
     stream_launches = report["stream"]["launches"]
+    ep = report["stream"]["epochs"]
+    stream_pps = len(pts_np) * len(ep) / sum(r["seconds"] for r in ep)
+
+    # -- 15. the resilient stream: checkpoints, restore and replay -------
+    t0 = time.perf_counter()
+    report["resilient"] = resilient_phase(
+        dev, wrappers, pts_np, k, max(k // 10, 1), stream_final, stream_pps)
+    del stream_final
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    resilient_launches = report["resilient"]["launches"]
 
     # -- 2c. the LM kernels against their plain versions -----------------
     from repro_torch.configs import get_config
@@ -2539,7 +2800,8 @@ def main() -> None:
     kmeans_paths = {"fit": launches,                     # phase 3
                     "serve_index": {"grouped_assign": serve_ga,
                                     "centroid_update": 0},  # phase 13
-                    "stream": stream_launches}           # phase 14
+                    "stream": stream_launches,           # phase 14
+                    "resilient_stream": resilient_launches}  # phase 15
     line = {"kernels": [
         row("grouped_assign", ga_main,
             "src/repro_torch/kernels/csrc/grouped_assign.cu",

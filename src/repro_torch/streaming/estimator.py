@@ -39,13 +39,18 @@ Cold start: batches are buffered until ``init_size`` points (default
 built once (they stay fixed; drift handles all later movement), and the
 buffered batches are replayed through the normal step.
 
-Not ported yet, and raising: checkpoints and resilient replay
-(``save``, ``restore``, ``restore_state``, ``fit_stream(resilient=True)``;
-ROADMAP Queue 1 item 7b) and the sharded step (``mesh=``; item 9).
+Checkpoints: ``save`` snapshots the full stream state (the
+``skm-stream-state-v1`` format of the reference, so each package
+restores the other's) through :mod:`repro_torch.checkpoint`;
+``restore``/``restore_state`` bring it back and
+``fit_stream(resilient=True)`` replays the deterministic stream after a
+failure (:mod:`repro_torch.streaming.resilient`). Not ported yet, and
+raising: the sharded step (``mesh=``; ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import collections.abc
+import dataclasses
 import time
 
 import numpy as np
@@ -61,7 +66,6 @@ from ..obs.metrics import normalize_obs
 from .state import (BoundCache, DriftLedger, ShardBounds, StreamStats,
                     inflate_bounds)
 
-ITEM_7B = "ROADMAP Queue 1 item 7b (stream checkpoints and replay)"
 ITEM_9 = "ROADMAP Queue 1 item 9 (the sharded drivers)"
 
 
@@ -176,6 +180,11 @@ class StreamingKMeans:
         self._cache = BoundCache(max_cached_shards)
         self._ledger: DriftLedger | None = None
         self._labels_last: np.ndarray | None = None
+        # chaos-test seam: called in _step after the device update has
+        # landed and before the host commit (ledger, cache, stats).
+        # Raising here models a host crash mid-batch: the estimator is
+        # left torn, and only a checkpoint restore makes it whole again
+        self.chaos_hook = None
         # a repro_torch.serve.CentroidIndex published into every
         # _publish_every committed batches (attach_index)
         self._serve_index = None
@@ -349,6 +358,8 @@ class StreamingKMeans:
             self._members, self._gsize, assign, ub_t, lb_d, need, w,
             core=self._local_core(cap_n, cap_g), gmax=gmax)
         self._centroids, self._counts = out.centroids, out.counts
+        if self.chaos_hook is not None:
+            self.chaos_hook(self, sid)
 
         (nas_np, ub_np, lb_np, pairs, gmax, drift_np, gdrift_np,
          bcounts_np, bcost) = _fetch_step(out, b, g)
@@ -454,26 +465,192 @@ class StreamingKMeans:
             self._since_hit[c] = 0
             self.stats_.reseeds += 1
 
-    # -- checkpoints (not ported yet) ----------------------------------------
+    # -- checkpoint / restore ----------------------------------------------
+
+    _CKPT_FORMAT = "skm-stream-state-v1"
+
+    def _pack_state(self):
+        """Snapshot the full stream state as ``(leaves, meta)``.
+
+        Every array is a copy: the ledger and ``_since_hit`` change in
+        place in later steps, and the cache entries and labels are views
+        into a step's transfer buffer, so the snapshot is safe to hand
+        to an async writer. The leaf head is ``[centroids, counts,
+        ledger_centroid, ledger_group, since_hit, groups, labels_last,
+        far_ub, far_pts]``; each cached shard appends ``[assignments,
+        ub, lb, ub_off, gdrift_snap]`` in LRU order, its id and scalars
+        in ``meta['cache']``. The dtypes are the reference's (f32
+        centroids, counts and bounds, f64 ledger and its snapshots, i64
+        ``since_hit``, i32 groups and assignments), and the float64
+        ledger stays float64 end to end."""
+        self._require_fitted()
+        d = int(self._centroids.shape[1])
+        labels = self._labels_last
+        far_ub = np.asarray([u for u, _ in self._far], np.float64)
+        far_pts = (np.stack([p for _, p in self._far]).astype(np.float32)
+                   if self._far else np.zeros((0, d), np.float32))
+        leaves = [
+            np.array(self._centroids.cpu().numpy(), np.float32),
+            np.array(self._counts.cpu().numpy(), np.float32),
+            self._ledger.centroid.copy(),
+            self._ledger.group.copy(),
+            self._since_hit.copy(),
+            np.array(self._groups_np, np.int32),
+            (np.zeros((0,), np.int32) if labels is None
+             else np.array(labels)),
+            far_ub, far_pts,
+        ]
+        cache_meta = []
+        for sid, e in self._cache._d.items():            # LRU order
+            leaves += [np.array(e.assignments), np.array(e.ub),
+                       np.array(e.lb), np.array(e.ub_off),
+                       np.array(e.gdrift_snap)]
+            cache_meta.append({"sid": sid, "gmax": int(e.gmax),
+                               "ub_scale": float(e.ub_scale)})
+        meta = {
+            "format": self._CKPT_FORMAT,
+            "config": {
+                "n_clusters": self.n_clusters, "n_groups": self._g,
+                "init": self.init, "decay": self.decay,
+                "init_size": self.init_size, "seed": self.seed,
+                "min_bucket": self.min_bucket, "chunk": self.chunk,
+                "ggf": self._ggf,
+                "reseed_patience": self.reseed_patience,
+                "drift_reset_factor": self.drift_reset_factor,
+                "max_cached_shards": self._cache.max_shards,
+            },
+            "has_labels": labels is not None,
+            "ewa_inertia": self.ewa_inertia_,
+            "stats": self.stats_.to_dict(),
+            "shards_seen": sorted(self._shards_seen),
+            "cache": cache_meta,
+            "n_shards_at_save": 1,
+        }
+        return leaves, meta
 
     def save(self, ckpt_dir, step: int, *, async_: bool = False):
-        raise NotImplementedError(
-            f"StreamingKMeans.save is not ported yet: {ITEM_7B}")
+        """Checkpoint the full stream state (:meth:`_pack_state`) through
+        :func:`repro_torch.checkpoint.save_checkpoint`: atomic publish,
+        the ``LATEST`` pointer, an optional async writer thread
+        (returned, for the caller to ``join``). ``step`` is the
+        stream-schedule index the state stands at; a restore hands it
+        back so replay knows where to resume."""
+        from ..checkpoint.checkpoint import save_checkpoint
+        leaves, meta = self._pack_state()
+        t = save_checkpoint(ckpt_dir, step, leaves, async_=async_,
+                            meta=meta)
+        self.stats_.ckpt_saves += 1
+        return t
+
+    @classmethod
+    def _check_format(cls, manifest: dict) -> dict:
+        meta = manifest.get("meta") or {}
+        if meta.get("format") != cls._CKPT_FORMAT:
+            raise ValueError(
+                f"not a stream-state checkpoint (format="
+                f"{meta.get('format')!r})")
+        return meta
+
+    def _install(self, manifest: dict, leaves: list) -> None:
+        """Overwrite all live state from a checkpoint's host arrays. The
+        ledger is copied into float64 arrays on the host and never
+        passes through a tensor; the group tables are rebuilt on this
+        estimator's device."""
+        meta = self._check_format(manifest)
+        cfg = meta["config"]
+        if cfg["n_clusters"] != self.n_clusters:
+            raise ValueError(
+                f"checkpoint has n_clusters={cfg['n_clusters']}, "
+                f"estimator has {self.n_clusters}")
+        (cent, counts, led_c, led_g, since, groups, labels,
+         far_ub, far_pts) = leaves[:9]
+        k, g = self.n_clusters, int(cfg["n_groups"])
+        dev = self.device
+
+        self._centroids = torch.from_numpy(
+            np.asarray(cent, np.float32)).to(dev)
+        self._counts = torch.from_numpy(
+            np.asarray(counts, np.float32)).to(dev)
+        self._g = g
+        self._groups_np = np.asarray(groups, np.int32)
+        self._groups = torch.from_numpy(self._groups_np).to(dev)
+        self._members, self._gsize = _engine.build_group_tables(
+            self._groups_np, g, dev)
+        self._ledger = DriftLedger(k, g)
+        self._ledger.centroid[:] = led_c
+        self._ledger.group[:] = led_g
+        self._since_hit = np.array(since)
+        self._labels_last = np.array(labels) if meta["has_labels"] else None
+        self._far = [(float(u), far_pts[i].copy())
+                     for i, u in enumerate(far_ub)]
+        self._shards_seen = set(meta["shards_seen"])
+        self.ewa_inertia_ = meta["ewa_inertia"]
+        known = {f.name for f in dataclasses.fields(StreamStats)}
+        self.stats_ = StreamStats(**{kk: v for kk, v in
+                                     meta["stats"].items() if kk in known})
+        # the tuned engine configuration was resolved at the cold start;
+        # the checkpoint's values make the restored run take the same
+        # (cap_n, cap_g) buckets and the same compact-pass branches
+        self.min_bucket = int(cfg["min_bucket"])
+        self.chunk = int(cfg["chunk"])
+        self._ggf = int(cfg["ggf"])
+        self._cache = BoundCache(int(cfg["max_cached_shards"]))
+        off = 9
+        for ce in meta["cache"]:
+            a, ub, lb, ub_off, gsnap = leaves[off:off + 5]
+            off += 5
+            self._cache.put(ce["sid"], ShardBounds(
+                assignments=np.array(a), ub=np.array(ub),
+                lb=np.array(lb), ub_off=np.array(ub_off),
+                gdrift_snap=np.array(gsnap), gmax=int(ce["gmax"]),
+                ub_scale=float(ce["ub_scale"])))
+        self._buffer, self._buffered = [], 0
 
     def restore_state(self, ckpt_dir, *, step: int | None = None,
                       fallback: bool = True) -> int:
-        raise NotImplementedError(
-            f"StreamingKMeans.restore_state is not ported yet: {ITEM_7B}")
+        """Restore this estimator's full stream state from the latest
+        (or given) checkpoint under ``ckpt_dir``; returns its
+        stream-schedule step, from which the caller replays the
+        deterministic stream. ``fallback=True`` walks back to the newest
+        complete save when the latest is corrupt or partial."""
+        from ..checkpoint.checkpoint import load_checkpoint_arrays
+        got_step, manifest, leaves = load_checkpoint_arrays(
+            ckpt_dir, step=step, fallback=fallback)
+        self._install(manifest, leaves)
+        self.stats_.restores += 1
+        return got_step
 
     @classmethod
     def restore(cls, ckpt_dir, *, step: int | None = None, mesh=None,
-                mesh_axes=None, obs=None, fallback: bool = True):
-        raise NotImplementedError(
-            f"StreamingKMeans.restore is not ported yet: {ITEM_7B}")
+                mesh_axes=None, obs=None, fallback: bool = True,
+                device=None):
+        """Build a fresh estimator on ``device`` (``None`` = ``cuda``)
+        from a checkpoint, the package's own or the reference's. It is
+        built with ``tune="off"`` and takes the checkpoint's
+        ``min_bucket``, ``chunk`` and group-gather factor. Returns
+        ``(estimator, step)``. ``mesh=`` raises (item 9)."""
+        from ..checkpoint.checkpoint import load_checkpoint_arrays
+        got_step, manifest, leaves = load_checkpoint_arrays(
+            ckpt_dir, step=step, fallback=fallback)
+        cfg = cls._check_format(manifest)["config"]
+        skm = cls(cfg["n_clusters"], n_groups=cfg["n_groups"],
+                  init=cfg["init"], decay=cfg["decay"],
+                  init_size=cfg["init_size"], seed=cfg["seed"],
+                  min_bucket=cfg["min_bucket"], chunk=cfg["chunk"],
+                  max_cached_shards=cfg["max_cached_shards"],
+                  reseed_patience=cfg["reseed_patience"],
+                  drift_reset_factor=cfg["drift_reset_factor"],
+                  tune="off", mesh=mesh, mesh_axes=mesh_axes, obs=obs,
+                  device=device)
+        skm._install(manifest, leaves)
+        skm.stats_.restores += 1
+        return skm, got_step
 
     def reset_state(self) -> None:
         """Drop all learned state, back to the just-constructed cold
-        start."""
+        start (the restore of a failure before the first checkpoint:
+        replaying the deterministic stream from step 0 through a reset
+        estimator reproduces the original cold start bit for bit)."""
         self._centroids = None
         self._counts = None
         self._ledger = None
@@ -529,11 +706,28 @@ class StreamingKMeans:
         'shard_id': ..., 'sample_weight': ...}`` dicts (also as
         ``(step, dict)``). Generators are consumed once whatever
         ``epochs`` says. A stream too short to reach ``init_size`` is
-        flushed into an init at the end. ``resilient=True`` and its
-        arguments belong to ROADMAP Queue 1 item 7b and raise."""
+        flushed into an init at the end.
+
+        ``resilient=True`` (needs ``ckpt_dir`` and a deterministic
+        ``global_batch``-protocol source such as ``PointStream``) drives
+        the fit through the fault-tolerant runtime instead: the full
+        stream state is checkpointed every ``ckpt_every`` batches
+        (atomic, async by default), a failure restores the latest
+        complete checkpoint (falling back past corrupt ones) and replays
+        the stream from its batch index, landing on the centroids of an
+        uninterrupted run bit for bit
+        (:mod:`repro_torch.streaming.resilient`). ``injector`` and
+        ``watchdog`` are :mod:`repro_torch.runtime`'s chaos and
+        straggler hooks."""
         if resilient:
-            raise NotImplementedError(
-                f"fit_stream(resilient=True) is not ported yet: {ITEM_7B}")
+            from .resilient import fit_stream_resilient
+            if ckpt_dir is None:
+                raise ValueError("resilient=True requires ckpt_dir")
+            return fit_stream_resilient(
+                self, source, ckpt_dir=ckpt_dir, epochs=epochs,
+                max_batches=max_batches, ckpt_every=ckpt_every,
+                injector=injector, watchdog=watchdog,
+                max_restarts=max_restarts, async_ckpt=async_ckpt)
         seen = 0
         for sid, pts, w in self._iter_source(source, epochs):
             self.partial_fit(pts, shard_id=sid, sample_weight=w)

@@ -25,8 +25,8 @@ import numpy as np
 @dataclasses.dataclass
 class StreamStats:
     """Convergence and work diagnostics for a streaming fit. The last
-    three fields belong to checkpoints and replay (ROADMAP Queue 1 item
-    7b) and stay 0 until those are ported."""
+    three count checkpoints written, restores and batches replayed after
+    a restore (:mod:`repro_torch.streaming.resilient`)."""
     batches: int = 0
     points_seen: int = 0
     distance_evals: float = 0.0

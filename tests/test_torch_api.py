@@ -137,9 +137,8 @@ def test_uniform_weights_bit_identical(backend):
 
 
 def test_later_slices_raise_not_implemented():
-    skm = StreamingKMeans(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
-        skm.save("unused", 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        StreamingKMeans(2, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KMeans(n_clusters=2, engine="ladder", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

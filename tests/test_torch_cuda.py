@@ -364,6 +364,37 @@ def test_stream_on_card_matches_plain_route(weighted):
     assert (k_lab != p_lab).mean() < 1e-3
 
 
+@pytest.mark.cuda
+def test_resilient_stream_on_card_replays_bit_for_bit(tmp_path):
+    """A crash off the checkpoint lattice on the card: the restore and
+    the replayed batch land bit for bit on the uninterrupted stream
+    (``centroid_update`` sums in a fixed order, with no atomics)."""
+    _need_card()
+    from repro_torch.data import PointStream
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.streaming import StreamingKMeans
+    ps = PointStream(shard_size=4096, n_shards=6, n_dims=16, k=32, seed=3)
+
+    def estimator():
+        return StreamingKMeans(32, n_groups=4, seed=0, tune="off",
+                               device="cuda")
+
+    clean = estimator().fit_stream(ps, epochs=3)
+    skm = estimator()
+    before = cu.centroid_update.launches
+    skm.fit_stream(ps, epochs=3, resilient=True, ckpt_dir=tmp_path,
+                   ckpt_every=4, injector=FailureInjector(fail_at=(9,)))
+    launched = cu.centroid_update.launches - before
+    assert skm.stats_.restores == 1 and skm.stats_.replayed_batches == 1
+    assert launched >= 3 * ps.n_shards + 1       # the replay launched too
+    assert skm._centroids.device.type == "cuda"
+    assert torch.equal(skm._centroids, clean._centroids)
+    assert torch.equal(skm._counts, clean._counts)
+    np.testing.assert_array_equal(skm._ledger.centroid,
+                                  clean._ledger.centroid)
+    np.testing.assert_array_equal(skm._ledger.group, clean._ledger.group)
+
+
 def _norm_atol(x, c):
     x, c = x.float(), c.float()
     return 1e-5 * float((x * x).sum(1).max() + (c * c).sum(1).max())

@@ -42,7 +42,8 @@ def test_import_leaves_jax_out():
                 "repro_torch.convert, repro_torch.models, "
                 "repro_torch.configs, repro_torch.train, "
                 "repro_torch.obs, repro_torch.tune, repro_torch.serve, "
-                "repro_torch.streaming; "
+                "repro_torch.streaming, repro_torch.checkpoint, "
+                "repro_torch.runtime; "
                 "assert 'jax' not in sys.modules, 'jax imported'; "
                 "assert not any(m == 'repro' or m.startswith('repro.') "
                 "for m in sys.modules), 'repro imported'; print('ok')"],

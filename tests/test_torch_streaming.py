@@ -40,6 +40,7 @@ from repro.serve import CentroidIndex as JaxIndex
 from repro.streaming import StreamingKMeans as JaxStreamingKMeans
 from repro_torch import KMeans, NotFittedError, tune
 from repro_torch.core import engine
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serve import CentroidIndex
 from repro_torch.data import PointStream
@@ -673,15 +674,17 @@ def test_attach_index_republishes_into_a_port_index():
 
 
 def test_later_items_raise_with_their_roadmap_items(tmp_path):
+    # item 7b has landed: its calls raise the reference's errors
     skm = StreamingKMeans(2, **CPU)
-    for call in (lambda: skm.save(tmp_path, 0),
-                 lambda: skm.restore_state(tmp_path),
-                 lambda: StreamingKMeans.restore(tmp_path),
-                 lambda: skm.fit_stream([], resilient=True,
-                                        ckpt_dir=tmp_path)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 7b"):
-            call()
+    with pytest.raises(NotFittedError):
+        skm.save(tmp_path, 0)
+    save_checkpoint(tmp_path, 1, [np.zeros(3)], meta={"format": "other"})
+    with pytest.raises(ValueError, match="not a stream-state checkpoint"):
+        skm.restore_state(tmp_path)
+    with pytest.raises(ValueError, match="not a stream-state checkpoint"):
+        StreamingKMeans.restore(tmp_path, **CPU)
+    with pytest.raises(ValueError, match="global_batch"):
+        skm.fit_stream([], resilient=True, ckpt_dir=tmp_path)
     for kw in ({"mesh": object()}, {"mesh_axes": ("data",)}):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 9"):
