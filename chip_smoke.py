@@ -176,11 +176,29 @@ the order they run:
    tokens/s, peak memory, one traced prefill and one traced decode
    step.
 
-Phases 11-15 run after phase 7, before 2c. The last lines are a
+16. the sharded batch fit (``repro_torch.core.distributed_yinyang`` on
+   ``torch.distributed``), its worlds started by ``spawn_world`` with a
+   deadline, each rank reporting through a file (a rank that fails or
+   is late fails the run): (a) a world of 4 ``gloo`` ranks sharing the
+   card at uci-xlarge with phase 3's points and init (262,144 points a
+   rank), the compact fit the main path (counts reset just before and
+   read just after on every rank), compact and dense bit for bit, the
+   same ``n_iters`` as phase 3 and inertia within 1e-5 (labels apart and
+   the ``distance_evals`` ratio logged), N = 1,048,573 against the
+   single-device compact fit, ``compress=True`` within 1% of the
+   inertia; (b) the same world at uci-wide: labels those of the
+   single-device compact fit, dense and compact and weights of 1.0 and
+   none bit for bit; (c) a world of 1 over NCCL at uci-wide: labels,
+   ``n_iters`` and ``distance_evals`` those of the single-device compact
+   fit, centroids bit for bit; each world's fit seconds beside the
+   single-device fit's, ``host_syncs``, one iteration's all-reduce time
+   and ``shard_skew``.
+
+Phases 11-16 run after phase 7, before 2c. The last lines are a
 ``kernels`` JSON line (each kernel's ``launches`` is the sum of its
 ``launches_by_path``: the k-means kernels' on the main fit and predict,
-phase 13's ``kernel`` backend, phase 14's stream and phase 15's
-resilient stream), the card's name
+phase 13's ``kernel`` backend, phase 14's stream, phase 15's resilient
+stream and phase 16's sharded fit summed over its ranks), the card's name
 and power limit from ``nvidia-smi``, and ``{"ok": true, "device":
 {...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
@@ -1773,6 +1791,282 @@ def resilient_phase(dev, wrappers, pts_np, k, n_groups, yardstick,
                 launches=launches, inertia=inertia)
 
 
+# -- phase 16: the sharded batch fit on torch.distributed --------------------
+
+SHARDED = dict(world=4, uneven=1_048_573, timeout=240, reps=50)
+
+
+def sharded_rank(rank, world, job):
+    """One rank of a phase 16 world (``spawn_world`` runs it, each rank
+    on its share of the card): the fits ``job`` names, each timed with
+    the card synchronised around it; the main path (the compact fit at
+    uci-xlarge) with the kernels' counts reset just before and read just
+    after it; then one iteration's all-reduce payload (the (K, D) sums
+    and the (K,) counts through the fit's ``Reducer``) timed over
+    ``SHARDED["reps"]`` rounds. Returns rank 0's labels and centroids,
+    every rank's numbers."""
+    import torch
+    import repro_torch.kernels as kernels
+    from repro_torch.core import distributed_yinyang, make_mesh
+    from repro_torch.core.engine import Reducer
+    dev = job["device"] or torch.device(
+        "cuda", rank % torch.cuda.device_count())
+    mesh = make_mesh(world)
+    wrappers = {"grouped_assign": kernels.grouped_assign,
+                "centroid_update": kernels.centroid_update}
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = {}
+
+    def fit(name, pts, init, count=False, **kw):
+        if count:
+            reset_launches(wrappers)
+        sync()
+        t0 = time.perf_counter()
+        r = distributed_yinyang(pts, init, mesh, device=job["device"], **kw)
+        sync()
+        res, st = r if kw.get("return_stats") else (r, None)
+        e = dict(seconds=time.perf_counter() - t0, n_iters=res.n_iters,
+                 evals=int(res.distance_evals), inertia=float(res.inertia),
+                 device=str(res.centroids.device))
+        if count:
+            e["launches"] = read_launches(wrappers)
+        if st is not None:
+            e.update(host_syncs=st.host_syncs, caps=st.caps_history,
+                     shard_skew=st.shard_skew.tolist(), config=st.config)
+        if rank == 0:
+            e.update(labels=res.assignments.cpu().numpy(),
+                     centroids=res.centroids.cpu().numpy())
+        out[name] = e
+
+    if "xlarge" in job:
+        pts = np.load(job["xlarge"])
+        init = job["xlarge_init"]
+        kw = dict(max_iters=XLARGE["max_iters"], tol=XLARGE["tol"])
+        fit("compact", pts, init, count=True, backend="compact",
+            return_stats=True, **kw)
+        fit("compact_warm", pts, init, backend="compact", **kw)
+        fit("dense", pts, init, backend="dense", **kw)
+        fit("uneven", pts[:job["uneven"]], init, backend="compact", **kw)
+        fit("compress", pts, init, backend="compact", compress=True, **kw)
+        del pts
+    if "wide" in job:
+        pts = np.load(job["wide"])
+        init = job["wide_init"]
+        kw = dict(max_iters=WIDE["max_iters"], tol=WIDE["tol"])
+        fit("wide/compact", pts, init, backend="compact", return_stats=True,
+            **kw)
+        # timed again warm: in the world of 1 the first fit is the
+        # process's first (cuBLAS and the kernels' libraries load there)
+        fit("wide/warm", pts, init, backend="compact", **kw)
+        fit("wide/dense", pts, init, backend="dense", **kw)
+        fit("wide/ones", pts, init, backend="compact",
+            sample_weight=np.ones(len(pts), np.float32), **kw)
+    k, d = job["payload"]
+    red = Reducer(group=mesh.get_group("data"))
+    sums = torch.zeros((k, d), device=dev)
+    counts = torch.zeros((k,), device=dev)
+    for timed in (False, True):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(SHARDED["reps"] if timed else 3):
+            red.sums(sums)
+            red.add(counts)
+        sync()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 / SHARDED["reps"]
+    return out
+
+
+def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
+                  wide_init, scratch, *, world=SHARDED["world"],
+                  uneven=SHARDED["uneven"], nccl=True, rank_device=None):
+    """Phase 16: ``repro_torch.core.distributed_yinyang`` in a world of
+    ``world`` ``gloo`` ranks sharing the card, and in a world of 1 over
+    NCCL (``nccl=False``: gloo, for a rehearsal on the CPU). Each world
+    is started by ``spawn_world`` with a deadline, each rank reports
+    through a file, and a rank that fails or is late fails the run.
+
+    (a) uci-xlarge (``xl_np``, phase 3's points and init, G = 25): the
+    compact fit is the main path (counts reset just before it and read
+    just after it on every rank); compact and dense bit for bit (labels,
+    ``n_iters``, inertia); against phase 3's single-device fit
+    (``main_fit``) ``n_iters`` equal and inertia within 1e-5, the labels
+    apart and the ``distance_evals`` ratio logged; the first ``uneven``
+    points against the single-device compact fit on them (``n_iters``
+    and inertia as above); ``compress=True`` within 1% of the inertia.
+    (b) uci-wide in the same world: labels those of the single-device
+    compact fit; dense and compact, and weights of 1.0 and none, bit for
+    bit. (c) a world of 1 at uci-wide: labels, ``n_iters`` and
+    ``distance_evals`` those of the single-device compact fit, and the
+    centroids bit for bit. Logs each world's fit seconds beside the
+    single-device fit's (``compact_s`` at uci-xlarge), ``host_syncs``,
+    one iteration's all-reduce time and ``shard_skew``. Returns the
+    report; its ``launches`` are the main path's, summed over ranks."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.distributed import spawn_world
+    xl_path = str(Path(scratch) / "xlarge.npy")
+    wide_path = str(Path(scratch) / "wide.npy")
+    np.save(xl_path, xl_np)
+    np.save(wide_path, wide_np)
+    k, d = xl_init.shape
+    init_np = xl_init.cpu().numpy()
+    winit_np = wide_init.cpu().numpy()
+    wk = dict(max_iters=WIDE["max_iters"], tol=WIDE["tol"],
+              backend="compact", device=dev)
+    # the single-device yardsticks: uci-xlarge's first `uneven` points,
+    # and uci-wide (timed)
+    u_fit = engine.fit(torch.from_numpy(xl_np[:uneven]).to(dev), xl_init,
+                       max_iters=XLARGE["max_iters"], tol=XLARGE["tol"],
+                       backend="compact", device=dev)
+    wpts = torch.from_numpy(wide_np).to(dev)
+    engine.fit(wpts, wide_init, **wk)                 # warm
+    t0 = time.perf_counter()
+    w_fit = engine.fit(wpts, wide_init, **wk)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    w_s = time.perf_counter() - t0
+    del wpts
+    job = dict(device=rank_device, xlarge=xl_path, xlarge_init=init_np,
+               uneven=uneven, wide=wide_path, wide_init=winit_np,
+               payload=(k, d))
+    t0 = time.perf_counter()
+    ranks = spawn_world(sharded_rank, world, args=(job,),
+                        timeout=SHARDED["timeout"])
+    world_s = time.perf_counter() - t0
+    got = ranks[0]
+    rep = dict(world=world, world_seconds=world_s)
+
+    def same_bits(a, b, what):
+        check(np.array_equal(a["labels"], b["labels"])
+              and a["n_iters"] == b["n_iters"]
+              and a["inertia"] == b["inertia"],
+              f"phase 16: {what} differ in labels, n_iters or inertia bits")
+
+    # (a) uci-xlarge
+    main = got["compact"]
+    check(all(r["compact"]["device"] == got["compact"]["device"]
+              for r in ranks), "phase 16: ranks on different devices")
+    for r in ranks[1:]:
+        check(r["compact"]["n_iters"] == main["n_iters"]
+              and r["compact"]["inertia"] == main["inertia"],
+              "phase 16: the ranks' results differ")
+    same_bits(main, got["dense"], "compact and dense (uci-xlarge)")
+    same_bits(main, got["compact_warm"], "two compact fits (uci-xlarge)")
+    m_labels = main_fit.assignments.cpu().numpy()
+    apart = int((main["labels"] != m_labels).sum())
+    in1 = float(main_fit.inertia)
+    evals_ratio = main["evals"] / float(main_fit.distance_evals)
+    log(f"phase 16 (a) world of {world} at uci-xlarge: compact "
+        f"{got['compact_warm']['seconds']:.3f} s warm "
+        f"({main['seconds']:.3f} s first, the main path; single-device "
+        f"compact {compact_s:.3f} s), dense {got['dense']['seconds']:.3f} "
+        f"s, the world started and ran every fit in {world_s:.1f} s; "
+        f"n_iters {main['n_iters']} (phase 3 {main_fit.n_iters}), "
+        f"inertia {main['inertia']:.9g} (phase 3 {in1:.9g}), {apart} labels "
+        f"apart from phase 3's, distance_evals {main['evals']} "
+        f"({evals_ratio:.4f}x phase 3's), host_syncs {main['host_syncs']}, "
+        f"caps {main['caps']}, config {main['config']}")
+    check(main["n_iters"] == main_fit.n_iters,
+          "phase 16: n_iters differs from phase 3's")
+    check(abs(main["inertia"] - in1) <= 1e-5 * in1,
+          "phase 16: inertia beyond 1e-5 of phase 3's")
+    un = got["uneven"]
+    check(un["labels"].shape == (uneven,), "phase 16: uneven labels' shape")
+    u_apart = int((un["labels"] != u_fit.assignments.cpu().numpy()).sum())
+    log(f"phase 16 (a) uneven N={uneven}: n_iters {un['n_iters']} "
+        f"(single {u_fit.n_iters}), inertia {un['inertia']:.9g} (single "
+        f"{float(u_fit.inertia):.9g}), {u_apart} labels apart, "
+        f"distance_evals {un['evals']} / {int(u_fit.distance_evals)}")
+    check(un["n_iters"] == u_fit.n_iters, "phase 16: uneven n_iters differs")
+    check(abs(un["inertia"] - float(u_fit.inertia))
+          <= 1e-5 * float(u_fit.inertia), "phase 16: uneven inertia differs")
+    cz = got["compress"]
+    log(f"phase 16 (a) compress=True: inertia {cz['inertia']:.9g} "
+        f"({cz['inertia'] / main['inertia']:.6f}x), n_iters {cz['n_iters']}, "
+        f"{cz['seconds']:.3f} s")
+    check(abs(cz["inertia"] - main["inertia"]) <= 1e-2 * main["inertia"],
+          "phase 16: compressed inertia beyond 1% of the fit's")
+    skew = np.asarray(main["shard_skew"])
+    ms_iter = got["compact_warm"]["seconds"] * 1e3 / (main["n_iters"] + 1)
+    ar_ms = max(r["all_reduce_ms"] for r in ranks)
+    log(f"phase 16 all-reduce of one iteration's payload (K={k}, D={d}: "
+        f"sums and counts): {ar_ms:.3f} ms (worst rank), against "
+        f"{ms_iter:.3f} ms an iteration of the warm fit "
+        f"({ar_ms / ms_iter:.1%}); shard_skew mean {skew.mean():.4f} max "
+        f"{skew.max():.4f}")
+    launches = {nm: sum(r["compact"]["launches"][nm] for r in ranks)
+                for nm in ("grouped_assign", "centroid_update")}
+    check(launches["centroid_update"] >= world * main["n_iters"],
+          f"phase 16: centroid_update launched {launches['centroid_update']}"
+          f" times over {world} ranks, fewer than a launch a rank an "
+          f"iteration")
+    rep.update(xlarge=dict(
+        first_s=main["seconds"], warm_s=got["compact_warm"]["seconds"],
+        dense_s=got["dense"]["seconds"], single_compact_s=compact_s,
+        n_iters=main["n_iters"], inertia=main["inertia"],
+        labels_apart=apart, evals=main["evals"], evals_ratio=evals_ratio,
+        host_syncs=main["host_syncs"], caps=main["caps"],
+        uneven=dict(n=uneven, labels_apart=u_apart, n_iters=un["n_iters"]),
+        compress_inertia_ratio=cz["inertia"] / main["inertia"],
+        shard_skew_mean=float(skew.mean()), shard_skew_max=float(skew.max())),
+        all_reduce_ms=ar_ms, iteration_ms=ms_iter, launches=launches)
+
+    # (b) uci-wide in the same world
+    wc = got["wide/compact"]
+    same_bits(wc, got["wide/warm"], "two compact fits (uci-wide)")
+    same_bits(wc, got["wide/dense"], "compact and dense (uci-wide)")
+    same_bits(wc, got["wide/ones"], "weights of 1.0 and none (uci-wide)")
+    w_labels = w_fit.assignments.cpu().numpy()
+    check(np.array_equal(wc["labels"], w_labels) and
+          wc["n_iters"] == w_fit.n_iters,
+          "phase 16: uci-wide labels or n_iters differ from the "
+          "single-device compact fit's")
+    log(f"phase 16 (b) world of {world} at uci-wide: "
+        f"{got['wide/warm']['seconds']:.3f} s warm (single-device compact "
+        f"{w_s:.3f} s), n_iters {wc['n_iters']}, "
+        f"labels equal, distance_evals {wc['evals']} / "
+        f"{int(w_fit.distance_evals)}, host_syncs {wc['host_syncs']}")
+    rep["wide"] = dict(seconds=got["wide/warm"]["seconds"], single_s=w_s,
+                       n_iters=wc["n_iters"], evals=wc["evals"],
+                       single_evals=int(w_fit.distance_evals))
+
+    # (c) a world of 1 at uci-wide, over NCCL
+    job1 = dict(job, payload=(winit_np.shape[0], winit_np.shape[1]))
+    del job1["xlarge"]
+    t0 = time.perf_counter()
+    one = spawn_world(sharded_rank, 1, args=(job1,),
+                      backend="nccl" if nccl else "gloo",
+                      timeout=SHARDED["timeout"])[0]
+    one_world_s = time.perf_counter() - t0
+    o = one["wide/compact"]
+    o_s = one["wide/warm"]["seconds"]
+    cents_equal = bool(np.array_equal(o["centroids"],
+                                      w_fit.centroids.cpu().numpy()))
+    log(f"phase 16 (c) world of 1 over {'NCCL' if nccl else 'gloo'} at "
+        f"uci-wide: {o_s:.3f} s warm, {o['seconds']:.3f} s first "
+        f"(single-device {w_s:.3f} s; the world started and ran in "
+        f"{one_world_s:.1f} s), "
+        f"n_iters {o['n_iters']}, distance_evals {o['evals']} / "
+        f"{int(w_fit.distance_evals)}, centroids bit for bit: {cents_equal}"
+        f", all-reduce {one['all_reduce_ms']:.3f} ms")
+    check(np.array_equal(o["labels"], w_labels)
+          and o["n_iters"] == w_fit.n_iters
+          and o["evals"] == int(w_fit.distance_evals),
+          "phase 16: the world of 1 differs from the single-device compact "
+          "fit in labels, n_iters or distance_evals")
+    check(cents_equal, "phase 16: the world of 1's centroids are not the "
+          "single-device fit's bits")
+    rep["one"] = dict(backend="nccl" if nccl else "gloo",
+                      seconds=o_s, first_s=o["seconds"],
+                      world_seconds=one_world_s,
+                      all_reduce_ms=one["all_reduce_ms"])
+    return rep
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2768,6 +3062,13 @@ def main() -> None:
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     resilient_launches = report["resilient"]["launches"]
 
+    # -- 16. the sharded batch fit on torch.distributed -------------------
+    t0 = time.perf_counter()
+    report["sharded"] = sharded_phase(dev, pts_np, init, res, cfit_s, w_np,
+                                      winit, scratch)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    sharded_launches = report["sharded"]["launches"]
+
     # -- 2c. the LM kernels against their plain versions -----------------
     from repro_torch.configs import get_config
     lm_cfg = get_config(SERVE["arch"])
@@ -2801,7 +3102,8 @@ def main() -> None:
                     "serve_index": {"grouped_assign": serve_ga,
                                     "centroid_update": 0},  # phase 13
                     "stream": stream_launches,           # phase 14
-                    "resilient_stream": resilient_launches}  # phase 15
+                    "resilient_stream": resilient_launches,  # phase 15
+                    "sharded": sharded_launches}         # phase 16
     line = {"kernels": [
         row("grouped_assign", ga_main,
             "src/repro_torch/kernels/csrc/grouped_assign.cu",

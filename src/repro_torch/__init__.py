@@ -9,7 +9,9 @@ written for ``sm_90a``, the engine's compact backend, and the
 (``obs``: the fit's telemetry ring, metrics, profiler ranges and
 traces), autotuning (``tune``: a per-card cache of measured engine and
 serve configurations), and the k-means serving index (``serve``:
-``CentroidIndex`` and the micro-batching ``ServeEngine``); and the LM
+``CentroidIndex`` and the micro-batching ``ServeEngine``), streaming
+with checkpoints, and the sharded batch fit on ``torch.distributed``
+(``core.distributed_yinyang``); and the LM
 serving path (``configs``, ``models``, ``train``: prefill and decode of
 every config without MLA or MoE) on the ``kernels.flash_attention`` and
 ``kernels.ssd_intra`` kernels. Entry points run on ``cuda`` unless the

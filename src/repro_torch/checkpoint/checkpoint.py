@@ -43,9 +43,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..core.distributed import ITEM_9B
 from ..device import resolve_device
-
-ITEM_9 = "ROADMAP Queue 1 item 9 (the sharded drivers)"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -270,7 +269,7 @@ def restore_checkpoint(ckpt_dir, like, *, step: int | None = None,
     another mesh) belongs to the sharded drivers and raises."""
     if shardings is not None:
         raise NotImplementedError(
-            f"restore_checkpoint(shardings=...) is not ported yet: {ITEM_9}")
+            f"restore_checkpoint(shardings=...) is not ported yet: {ITEM_9B}")
     dev = resolve_device(device)
     step, _, leaves = load_checkpoint_arrays(ckpt_dir, step=step,
                                              fallback=fallback)

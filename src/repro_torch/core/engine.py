@@ -23,6 +23,16 @@ One pass core, the batch fit driver, and tiled assignment. Backends:
 ``"auto"``
     ``"lloyd"`` when ``n * k <= lloyd_max_work``, else ``"kernel"``.
 
+A fifth pass realisation, ``"ladder"`` (the compact pass at a level of
+a fixed capacity lattice, :func:`cap_ladders`, each rank picking its
+level on the host with :func:`select_bucket`), runs only inside
+:func:`fit_core`, the sharded fit's body
+(:mod:`repro_torch.core.distributed`); ``fit`` refuses it, as the
+reference's does. The only thing that differs between a local and a
+sharded fit is the :class:`Reducer` that joins the per-rank centroid
+partial sums and the exit counters: the identity locally, a
+``torch.distributed`` all-reduce in the sharded fit.
+
 The loop keeps the reference's split structure: the initial pending
 candidate pass is empty, each body runs the pending candidate pass and
 then :func:`move_and_bounds`, and one epilogue pass follows the loop, so
@@ -42,6 +52,7 @@ device, drained once at fit exit. Tuning (``fit(tune=...)``,
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import NamedTuple
 
@@ -65,9 +76,6 @@ from .kmeans import (KMeansResult, _f32, _init_filter_state, centroid_sums,
 
 BACKENDS = ("oracle", "compact", "kernel")
 ALIASES = {"pallas": "kernel"}
-NOT_PORTED = {
-    "ladder": "ROADMAP Queue 1 item 9 (the sharded drivers)",
-}
 
 # backend="auto" routes n*k at or below this to the dense Lloyd loop
 AUTO_LLOYD_MAX_WORK = 1 << 17
@@ -75,10 +83,6 @@ AUTO_LLOYD_MAX_WORK = 1 << 17
 
 def _backend_name(backend: str) -> str:
     backend = ALIASES.get(backend, backend)
-    if backend in NOT_PORTED:
-        raise NotImplementedError(
-            f"engine backend {backend!r} is not ported yet: "
-            f"{NOT_PORTED[backend]}")
     if backend not in BACKENDS + ("auto", "lloyd"):
         raise ValueError(f"unknown engine backend {backend!r}; expected "
                          f"one of {BACKENDS + ('auto', 'lloyd')} or "
@@ -149,6 +153,68 @@ def _bucket_cap(count: int, floor: int, ceil: int) -> int:
     return max(min(cap, ceil), min(floor, ceil))
 
 
+# --------------------------------------------------------------------------
+# the collective: identity locally, an all-reduce in the sharded fit
+# --------------------------------------------------------------------------
+
+def _all_reduce(x, op: str, group):
+    """``x`` reduced over ``group`` (``"sum"`` or ``"max"``), every
+    rank getting the same bits. Under ``gloo`` a CUDA tensor goes
+    through the host: the reduction runs on a CPU copy."""
+    import torch.distributed as dist
+    rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        host = x.cpu()
+        dist.all_reduce(host, op=rop, group=group)
+        return host.to(x.device)
+    out = x.clone()
+    dist.all_reduce(out, op=rop, group=group)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Reducer:
+    """Which collective joins the per-rank centroid partial sums and the
+    exit counters: the only thing that differs between the local fit
+    (``group=None``, the identity) and the sharded fit (a
+    ``torch.distributed`` process group, the ranks of one mesh axis).
+
+    ``compress=True`` int8-compresses the (K, D) partial sums only
+    (:meth:`sums`): each rank quantises its own sums with its own absmax
+    scale and the ranks all-reduce the dequantised fp32. Counts, evals
+    and inertia always reduce exactly (:meth:`add`)."""
+    group: object = None
+    compress: bool = False
+
+    @property
+    def is_local(self) -> bool:
+        return self.group is None
+
+    def sums(self, x):
+        """The (K, D) partial sums, SUM-reduced (int8 with
+        ``compress``; no error feedback: the relative error, about
+        1/127, corrects itself over the iterations)."""
+        if self.group is None:
+            return x
+        if self.compress:
+            from ..optim.compression import dequantize_int8, quantize_int8
+            x = dequantize_int8(*quantize_int8(x))
+        return _all_reduce(x, "sum", self.group)
+
+    def add(self, x):
+        """Exact SUM (counts, int64 eval counters, inertia)."""
+        return x if self.group is None else _all_reduce(x, "sum",
+                                                        self.group)
+
+    def max(self, x):
+        """MAX (candidate counts, group high-waters)."""
+        return x if self.group is None else _all_reduce(x, "max",
+                                                        self.group)
+
+
+LOCAL_REDUCER = Reducer()
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvergenceUpdate:
     """Batch-fit centroid rule: mean of the sums; an empty cluster keeps
@@ -212,12 +278,18 @@ class MoveOut(NamedTuple):
 # --------------------------------------------------------------------------
 
 def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
-                    k: int, n_groups: int, update=CONVERGENCE_UPDATE,
-                    counts=None, decay=None, weights=None, x2=None,
-                    refresh: bool = True) -> MoveOut:
+                    k: int, n_groups: int, reducer: Reducer = LOCAL_REDUCER,
+                    update=CONVERGENCE_UPDATE, counts=None, decay=None,
+                    weights=None, x2=None, refresh: bool = True) -> MoveOut:
     """Centroid move + triangle-inequality bound upkeep + the point-level
-    filter (local reduction only), shared by the batch drivers and the
+    filter, shared by the batch drivers, the sharded fit and the
     streaming step.
+
+    ``reducer`` joins the per-rank partial sums and counts right after
+    :func:`centroid_sums` (the identity locally), so the drift, ``shift``
+    and the new centroids are the same on every rank. A sentinel row of
+    an uneven sharded fit (assignment ``k``) drops out of the sums, and
+    its gathers read centroid ``k - 1``, as JAX clamps an index.
 
     ``update``: :data:`CONVERGENCE_UPDATE` (batch mean) or
     :data:`EMA_UPDATE` (the streaming EMA, which needs the carried
@@ -229,8 +301,12 @@ def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
     :func:`stream_bounds`) skips the own-distance refresh: the returned
     ``ub`` is the drift-inflated bound and ``need`` the *maybe* mask.
     ``tightened`` counts the *maybe* rows either way."""
-    a = assignments.long()
+    a = assignments.long().clamp_max(k - 1)
     sums, bcounts = centroid_sums(points, assignments, k, weights=weights)
+    if not reducer.is_local:
+        with phase("kpynq/reduce", points.is_cuda):
+            sums = reducer.sums(sums)
+            bcounts = reducer.add(bcounts)
     new_c, new_counts = update.apply(sums, bcounts, centroids, counts, decay)
     new_c2 = row_norms_sq(new_c)
     drift = torch.sqrt(torch.sum((new_c - centroids) ** 2, dim=-1))
@@ -268,7 +344,9 @@ def _finish_pass(best_d, best_id, lb_comp, assignments, ub_t, lb, groups,
     new_lb = torch.where(group_need, lb_comp, lb)
     # a point that left centroid b puts b back into its group's pool at
     # exact distance ub_t; a skipped group's decayed lb may exceed it
-    new_lb = min_at(new_lb, groups.long()[a],
+    # (a sentinel row's assignment K reads group K - 1 and changes
+    # nothing: it never changes)
+    new_lb = min_at(new_lb, groups.long()[a.clamp_max(groups.shape[0] - 1)],
                     torch.where(changed, ub_t, float("inf")))
     return new_assign.int(), new_ub, new_lb
 
@@ -286,7 +364,9 @@ def dense_candidate_pass(points, new_c, assignments, ub_t, lb, groups, need,
     best_d = torch.sqrt(best2)
     changed = best_d < ub_t
     new_a = torch.where(changed, best, assignments.long())
-    d_cand.scatter_(1, new_a[:, None], float("inf"))       # in place
+    # in place; a sentinel row (assignment K, no candidates) marks K - 1
+    d_cand.scatter_(1, new_a.clamp_max(d_cand.shape[1] - 1)[:, None],
+                    float("inf"))
     lb_comp = torch.sqrt(segment_min_cols(d_cand, groups, n_groups))
     out = _finish_pass(best_d, best, lb_comp, assignments, ub_t, lb, groups,
                        group_need)
@@ -341,7 +421,8 @@ def _dense_branch(cpts, new_c, c_as, c_ub, c_lb, gneed, n_rows, groups, *,
     chg = bd < c_ub
     nas = torch.where(chg, bid, c_as.long())
     nub = torch.minimum(c_ub, bd)
-    d_cand.scatter_(1, nas[:, None], float("inf"))         # in place
+    # in place; an invalid slot of assignment K marks K - 1 (dropped)
+    d_cand.scatter_(1, nas.clamp_max(k - 1)[:, None], float("inf"))
     lb_comp = torch.sqrt(segment_min_cols(d_cand, groups, n_groups))
     new_clb = torch.where(gneed, lb_comp, c_lb)
     return nas.int(), nub, new_clb, n_rows * k, chg
@@ -428,7 +509,7 @@ def compact_candidate_pass(points, new_c, assignments, ub_t, lb, groups,
     c_x2 = x2[idx] if x2 is not None else row_norms_sq(cpts)
     if refresh_ub:
         # invalid slots compute garbage that the scatter drops
-        a = c_as.long()
+        a = c_as.long().clamp_max(k - 1)
         c_ub = torch.sqrt(torch.clamp_min(
             c_x2 - 2.0 * torch.sum(cpts * new_c[a], dim=-1) + c2[a], 0.0))
     gneed = (c_lb < c_ub[:, None]) & valid[:, None]           # (cap, G)
@@ -450,7 +531,7 @@ def compact_candidate_pass(points, new_c, assignments, ub_t, lb, groups,
         nas, nub, new_clb, pairs, chg = _dense_branch(
             cpts, new_c, c_as, c_ub, c_lb, gneed, n_rows, groups,
             n_groups=n_groups, c_x2=c_x2, c2=c2)
-    new_clb = min_at(new_clb, groups.long()[c_as.long()],
+    new_clb = min_at(new_clb, groups.long()[c_as.long().clamp_max(k - 1)],
                      torch.where(chg, c_ub, float("inf")))
 
     # scatter the survivors back; invalid slots go to the spare row
@@ -458,6 +539,60 @@ def compact_candidate_pass(points, new_c, assignments, ub_t, lb, groups,
     return (_scatter_rows(assignments, rows, nas),
             _scatter_rows(ub_t, rows, nub),
             _scatter_rows(lb, rows, new_clb), pairs, gmax_t)
+
+
+def cap_ladders(n: int, n_groups: int, *, min_cap: int = 256,
+                max_branches: int = 12):
+    """The fixed (cap_n, cap_g) lattices of the ladder backend: the
+    engine's power-of-two lattice from ``min_cap`` up to the shard size
+    (resp. 1 up to ``n_groups``), coarsened until the product of their
+    lengths fits ``max_branches``: interior levels go first, then (only
+    under a budget too small for 2x2 ladders) the low ends. The top
+    levels are never dropped, so ``cap_ns[-1] == n`` and the mandatory
+    upshift of :func:`select_bucket` can always cover the candidates."""
+    n = max(int(n), 1)
+    n_groups = max(int(n_groups), 1)
+    cap_ns, c = [], min(_bucket_cap(min_cap, 1, n), n)
+    while c < n:
+        cap_ns.append(c)
+        c *= 2
+    cap_ns.append(n)
+    cap_gs, g = [], 1
+    while g < n_groups:
+        cap_gs.append(g)
+        g *= 2
+    cap_gs.append(n_groups)
+    while len(cap_ns) * len(cap_gs) > max(int(max_branches), 1):
+        if len(cap_gs) > 2 and len(cap_gs) >= len(cap_ns):
+            del cap_gs[len(cap_gs) // 2]
+        elif len(cap_ns) > 2:
+            del cap_ns[len(cap_ns) // 2]
+        elif len(cap_gs) > 1:
+            del cap_gs[0]
+        elif len(cap_ns) > 1:
+            del cap_ns[0]
+        else:
+            break
+    return tuple(cap_ns), tuple(cap_gs)
+
+
+def select_bucket(n_cand: int, gmax: int, level_n: int, level_g: int, *,
+                  cap_ns, cap_gs, down_n: int = 2, down_g: int = 4):
+    """A rank's next ``(level_n, level_g)`` on the ladder, on host ints
+    (the reference decides the same inside its traced loop). Upshifts
+    are mandatory the moment the pending candidate count (or the last
+    pass's surviving-group high-water) leaves its level; downshifts fire
+    only past the hysteresis ``down_n`` / ``down_g`` (0 disables that
+    axis), and never on ``gmax == 0``, which means no candidate was
+    seen, not that one group slot is enough."""
+    req_n = min(bisect.bisect_left(cap_ns, n_cand), len(cap_ns) - 1)
+    move = req_n > level_n or bool(
+        down_n and req_n < level_n and n_cand * down_n <= cap_ns[level_n])
+    req_g = min(bisect.bisect_left(cap_gs, max(gmax, 1)), len(cap_gs) - 1)
+    move_g = req_g > level_g or bool(
+        down_g and gmax > 0 and req_g < level_g
+        and gmax * down_g <= cap_gs[level_g])
+    return (req_n if move else level_n), (req_g if move_g else level_g)
 
 
 def pending_gmax(need, ub, lb):
@@ -513,8 +648,10 @@ class EngineStats:
     :data:`repro_torch.obs.ring.RING_COLUMNS`; final row = epilogue),
     ``init_evals`` the distance evals charged at filter-state init, so
     ``init_evals + ring[:, evals].sum() == result.distance_evals``
-    exactly. ``shard_rings`` and ``shard_skew`` belong to a sharded
-    driver (ROADMAP Queue 1 item 9) and stay None here."""
+    exactly. A sharded fit (:mod:`repro_torch.core.distributed`)
+    reduces the ranks' rings into ``ring`` and also keeps the gathered
+    per-rank ``shard_rings`` (S, R, C) and the per-iteration work skew
+    ``shard_skew``; they stay None on one device."""
     backend: str = ""
     n_iters: int = 0
     host_syncs: int = 0
@@ -571,14 +708,19 @@ class EngineStats:
 class PassCore:
     """The candidate-pass dispatch: the masked-dense oracle, the
     compact pass at the static ``cap_n``/``cap_g``, or the
-    ``grouped_assign`` kernel. ``_loop_body`` pairs it with
-    :func:`move_and_bounds`."""
+    ``grouped_assign`` kernel; the ``ladder`` backend is the compact
+    pass at a level of ``cap_ns`` x ``cap_gs`` (:meth:`at_level`).
+    ``_loop_body`` pairs it with :func:`move_and_bounds` through
+    ``reducer``."""
     backend: str
     k: int
     n_groups: int
+    reducer: Reducer = LOCAL_REDUCER
     tile_n: int = 256
     cap_n: int = 0                 # static caps (compact backend)
     cap_g: int = 0
+    cap_ns: tuple = ()             # capacity lattice (ladder backend)
+    cap_gs: tuple = ()
     chunk: int = 2048
     group_gather_factor: int = 4
     down_n: int = 2
@@ -606,7 +748,21 @@ class PassCore:
         """Where the own-distance refresh runs: in
         :func:`move_and_bounds` unless the compact backend places it on
         its survivor buffer."""
-        return not (self.backend == "compact" and self.refresh_in_pass)
+        return not (self.backend in ("compact", "ladder")
+                    and self.refresh_in_pass)
+
+    def at_level(self, level_n: int, level_g: int, l_max: int) -> "PassCore":
+        """The ladder's compact core at ``(cap_ns[level_n],
+        cap_gs[level_g])``, its group-gather decision taken by
+        :func:`use_groups_decision` for the table's ``l_max``, as the
+        reference decides it per branch."""
+        cap_n, cap_g = self.cap_ns[level_n], self.cap_gs[level_g]
+        return dataclasses.replace(
+            self, backend="compact", cap_n=cap_n, cap_g=cap_g, cap_ns=(),
+            cap_gs=(), use_groups=use_groups_decision(
+                cap_n=cap_n, cap_g=cap_g, l_max=l_max, k=self.k,
+                chunk=self.chunk,
+                group_gather_factor=self.group_gather_factor))
 
     def candidate_pass(self, points, centroids, assignments, ub, lb, need,
                        groups, members, gsize, *, x2, c2, gmax=None):
@@ -679,7 +835,8 @@ def _loop_body(core: PassCore, points, weights, groups, members, gsize):
         with phase("kpynq/move_and_bounds", on_card):
             mv = move_and_bounds(points, c.centroids, new_as, new_ub,
                                  new_lb, groups, k=core.k,
-                                 n_groups=core.n_groups, weights=weights,
+                                 n_groups=core.n_groups,
+                                 reducer=core.reducer, weights=weights,
                                  x2=c.x2, refresh=core.refresh_in_move)
             gmax_next = None
             if core.backend == "compact" and core.refresh_in_move:
@@ -733,19 +890,26 @@ def _loop_cond(*, max_iters: int, tol: float, core: PassCore | None = None,
 
 
 def _epilogue_pass(core: PassCore, points, weights, carry: EngineCarry,
-                   groups, members, gsize, gmax: int | None = None):
+                   groups, members, gsize, gmax: int | None = None,
+                   valid=None):
     """The final pending candidate pass + (weighted) inertia. Returns
-    ``(assignments, evals, inertia)``. With the ring on, its row
-    ``carry.iteration`` gets the epilogue pass's evals and, in the
-    inertia-proxy column, the EXACT inertia."""
+    ``(assignments, evals, inertia)``, the last two reduced through
+    ``core.reducer``. ``valid`` masks the sentinel rows of an uneven
+    sharded fit (assignment K: the gather reads K - 1, the cost is
+    zeroed). With the ring on, its row ``carry.iteration`` gets the
+    epilogue pass's evals and, in the inertia-proxy column, the EXACT
+    inertia (this rank's, before the reduction)."""
     on_card = points.is_cuda
     with phase("kpynq/candidate_pass", on_card):
         new_as, _, _, pairs, _ = core.candidate_pass(
             points, carry.centroids, carry.assignments, carry.ub, carry.lb,
             carry.need, groups, members, gsize, x2=carry.x2, c2=carry.c2,
             gmax=gmax)
-    d = rowwise_dists(points, carry.centroids[new_as.long()])
+    d = rowwise_dists(points,
+                      carry.centroids[new_as.long().clamp_max(core.k - 1)])
     d2 = d * d
+    if valid is not None:
+        d2 = torch.where(valid, d2, 0.0)
     if weights is not None:
         d2 = d2 * weights
     inertia = torch.sum(d2)
@@ -757,7 +921,8 @@ def _epilogue_pass(core: PassCore, points, weights, carry: EngineCarry,
                 n_cand=carry.need.sum(), gmax=carry.gmax,
                 shift=carry.shift, evals=pairs, inertia=inertia,
                 tightened=0.0)
-    return new_as, carry.evals + pairs, inertia
+    return (new_as, core.reducer.add(carry.evals + pairs),
+            core.reducer.add(inertia))
 
 
 def _init_carry(points, init_c, groups, *, n_groups: int,
@@ -876,6 +1041,70 @@ def _fit_compact(points, weights, carry: EngineCarry, groups, members, gsize,
     ecore = core_at(_bucket_cap(ex.n_cand, cap_floor, n),
                     _bucket_cap(ex.gmax, 1, n_groups), l_max)
     return carry, ecore, ex.gmax_next
+
+
+def fit_core(points, init_c, groups, members, gsize, *, core: PassCore,
+             max_iters: int, tol: float, weights=None, valid=None,
+             stats: EngineStats | None = None):
+    """The whole fit on one rank's rows, with no segments: init, the
+    loop of :func:`_loop_body` on the ``oracle`` (dense) or ``ladder``
+    core, and the epilogue, every reduction through ``core.reducer``
+    (the sharded fit's body; reference ``engine.fit_core``).
+
+    ``valid`` masks the sentinel rows that pad an uneven sharded fit:
+    they get assignment K (which drops out of every centroid sum),
+    ``ub`` 0 and ``lb`` +inf (so they never become candidates), and
+    their K initial distances are taken back out of the evals. The loop
+    exits on the iteration count and the REDUCED ``shift`` only, which
+    every rank holds in the same bits, so the ranks issue the same
+    collectives in the same order. The ladder level is each rank's own:
+    :func:`select_bucket` picks it on the host from the pending
+    candidate count and the last pass's ``gmax``, read in the
+    iteration's one exit transfer (:func:`_read_exit`) together with the
+    pending pass's ``gmax`` where the refresh ran in
+    :func:`move_and_bounds`; it never gates a collective.
+
+    Returns ``(centroids, assignments, n_iters, evals, inertia, ring)``:
+    ``evals`` and ``inertia`` reduced, ``assignments`` this rank's rows
+    (K at the sentinels), ``ring`` this rank's ``(core.ring_iters, C)``
+    telemetry ring or None. ``stats`` (optional) counts the host
+    syncs."""
+    k = core.k
+    carry = _init_carry(points, init_c, groups, n_groups=core.n_groups,
+                        ring_iters=core.ring_iters)
+    if valid is not None:
+        carry = carry._replace(
+            assignments=torch.where(valid, carry.assignments, k),
+            ub=torch.where(valid, carry.ub, 0.0),
+            lb=torch.where(valid[:, None], carry.lb, float("inf")),
+            evals=carry.evals - (~valid).sum() * k)
+    ladder = core.backend == "ladder"
+    l_max = int(members.shape[1])
+    level_n = level_g = 0
+    pcore = core.at_level(0, 0, l_max) if ladder else core
+    cond = _loop_cond(max_iters=max_iters, tol=tol)
+    # the first pending pass is empty: its gmax is 0
+    ex = _Exit(0, float("inf"), 0, 0, 0)
+    syncs = 0
+    while cond(ex.iteration, ex.shift):
+        syncs += pcore.reads_gmax(ex.gmax_next)
+        body = _loop_body(pcore, points, weights, groups, members, gsize)
+        carry = body(carry, ex.gmax_next)
+        ex = _read_exit(carry, core.live_drain)
+        syncs += 1
+        if ladder:
+            level_n, level_g = select_bucket(
+                ex.n_cand, ex.gmax, level_n, level_g, cap_ns=core.cap_ns,
+                cap_gs=core.cap_gs, down_n=core.down_n, down_g=core.down_g)
+            pcore = core.at_level(level_n, level_g, l_max)
+    syncs += pcore.reads_gmax(ex.gmax_next)
+    if stats is not None:
+        stats.host_syncs += syncs
+    assignments, evals, inertia = _epilogue_pass(
+        pcore, points, weights, carry, groups, members, gsize, ex.gmax_next,
+        valid=valid)
+    return (carry.centroids, assignments, carry.iteration, evals, inertia,
+            carry.ring)
 
 
 # --------------------------------------------------------------------------

@@ -44,9 +44,9 @@ index   column             semantics (per completed iteration)
 7       ``tightened``      own-distance refreshes spent this iteration
 ======  =================  ==============================================
 
-Per-shard rings (a sharded driver, ROADMAP Queue 1 item 9) stack along
-a leading shard axis, and :func:`reduce_shard_rings` produces the
-global view (sums for additive columns, maxima for high-waters and
+Per-shard rings (the sharded fit, :mod:`repro_torch.core.distributed`)
+stack along a leading shard axis, and :func:`reduce_shard_rings` produces
+the global view (sums for additive columns, maxima for high-waters and
 capacities).
 """
 from __future__ import annotations

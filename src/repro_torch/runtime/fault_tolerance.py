@@ -10,7 +10,7 @@
 * :class:`FailureInjector`: deterministic chaos for tests.
 
 ``ElasticController`` (re-targeting a checkpoint onto another mesh)
-belongs to the sharded drivers, ROADMAP Queue 1 item 9.
+belongs to the sharded drivers, ROADMAP Queue 1 item 9b.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..checkpoint.checkpoint import (ITEM_9, restore_checkpoint,
+from ..checkpoint.checkpoint import (ITEM_9B, restore_checkpoint,
                                      save_checkpoint, tree_flatten)
 
 
@@ -153,7 +153,7 @@ class ResilientLoop:
         if state_shardings is not None:
             raise NotImplementedError(
                 f"ResilientLoop.run(state_shardings=...) is not ported "
-                f"yet: {ITEM_9}")
+                f"yet: {ITEM_9B}")
         if start_step is not None:
             step = int(start_step)
         else:

@@ -45,7 +45,7 @@ restores the other's) through :mod:`repro_torch.checkpoint`;
 ``restore``/``restore_state`` bring it back and
 ``fit_stream(resilient=True)`` replays the deterministic stream after a
 failure (:mod:`repro_torch.streaming.resilient`). Not ported yet, and
-raising: the sharded step (``mesh=``; ROADMAP Queue 1 item 9).
+raising: the sharded step (``mesh=``; ROADMAP Queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -58,6 +58,7 @@ import torch
 
 from ..core import engine as _engine
 from ..core.api import NotFittedError
+from ..core.distributed import ITEM_9B
 from ..core.engine import PassCore, _bucket_cap
 from ..core.init import kmeans_plusplus, random_init
 from ..core.kmeans import group_centroids
@@ -66,7 +67,6 @@ from ..obs.metrics import normalize_obs
 from .state import (BoundCache, DriftLedger, ShardBounds, StreamStats,
                     inflate_bounds)
 
-ITEM_9 = "ROADMAP Queue 1 item 9 (the sharded drivers)"
 
 
 def _host_array(x) -> np.ndarray:
@@ -144,7 +144,7 @@ class StreamingKMeans:
                  mesh=None, mesh_axes=None, obs=None, device=None):
         if mesh is not None or mesh_axes is not None:
             raise NotImplementedError(
-                f"StreamingKMeans(mesh=...) is not ported yet: {ITEM_9}")
+                f"StreamingKMeans(mesh=...) is not ported yet: {ITEM_9B}")
         if init not in ("k-means++", "random"):
             raise ValueError(f"unknown init {init!r}")
         if not 0.0 < decay <= 1.0:
@@ -628,7 +628,7 @@ class StreamingKMeans:
         from a checkpoint, the package's own or the reference's. It is
         built with ``tune="off"`` and takes the checkpoint's
         ``min_bucket``, ``chunk`` and group-gather factor. Returns
-        ``(estimator, step)``. ``mesh=`` raises (item 9)."""
+        ``(estimator, step)``. ``mesh=`` raises (item 9b)."""
         from ..checkpoint.checkpoint import load_checkpoint_arrays
         got_step, manifest, leaves = load_checkpoint_arrays(
             ckpt_dir, step=step, fallback=fallback)

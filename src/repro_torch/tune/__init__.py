@@ -26,7 +26,7 @@ from .search import (autotune, candidate_backends, get_or_tune,
                      sharded_timing_measure, timing_measure)
 from .serve import (DEFAULT_SERVE_CONFIG, ServeConfig, autotune_serve,
                     lookup_serve, serve_signature)
-from .signature import _check_shards, platform_name, pow2_bucket, signature
+from .signature import platform_name, pow2_bucket, signature
 
 __all__ = [
     "EngineConfig", "DEFAULT_CONFIG", "TuneCache", "default_cache",
@@ -44,8 +44,7 @@ def lookup(*, n: int, k: int, d: int, platform: str | None = None,
     """Tuned config for a problem signature, or None on a cache miss.
     The (cheap, in-memory after the first disk read) call on
     ``engine.fit``'s path when ``tune != "off"``. ``shards > 1``
-    raises ``NotImplementedError`` (ROADMAP Queue 1 item 9)."""
-    _check_shards(shards)
+    queries the sharded engine's key (``n`` the per-shard count)."""
     if cache is None:
         cache = default_cache()
-    return cache.lookup(signature(n, k, d, platform))
+    return cache.lookup(signature(n, k, d, platform, shards=shards))

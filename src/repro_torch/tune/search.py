@@ -28,11 +28,12 @@ import time
 
 import torch
 
+from ..core.distributed import ITEM_9B
 from ..core.engine import EngineConfig
 from ..device import as_float32, resolve_device
 from ..obs.trace import span
 from .cache import TuneCache, default_cache
-from .signature import _check_shards, platform_name, signature
+from .signature import platform_name, signature
 
 # knob -> candidate lattice. Kept small on purpose: each point is a few
 # timed fits.
@@ -114,8 +115,7 @@ def timing_measure(points, init_c, *, n_groups=None, max_iters=50,
 
 def sharded_timing_measure(*args, **kwargs):
     raise NotImplementedError(
-        "sharded_timing_measure is not ported yet: ROADMAP Queue 1 item 9 "
-        "(the sharded drivers)")
+        f"sharded_timing_measure is not ported yet: {ITEM_9B}")
 
 
 def autotune(points, init_c, *, n_groups=None, max_iters: int = 50,
@@ -132,8 +132,11 @@ def autotune(points, init_c, *, n_groups=None, max_iters: int = 50,
     wall-clock measurement (tests use a stub); ``max_measurements``
     bounds the number of distinct configs measured. ``platform``
     defaults to the device's (:func:`platform_name`) and picks the
-    backend grid. ``shards > 1`` raises ``NotImplementedError``."""
-    _check_shards(shards)
+    backend grid. ``shards > 1`` (the measured sharded search) raises
+    ``NotImplementedError``: ROADMAP item 9b."""
+    if int(shards) > 1:
+        raise NotImplementedError(
+            f"autotune(shards > 1) is not ported yet: {ITEM_9B}")
     if platform is None:
         platform = platform_name(resolve_device(device))
     n, d = points.shape

@@ -8,6 +8,12 @@ N the capacity lattice, K the candidate pass's width, D the arithmetic
 intensity of every distance. N is bucketed to its power-of-two ceiling,
 the engine's own capacity lattice.
 
+The sharded engine adds a shard count (``shards=``): a capacity ladder
+tuned for one shard of an S-way fit pays an all-reduce an iteration and
+is not interchangeable with the single-device entry for the same
+per-shard N, so sharded winners are keyed apart as ``...|sS``, with
+``n`` the per-shard count. ``shards=1`` keeps the plain key.
+
 The platform part is the card's name from
 ``torch.cuda.get_device_name`` with spaces replaced by ``_`` (an H100 80GB
 HBM3 and an H100 PCIe tune apart), or ``cpu``. Every key of the port
@@ -38,18 +44,13 @@ def platform_name(device=None) -> str:
     return torch.cuda.get_device_name(device).strip().replace(" ", "_")
 
 
-def _check_shards(shards: int) -> None:
-    if int(shards) > 1:
-        raise NotImplementedError(
-            "sharded tuning keys (shards > 1) are not ported yet: ROADMAP "
-            "Queue 1 item 9 (the sharded drivers)")
-
-
 def signature(n: int, k: int, d: int, platform: str | None = None,
               shards: int = 1) -> str:
-    """Cache key for a (platform, N, K, D) problem class. ``shards > 1``
-    (the distributed engine's key) raises ``NotImplementedError``."""
-    _check_shards(shards)
+    """Cache key for a (platform, N, K, D[, shards]) problem class.
+    ``n`` is the PER-SHARD point count when ``shards > 1``."""
     if platform is None:
         platform = platform_name()
-    return f"{PREFIX}|{platform}|n{pow2_bucket(n)}|k{int(k)}|d{int(d)}"
+    sig = f"{PREFIX}|{platform}|n{pow2_bucket(n)}|k{int(k)}|d{int(d)}"
+    if int(shards) > 1:
+        sig += f"|s{int(shards)}"
+    return sig

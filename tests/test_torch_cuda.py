@@ -925,3 +925,54 @@ def test_serve_thread_makes_the_first_kernel_launch():
     words = out.stdout.split()
     assert int(words[words.index("mismatch") + 1]) <= 3
     assert int(words[words.index("caller") + 1]) <= 3
+
+
+@pytest.mark.cuda
+def test_sharded_fit_in_a_gloo_world_on_the_card():
+    """A world of 2 ``gloo`` ranks shares the card (NCCL takes one rank a
+    card) and runs a compact sharded fit; gloo adds the two ranks'
+    partial sums as one ``a + b``. Held bit for bit against the
+    single-device compact fit whose ``centroid_update`` sums the two
+    halves on the card apart and adds them so, and against the plain
+    single-device compact fit: the same ``n_iters`` within one, inertia
+    within 1e-5 and labels apart on at most 1e-3 of the points (another
+    summation order may part a fit, ROADMAP Queue 3 item 2)."""
+    _need_card()
+    import _torch_world
+    from repro_torch.core.distributed import spawn_world
+    pts, _, _ = make_points(8192, 16, 32, seed=5)
+    init = pts[:: 8192 // 32][:32].copy()
+    ranks = spawn_world(_torch_world.card_pair, 2, args=(pts, init),
+                        timeout=600)
+    got = ranks[0]
+    assert got["device"] == "cuda:0"
+    assert all(r["launches"] >= r["n_iters"] for r in ranks)
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["centroids"], got["centroids"])
+    kw = dict(backend="compact", tune="off", max_iters=40, tol=1e-5,
+              device="cuda")
+    n = len(pts)
+    kernel = kernels.centroid_update
+
+    def halves(points, labels, k, weights=None):
+        if points.shape[0] != n:            # group_centroids' calls
+            return kernel(points, labels, k, weights)
+        a = kernel(points[:n // 2].contiguous(), labels[:n // 2].contiguous(),
+                   k, None if weights is None else weights[:n // 2])
+        b = kernel(points[n // 2:].contiguous(), labels[n // 2:].contiguous(),
+                   k, None if weights is None else weights[n // 2:])
+        return a[0] + b[0], a[1] + b[1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kernels, "centroid_update", halves)
+        two = engine.fit(pts, init, **kw)
+    np.testing.assert_array_equal(got["assignments"],
+                                  two.assignments.cpu().numpy())
+    assert got["n_iters"] == two.n_iters
+    np.testing.assert_array_equal(got["centroids"],
+                                  two.centroids.cpu().numpy())
+    one = engine.fit(pts, init, **kw)
+    assert abs(got["n_iters"] - one.n_iters) <= 1
+    np.testing.assert_allclose(got["inertia"], float(one.inertia), rtol=1e-5)
+    assert (got["assignments"] != one.assignments.cpu().numpy()).mean() \
+        <= 1e-3

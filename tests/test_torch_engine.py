@@ -206,7 +206,11 @@ def test_backend_resolution():
     _, st = engine.fit(pts, init, backend="compact", max_iters=3,
                        device="cpu", return_stats=True)
     assert st.backend == "compact"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the ladder runs only inside the sharded fit: fit refuses it, as
+    # the reference's does
+    with pytest.raises(ValueError):
+        jengine.fit(pts, init, backend="ladder")
+    with pytest.raises(ValueError, match="ladder"):
         engine.fit(pts, init, backend="ladder", device="cpu")
     with pytest.raises(ValueError):
         engine.fit(pts, init, backend="nope", device="cpu")

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package, and ``chip_smoke.py``
-refuses to run where there is no card or no port beside it."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the ranks' side of the sharded tests
+(``tests/_torch_world.py``) imports JAX or the JAX package, and
+``chip_smoke.py`` refuses to run where there is no card or no port
+beside it."""
 import ast
 import os
 import shutil
@@ -12,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_world.py"]
 
 
 def _imports(path):
@@ -43,7 +45,8 @@ def test_import_leaves_jax_out():
                 "repro_torch.configs, repro_torch.train, "
                 "repro_torch.obs, repro_torch.tune, repro_torch.serve, "
                 "repro_torch.streaming, repro_torch.checkpoint, "
-                "repro_torch.runtime; "
+                "repro_torch.runtime, repro_torch.optim, "
+                "repro_torch.core.distributed; "
                 "assert 'jax' not in sys.modules, 'jax imported'; "
                 "assert not any(m == 'repro' or m.startswith('repro.') "
                 "for m in sys.modules), 'repro imported'; print('ok')"],

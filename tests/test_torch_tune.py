@@ -123,13 +123,20 @@ def test_ports_keys_never_match_jax_keys():
 
 
 def test_sharded_keys_raise_not_implemented():
+    # the sharded keys are the reference's (|sS, n per shard); the
+    # measured sharded search still raises, naming item 9b
     pts, init = _dataset(512, 8, 16)
-    for call in (lambda: tune.signature(512, 16, 8, "cpu", shards=4),
-                 lambda: tune.lookup(n=512, k=16, d=8, shards=4),
-                 lambda: tune.autotune(pts, init, shards=4, platform="cpu",
+    sig = tune.signature(512, 16, 8, "cpu", shards=4)
+    assert sig == "torch|cpu|n512|k16|d8|s4"
+    assert sig.split("|", 1)[1] == jtune.signature(512, 16, 8, "cpu",
+                                                   shards=4)
+    assert tune.signature(512, 16, 8, "cpu", shards=1) == \
+        "torch|cpu|n512|k16|d8"
+    assert tune.lookup(n=512, k=16, d=8, shards=4) is None
+    for call in (lambda: tune.autotune(pts, init, shards=4, platform="cpu",
                                        measure=lambda cfg: 1.0),
                  lambda: tune.sharded_timing_measure(pts, init, 4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
             call()
 
 
