@@ -1793,7 +1793,7 @@ def resilient_phase(dev, wrappers, pts_np, k, n_groups, yardstick,
 
 # -- phase 16: the sharded batch fit on torch.distributed --------------------
 
-SHARDED = dict(world=4, uneven=1_048_573, timeout=240, reps=50)
+SHARDED = dict(world=4, uneven=1_048_573, timeout=240)
 
 
 def sharded_rank(rank, world, job):
@@ -1801,14 +1801,15 @@ def sharded_rank(rank, world, job):
     on its share of the card): the fits ``job`` names, each timed with
     the card synchronised around it; the main path (the compact fit at
     uci-xlarge) with the kernels' counts reset just before and read just
-    after it; then one iteration's all-reduce payload (the (K, D) sums
-    and the (K,) counts through the fit's ``Reducer``) timed over
-    ``SHARDED["reps"]`` rounds. Returns rank 0's labels and centroids,
-    every rank's numbers."""
+    after it. The warm fits also time the fit's own all-reduces: each
+    call of ``engine._all_reduce`` (the ``Reducer``'s collective, the
+    host copies under gloo included) between two synchronisations of the
+    card, which its copy to the host makes anyway. That time includes
+    waiting for the slowest rank. Returns rank 0's labels and
+    centroids, every rank's numbers."""
     import torch
     import repro_torch.kernels as kernels
-    from repro_torch.core import distributed_yinyang, make_mesh
-    from repro_torch.core.engine import Reducer
+    from repro_torch.core import distributed_yinyang, engine, make_mesh
     dev = job["device"] or torch.device(
         "cuda", rank % torch.cuda.device_count())
     mesh = make_mesh(world)
@@ -1820,18 +1821,36 @@ def sharded_rank(rank, world, job):
             torch.cuda.synchronize(dev)
 
     out = {}
+    all_reduce = engine._all_reduce
+    spent = []
 
-    def fit(name, pts, init, count=False, **kw):
+    def timed_all_reduce(x, group):
+        sync()
+        t = time.perf_counter()
+        y = all_reduce(x, group)
+        sync()
+        spent.append(time.perf_counter() - t)
+        return y
+
+    def fit(name, pts, init, count=False, time_reduce=False, **kw):
         if count:
             reset_launches(wrappers)
+        spent.clear()
+        engine._all_reduce = timed_all_reduce if time_reduce else all_reduce
         sync()
         t0 = time.perf_counter()
-        r = distributed_yinyang(pts, init, mesh, device=job["device"], **kw)
-        sync()
+        try:
+            r = distributed_yinyang(pts, init, mesh, device=job["device"],
+                                    **kw)
+            sync()
+        finally:
+            engine._all_reduce = all_reduce
         res, st = r if kw.get("return_stats") else (r, None)
         e = dict(seconds=time.perf_counter() - t0, n_iters=res.n_iters,
                  evals=int(res.distance_evals), inertia=float(res.inertia),
                  device=str(res.centroids.device))
+        if time_reduce:
+            e.update(reduce_s=sum(spent), reduce_calls=len(spent))
         if count:
             e["launches"] = read_launches(wrappers)
         if st is not None:
@@ -1848,7 +1867,8 @@ def sharded_rank(rank, world, job):
         kw = dict(max_iters=XLARGE["max_iters"], tol=XLARGE["tol"])
         fit("compact", pts, init, count=True, backend="compact",
             return_stats=True, **kw)
-        fit("compact_warm", pts, init, backend="compact", **kw)
+        fit("compact_warm", pts, init, backend="compact", time_reduce=True,
+            **kw)
         fit("dense", pts, init, backend="dense", **kw)
         fit("uneven", pts[:job["uneven"]], init, backend="compact", **kw)
         fit("compress", pts, init, backend="compact", compress=True, **kw)
@@ -1861,22 +1881,11 @@ def sharded_rank(rank, world, job):
             **kw)
         # timed again warm: in the world of 1 the first fit is the
         # process's first (cuBLAS and the kernels' libraries load there)
-        fit("wide/warm", pts, init, backend="compact", **kw)
+        fit("wide/warm", pts, init, backend="compact", time_reduce=True,
+            **kw)
         fit("wide/dense", pts, init, backend="dense", **kw)
         fit("wide/ones", pts, init, backend="compact",
             sample_weight=np.ones(len(pts), np.float32), **kw)
-    k, d = job["payload"]
-    red = Reducer(group=mesh.get_group("data"))
-    sums = torch.zeros((k, d), device=dev)
-    counts = torch.zeros((k,), device=dev)
-    for timed in (False, True):
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(SHARDED["reps"] if timed else 3):
-            red.sums(sums)
-            red.add(counts)
-        sync()
-    out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3 / SHARDED["reps"]
     return out
 
 
@@ -1931,8 +1940,7 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
     w_s = time.perf_counter() - t0
     del wpts
     job = dict(device=rank_device, xlarge=xl_path, xlarge_init=init_np,
-               uneven=uneven, wide=wide_path, wide_init=winit_np,
-               payload=(k, d))
+               uneven=uneven, wide=wide_path, wide_init=winit_np)
     t0 = time.perf_counter()
     ranks = spawn_world(sharded_rank, world, args=(job,),
                         timeout=SHARDED["timeout"])
@@ -1992,12 +2000,16 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
           "phase 16: compressed inertia beyond 1% of the fit's")
     skew = np.asarray(main["shard_skew"])
     ms_iter = got["compact_warm"]["seconds"] * 1e3 / (main["n_iters"] + 1)
-    ar_ms = max(r["all_reduce_ms"] for r in ranks)
-    log(f"phase 16 all-reduce of one iteration's payload (K={k}, D={d}: "
-        f"sums and counts): {ar_ms:.3f} ms (worst rank), against "
-        f"{ms_iter:.3f} ms an iteration of the warm fit "
-        f"({ar_ms / ms_iter:.1%}); shard_skew mean {skew.mean():.4f} max "
-        f"{skew.max():.4f}")
+    warm = [r["compact_warm"] for r in ranks]
+    share = [w["reduce_s"] / w["seconds"] for w in warm]
+    ar_ms = max(w["reduce_s"] for w in warm) * 1e3 / (main["n_iters"] + 1)
+    log(f"phase 16 the warm fit's own all-reduces (sums and counts each "
+        f"iteration, evals and inertia at the end; "
+        f"{warm[0]['reduce_calls']} calls a rank): {ar_ms:.3f} ms an "
+        f"iteration on the slowest rank, against {ms_iter:.3f} ms an "
+        f"iteration of the fit; share of the fit per rank "
+        f"{', '.join(f'{s:.1%}' for s in share)}; shard_skew mean "
+        f"{skew.mean():.4f} max {skew.max():.4f}")
     launches = {nm: sum(r["compact"]["launches"][nm] for r in ranks)
                 for nm in ("grouped_assign", "centroid_update")}
     check(launches["centroid_update"] >= world * main["n_iters"],
@@ -2013,7 +2025,8 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
         uneven=dict(n=uneven, labels_apart=u_apart, n_iters=un["n_iters"]),
         compress_inertia_ratio=cz["inertia"] / main["inertia"],
         shard_skew_mean=float(skew.mean()), shard_skew_max=float(skew.max())),
-        all_reduce_ms=ar_ms, iteration_ms=ms_iter, launches=launches)
+        all_reduce_ms=ar_ms, all_reduce_share=share, iteration_ms=ms_iter,
+        launches=launches)
 
     # (b) uci-wide in the same world
     wc = got["wide/compact"]
@@ -2021,6 +2034,8 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
     same_bits(wc, got["wide/dense"], "compact and dense (uci-wide)")
     same_bits(wc, got["wide/ones"], "weights of 1.0 and none (uci-wide)")
     w_labels = w_fit.assignments.cpu().numpy()
+    wide_share = max(r["wide/warm"]["reduce_s"] / r["wide/warm"]["seconds"]
+                     for r in ranks)
     check(np.array_equal(wc["labels"], w_labels) and
           wc["n_iters"] == w_fit.n_iters,
           "phase 16: uci-wide labels or n_iters differ from the "
@@ -2029,13 +2044,15 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
         f"{got['wide/warm']['seconds']:.3f} s warm (single-device compact "
         f"{w_s:.3f} s), n_iters {wc['n_iters']}, "
         f"labels equal, distance_evals {wc['evals']} / "
-        f"{int(w_fit.distance_evals)}, host_syncs {wc['host_syncs']}")
+        f"{int(w_fit.distance_evals)}, host_syncs {wc['host_syncs']}, the "
+        f"warm fit's all-reduces {wide_share:.1%} of it (slowest rank)")
     rep["wide"] = dict(seconds=got["wide/warm"]["seconds"], single_s=w_s,
                        n_iters=wc["n_iters"], evals=wc["evals"],
-                       single_evals=int(w_fit.distance_evals))
+                       single_evals=int(w_fit.distance_evals),
+                       all_reduce_share=wide_share)
 
     # (c) a world of 1 at uci-wide, over NCCL
-    job1 = dict(job, payload=(winit_np.shape[0], winit_np.shape[1]))
+    job1 = dict(job)
     del job1["xlarge"]
     t0 = time.perf_counter()
     one = spawn_world(sharded_rank, 1, args=(job1,),
@@ -2044,6 +2061,7 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
     one_world_s = time.perf_counter() - t0
     o = one["wide/compact"]
     o_s = one["wide/warm"]["seconds"]
+    one_reduce_s = one["wide/warm"]["reduce_s"]
     cents_equal = bool(np.array_equal(o["centroids"],
                                       w_fit.centroids.cpu().numpy()))
     log(f"phase 16 (c) world of 1 over {'NCCL' if nccl else 'gloo'} at "
@@ -2052,7 +2070,8 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
         f"{one_world_s:.1f} s), "
         f"n_iters {o['n_iters']}, distance_evals {o['evals']} / "
         f"{int(w_fit.distance_evals)}, centroids bit for bit: {cents_equal}"
-        f", all-reduce {one['all_reduce_ms']:.3f} ms")
+        f", the warm fit's all-reduces {one_reduce_s * 1e3:.3f} ms in all "
+        f"({one_reduce_s / o_s:.1%} of it)")
     check(np.array_equal(o["labels"], w_labels)
           and o["n_iters"] == w_fit.n_iters
           and o["evals"] == int(w_fit.distance_evals),
@@ -2063,7 +2082,7 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
     rep["one"] = dict(backend="nccl" if nccl else "gloo",
                       seconds=o_s, first_s=o["seconds"],
                       world_seconds=one_world_s,
-                      all_reduce_ms=one["all_reduce_ms"])
+                      all_reduce_s=one_reduce_s)
     return rep
 
 

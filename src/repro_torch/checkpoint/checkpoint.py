@@ -43,7 +43,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..core.distributed import ITEM_9B
+from .._unported import ITEM_9B
 from ..device import resolve_device
 
 

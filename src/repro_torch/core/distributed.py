@@ -32,8 +32,9 @@ Both sharded fits are thin wrappers over the engine's
 ``compress=True`` int8-compresses the (K, D) partial sums only; counts,
 weights and scalars stay exact. ``sample_weight`` shards with the
 points. Uneven N is padded to the shard lattice with sentinel rows
-(assignment K, ``ub`` 0, ``lb`` +inf, weight 0), which drop out of
-every centroid sum and are never candidates.
+(weight 0, ``ub`` 0, ``lb`` +inf: see :func:`~repro_torch.core.engine.
+fit_core`), which add nothing to any centroid sum and are never
+candidates.
 
 The mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh``
 (:func:`make_mesh`); the reductions run over ``mesh.get_group(axis)``.
@@ -54,16 +55,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .._unported import ITEM_9B
 from ..device import as_float32, resolve_device
 from ..obs import ring as _obs_ring
 from ..obs.metrics import normalize_obs
 from .engine import (DEFAULT_CONFIG, EngineConfig, EngineStats, PassCore,
                      Reducer, build_group_tables, cap_ladders, fit_core)
 from .kmeans import KMeansResult, group_centroids
-
-ITEM_9B = ("ROADMAP Queue 1 item 9b (the sharded stream steps, the sharded "
-           "tuning search and ElasticController)")
-
 
 def _reducer(mesh, axes, compress: bool) -> Reducer:
     return Reducer(group=mesh.get_group(_axis(mesh, axes)),
@@ -345,7 +343,8 @@ def distributed_yinyang(points, init_centroids, mesh,
             mesh, axes, k, n_groups, int(max_iters), float(tol),
             shard_n=shard_n, compress=compress, config=cfg,
             max_branches=int(max_branches), ring_iters=ring_iters)
-        valid = torch.from_numpy(valid_np).to(dev)
+        valid = None if valid_np.all() else \
+            torch.from_numpy(valid_np).to(dev)
         c, a, i, evals, inertia, ring = fit_sharded(
             local, valid, init_c, groups, members, gsize, weights, stats)
     result = KMeansResult(c, _gather(a, group, shards)[:n], i, evals,
@@ -388,12 +387,12 @@ def _resolve_sharded_config(*, shard_n, k, d, shards, config, tune,
 # --------------------------------------------------------------------------
 
 def _world_entry(rank, fn, world_size, backend, init_method, timeout,
-                 outdir, threads):
+                 outdir):
     import torch.distributed as dist
     with open(os.path.join(outdir, "args.pkl"), "rb") as fh:
         args = pickle.load(fh)
-    if threads:
-        torch.set_num_threads(threads)
+    # the ranks share the machine's cores
+    torch.set_num_threads(1)
     if backend == "nccl":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method,
@@ -408,7 +407,7 @@ def _world_entry(rank, fn, world_size, backend, init_method, timeout,
 
 
 def spawn_world(fn, world_size: int, *, args=(), backend: str = "gloo",
-                timeout: float = 600.0, threads: int | None = 1) -> list:
+                timeout: float = 600.0) -> list:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` fresh
     processes (the ``spawn`` start method) joined by
     ``init_process_group(backend)`` over a file store in a temporary
@@ -416,9 +415,8 @@ def spawn_world(fn, world_size: int, *, args=(), backend: str = "gloo",
     timeout. ``fn`` must be importable by name (a module-level
     function); ``args`` reach the ranks, and each rank's return value
     comes back, through files (a large payload through the spawn pipe
-    would start the ranks one after another).
-    ``threads`` sets each rank's ``torch.set_num_threads`` (None leaves
-    it). Over ``nccl`` rank r takes card ``r % count``.
+    would start the ranks one after another). Each rank runs one CPU
+    thread; over ``nccl`` rank r takes card ``r % count``.
 
     Returns the ranks' return values in rank order. A rank that raises
     or dies, or a world still running after ``timeout`` seconds, stops
@@ -429,8 +427,7 @@ def spawn_world(fn, world_size: int, *, args=(), backend: str = "gloo",
         with open(os.path.join(tmp, "args.pkl"), "wb") as fh:
             pickle.dump(tuple(args), fh)
         ctx = mp.start_processes(
-            _world_entry, args=(fn, world_size, backend, init, timeout, tmp,
-                                threads),
+            _world_entry, args=(fn, world_size, backend, init, timeout, tmp),
             nprocs=world_size, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:

@@ -157,18 +157,17 @@ def _bucket_cap(count: int, floor: int, ceil: int) -> int:
 # the collective: identity locally, an all-reduce in the sharded fit
 # --------------------------------------------------------------------------
 
-def _all_reduce(x, op: str, group):
-    """``x`` reduced over ``group`` (``"sum"`` or ``"max"``), every
-    rank getting the same bits. Under ``gloo`` a CUDA tensor goes
-    through the host: the reduction runs on a CPU copy."""
+def _all_reduce(x, group):
+    """``x`` SUM-reduced over ``group``, every rank getting the same
+    bits. Under ``gloo`` a CUDA tensor goes through the host: the
+    reduction runs on a CPU copy."""
     import torch.distributed as dist
-    rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
     if x.is_cuda and dist.get_backend(group) == "gloo":
         host = x.cpu()
-        dist.all_reduce(host, op=rop, group=group)
+        dist.all_reduce(host, group=group)
         return host.to(x.device)
     out = x.clone()
-    dist.all_reduce(out, op=rop, group=group)
+    dist.all_reduce(out, group=group)
     return out
 
 
@@ -199,17 +198,11 @@ class Reducer:
         if self.compress:
             from ..optim.compression import dequantize_int8, quantize_int8
             x = dequantize_int8(*quantize_int8(x))
-        return _all_reduce(x, "sum", self.group)
+        return _all_reduce(x, self.group)
 
     def add(self, x):
         """Exact SUM (counts, int64 eval counters, inertia)."""
-        return x if self.group is None else _all_reduce(x, "sum",
-                                                        self.group)
-
-    def max(self, x):
-        """MAX (candidate counts, group high-waters)."""
-        return x if self.group is None else _all_reduce(x, "max",
-                                                        self.group)
+        return x if self.group is None else _all_reduce(x, self.group)
 
 
 LOCAL_REDUCER = Reducer()
@@ -287,9 +280,7 @@ def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
 
     ``reducer`` joins the per-rank partial sums and counts right after
     :func:`centroid_sums` (the identity locally), so the drift, ``shift``
-    and the new centroids are the same on every rank. A sentinel row of
-    an uneven sharded fit (assignment ``k``) drops out of the sums, and
-    its gathers read centroid ``k - 1``, as JAX clamps an index.
+    and the new centroids are the same on every rank.
 
     ``update``: :data:`CONVERGENCE_UPDATE` (batch mean) or
     :data:`EMA_UPDATE` (the streaming EMA, which needs the carried
@@ -301,7 +292,7 @@ def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
     :func:`stream_bounds`) skips the own-distance refresh: the returned
     ``ub`` is the drift-inflated bound and ``need`` the *maybe* mask.
     ``tightened`` counts the *maybe* rows either way."""
-    a = assignments.long().clamp_max(k - 1)
+    a = assignments.long()
     sums, bcounts = centroid_sums(points, assignments, k, weights=weights)
     if not reducer.is_local:
         with phase("kpynq/reduce", points.is_cuda):
@@ -333,6 +324,22 @@ def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
                    maybe.sum(), drift, group_drift, bcounts)
 
 
+def _left_at(changed, new_assign, old_assign, ub_t):
+    """The bound a point that left centroid b puts back into b's group's
+    pool: its exact distance ``ub_t`` to b (a skipped group's decayed
+    ``lb`` may exceed it), +inf where the point stayed.
+
+    The reference caps wherever ``changed`` (``best_d < ub_t``). That
+    also fires where the best candidate is the point's own centroid and
+    the pass's product rounds its distance below the refresh's: the cap
+    then pins the own group's bound at the point's own distance, and the
+    point stays a candidate for the rest of the fit. Here the cap needs
+    the point to have moved, which in exact arithmetic is what
+    ``changed`` means (ROADMAP Queue 3 item 1)."""
+    moved = changed & (new_assign != old_assign)
+    return torch.where(moved, ub_t, float("inf"))
+
+
 def _finish_pass(best_d, best_id, lb_comp, assignments, ub_t, lb, groups,
                  group_need):
     """The candidate passes' shared tail: reassign, tighten ``ub``,
@@ -342,12 +349,8 @@ def _finish_pass(best_d, best_id, lb_comp, assignments, ub_t, lb, groups,
     new_assign = torch.where(changed, best_id.long(), a)
     new_ub = torch.minimum(ub_t, best_d)
     new_lb = torch.where(group_need, lb_comp, lb)
-    # a point that left centroid b puts b back into its group's pool at
-    # exact distance ub_t; a skipped group's decayed lb may exceed it
-    # (a sentinel row's assignment K reads group K - 1 and changes
-    # nothing: it never changes)
-    new_lb = min_at(new_lb, groups.long()[a.clamp_max(groups.shape[0] - 1)],
-                    torch.where(changed, ub_t, float("inf")))
+    new_lb = min_at(new_lb, groups.long()[a],
+                    _left_at(changed, new_assign, a, ub_t))
     return new_assign.int(), new_ub, new_lb
 
 
@@ -364,9 +367,7 @@ def dense_candidate_pass(points, new_c, assignments, ub_t, lb, groups, need,
     best_d = torch.sqrt(best2)
     changed = best_d < ub_t
     new_a = torch.where(changed, best, assignments.long())
-    # in place; a sentinel row (assignment K, no candidates) marks K - 1
-    d_cand.scatter_(1, new_a.clamp_max(d_cand.shape[1] - 1)[:, None],
-                    float("inf"))
+    d_cand.scatter_(1, new_a[:, None], float("inf"))            # in place
     lb_comp = torch.sqrt(segment_min_cols(d_cand, groups, n_groups))
     out = _finish_pass(best_d, best, lb_comp, assignments, ub_t, lb, groups,
                        group_need)
@@ -421,8 +422,7 @@ def _dense_branch(cpts, new_c, c_as, c_ub, c_lb, gneed, n_rows, groups, *,
     chg = bd < c_ub
     nas = torch.where(chg, bid, c_as.long())
     nub = torch.minimum(c_ub, bd)
-    # in place; an invalid slot of assignment K marks K - 1 (dropped)
-    d_cand.scatter_(1, nas.clamp_max(k - 1)[:, None], float("inf"))
+    d_cand.scatter_(1, nas[:, None], float("inf"))               # in place
     lb_comp = torch.sqrt(segment_min_cols(d_cand, groups, n_groups))
     new_clb = torch.where(gneed, lb_comp, c_lb)
     return nas.int(), nub, new_clb, n_rows * k, chg
@@ -509,7 +509,7 @@ def compact_candidate_pass(points, new_c, assignments, ub_t, lb, groups,
     c_x2 = x2[idx] if x2 is not None else row_norms_sq(cpts)
     if refresh_ub:
         # invalid slots compute garbage that the scatter drops
-        a = c_as.long().clamp_max(k - 1)
+        a = c_as.long()
         c_ub = torch.sqrt(torch.clamp_min(
             c_x2 - 2.0 * torch.sum(cpts * new_c[a], dim=-1) + c2[a], 0.0))
     gneed = (c_lb < c_ub[:, None]) & valid[:, None]           # (cap, G)
@@ -531,8 +531,8 @@ def compact_candidate_pass(points, new_c, assignments, ub_t, lb, groups,
         nas, nub, new_clb, pairs, chg = _dense_branch(
             cpts, new_c, c_as, c_ub, c_lb, gneed, n_rows, groups,
             n_groups=n_groups, c_x2=c_x2, c2=c2)
-    new_clb = min_at(new_clb, groups.long()[c_as.long().clamp_max(k - 1)],
-                     torch.where(chg, c_ub, float("inf")))
+    new_clb = min_at(new_clb, groups.long()[c_as.long()],
+                     _left_at(chg, nas, c_as, c_ub))
 
     # scatter the survivors back; invalid slots go to the spare row
     rows = torch.where(valid, idx, n)
@@ -890,13 +890,10 @@ def _loop_cond(*, max_iters: int, tol: float, core: PassCore | None = None,
 
 
 def _epilogue_pass(core: PassCore, points, weights, carry: EngineCarry,
-                   groups, members, gsize, gmax: int | None = None,
-                   valid=None):
+                   groups, members, gsize, gmax: int | None = None):
     """The final pending candidate pass + (weighted) inertia. Returns
     ``(assignments, evals, inertia)``, the last two reduced through
-    ``core.reducer``. ``valid`` masks the sentinel rows of an uneven
-    sharded fit (assignment K: the gather reads K - 1, the cost is
-    zeroed). With the ring on, its row ``carry.iteration`` gets the
+    ``core.reducer``. With the ring on, its row ``carry.iteration`` gets the
     epilogue pass's evals and, in the inertia-proxy column, the EXACT
     inertia (this rank's, before the reduction)."""
     on_card = points.is_cuda
@@ -905,11 +902,8 @@ def _epilogue_pass(core: PassCore, points, weights, carry: EngineCarry,
             points, carry.centroids, carry.assignments, carry.ub, carry.lb,
             carry.need, groups, members, gsize, x2=carry.x2, c2=carry.c2,
             gmax=gmax)
-    d = rowwise_dists(points,
-                      carry.centroids[new_as.long().clamp_max(core.k - 1)])
+    d = rowwise_dists(points, carry.centroids[new_as.long()])
     d2 = d * d
-    if valid is not None:
-        d2 = torch.where(valid, d2, 0.0)
     if weights is not None:
         d2 = d2 * weights
     inertia = torch.sum(d2)
@@ -1052,9 +1046,11 @@ def fit_core(points, init_c, groups, members, gsize, *, core: PassCore,
     (the sharded fit's body; reference ``engine.fit_core``).
 
     ``valid`` masks the sentinel rows that pad an uneven sharded fit:
-    they get assignment K (which drops out of every centroid sum),
-    ``ub`` 0 and ``lb`` +inf (so they never become candidates), and
-    their K initial distances are taken back out of the evals. The loop
+    they carry assignment K - 1 (the centroid JAX's clamped gathers read
+    for its sentinel label K) with weight 0, so they add nothing to any
+    sum, count or cost, and ``ub`` 0 and ``lb`` +inf, so they never
+    become candidates; their K initial distances are taken back out of
+    the evals, and they leave with assignment K, as JAX's do. The loop
     exits on the iteration count and the REDUCED ``shift`` only, which
     every rank holds in the same bits, so the ranks issue the same
     collectives in the same order. The ladder level is each rank's own:
@@ -1074,10 +1070,12 @@ def fit_core(points, init_c, groups, members, gsize, *, core: PassCore,
                         ring_iters=core.ring_iters)
     if valid is not None:
         carry = carry._replace(
-            assignments=torch.where(valid, carry.assignments, k),
+            assignments=torch.where(valid, carry.assignments, k - 1).int(),
             ub=torch.where(valid, carry.ub, 0.0),
             lb=torch.where(valid[:, None], carry.lb, float("inf")),
             evals=carry.evals - (~valid).sum() * k)
+        weights = valid.float() if weights is None else \
+            torch.where(valid, weights, 0.0)
     ladder = core.backend == "ladder"
     l_max = int(members.shape[1])
     level_n = level_g = 0
@@ -1101,8 +1099,9 @@ def fit_core(points, init_c, groups, members, gsize, *, core: PassCore,
     if stats is not None:
         stats.host_syncs += syncs
     assignments, evals, inertia = _epilogue_pass(
-        pcore, points, weights, carry, groups, members, gsize, ex.gmax_next,
-        valid=valid)
+        pcore, points, weights, carry, groups, members, gsize, ex.gmax_next)
+    if valid is not None:
+        assignments = torch.where(valid, assignments, k).int()
     return (carry.centroids, assignments, carry.iteration, evals, inertia,
             carry.ring)
 

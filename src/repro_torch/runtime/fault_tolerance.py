@@ -21,8 +21,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..checkpoint.checkpoint import (ITEM_9B, restore_checkpoint,
-                                     save_checkpoint, tree_flatten)
+from .._unported import ITEM_9B
+from ..checkpoint.checkpoint import (restore_checkpoint, save_checkpoint,
+                                     tree_flatten)
 
 
 class InjectedFailure(RuntimeError):

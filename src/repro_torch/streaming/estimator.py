@@ -56,9 +56,9 @@ import time
 import numpy as np
 import torch
 
+from .._unported import ITEM_9B
 from ..core import engine as _engine
 from ..core.api import NotFittedError
-from ..core.distributed import ITEM_9B
 from ..core.engine import PassCore, _bucket_cap
 from ..core.init import kmeans_plusplus, random_init
 from ..core.kmeans import group_centroids

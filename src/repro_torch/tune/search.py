@@ -28,7 +28,7 @@ import time
 
 import torch
 
-from ..core.distributed import ITEM_9B
+from .._unported import ITEM_9B
 from ..core.engine import EngineConfig
 from ..device import as_float32, resolve_device
 from ..obs.trace import span

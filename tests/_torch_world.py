@@ -128,3 +128,23 @@ def card_pair(rank, world, pts, init):
     out["device"] = str(r.centroids.device)
     out["launches"] = cu.centroid_update.launches - before
     return out
+
+
+def failing_rank(rank, world, pid_dir):
+    """Records its pid; rank 1 raises while rank 0 waits in a barrier
+    that rank 1 never reaches."""
+    import torch.distributed as dist
+    with open(os.path.join(pid_dir, f"pid{rank}"), "w") as fh:
+        fh.write(str(os.getpid()))
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    dist.barrier()
+
+
+def late_rank(rank, world, pid_dir):
+    """Records its pid and sleeps far past any deadline a test sets,
+    outside every collective."""
+    import time
+    with open(os.path.join(pid_dir, f"pid{rank}"), "w") as fh:
+        fh.write(str(os.getpid()))
+    time.sleep(120)

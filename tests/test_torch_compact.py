@@ -13,8 +13,10 @@ What must agree, and how closely:
 * labels and ``n_iters``: exactly;
 * inertia: rtol 1e-5 (sums in another order than XLA's);
 * ``distance_evals``: exactly for one pass on the same inputs, rtol
-  5e-2 over a whole fit (ROADMAP Queue 3 item 1), exactly where no
-  filter decision compares two roundings of one distance (the
+  5e-2 over a whole fit (ROADMAP Queue 3 item 1: that fit runs the
+  port with the reference's cap rule, and the port as it is is held to
+  it bit for bit with no more evals, ``tests/_torch_cap.py``), exactly
+  where no filter decision compares two roundings of one distance (the
   zero-candidate fit);
 * ``caps_history`` and the group-gather decisions: exactly, in every
   whole-fit case here. These are the cases where the per-iteration
@@ -45,6 +47,7 @@ from repro_torch.core import engine, kmeans
 from repro_torch.core.api import KMeans
 from repro_torch.core.compact import yinyang_compact
 from test_torch_engine import assert_pass_bounds
+from _torch_cap import assert_same_fit_less_work, reference_cap
 
 EVALS_RTOL = 5e-2
 SHAPES = [               # tests/test_engine.py's, plus D=33
@@ -104,10 +107,15 @@ def _assert_same_buckets(s_t, s_j):
 @pytest.mark.parametrize("n,d,k,g", SHAPES)
 def test_compact_fit_matches_jax(n, d, k, g, refresh_in_pass):
     pts, init = _dataset(n, d, k)
-    r_t, s_t, r_j, s_j = _fits(pts, init, refresh_in_pass, n_groups=g,
-                               max_iters=50, tol=1e-5, min_cap=64)
-    _assert_parity(r_t, r_j)
-    _assert_same_buckets(s_t, s_j)
+    kw = dict(n_groups=g, max_iters=50, tol=1e-5, min_cap=64)
+    with reference_cap():
+        r_ref, s_ref, r_j, s_j = _fits(pts, init, refresh_in_pass, **kw)
+    _assert_parity(r_ref, r_j)
+    _assert_same_buckets(s_ref, s_j)
+    r_t, s_t = engine.fit(
+        pts, init, backend="compact", device="cpu", return_stats=True,
+        config=engine.EngineConfig(refresh_in_pass=refresh_in_pass), **kw)
+    assert_same_fit_less_work(r_t, r_ref)
     # one read of the exit scalars per iteration and the group table;
     # with the refresh in the pass, one gmax read per pass that may take
     # the group branch

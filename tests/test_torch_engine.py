@@ -17,9 +17,12 @@ What must agree, and how closely:
   distance with the own-distance refresh, two roundings of one number
   when the best candidate is the current centroid, and a True caps that
   group's lower bound, which changes later filter decisions. Another
-  summation order flips some of these (ROADMAP, Queue 3). The Lloyd loop
-  and the zero-candidate fits have no such comparison and match
-  exactly.
+  summation order flips some of these (ROADMAP, Queue 3 item 1). The
+  port caps only where the point moved, so a whole fit runs twice
+  (``tests/_torch_cap.py``): with the reference's rule, held to JAX as
+  above, and as it is, the same fit bit for bit with no more evals. The
+  Lloyd loop and the zero-candidate fits have no such comparison and
+  match exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -33,6 +36,7 @@ from repro.core import kmeans_plusplus
 from repro.data import make_points
 from repro_torch.core import engine, kmeans
 from repro_torch.data import make_points as torch_make_points
+from _torch_cap import assert_same_fit_less_work, reference_cap
 
 BACKENDS = [("oracle", "oracle"), ("pallas", "kernel"), ("lloyd", "lloyd")]
 SHAPES = [               # tests/test_engine.py's, plus D=33
@@ -80,9 +84,12 @@ def test_engine_fit_matches_jax(jb, tb, n, d, k, g):
     r_j = jengine.fit(jnp.asarray(pts), jnp.asarray(init), n_groups=g,
                       max_iters=50, tol=1e-5, backend=jb, tune="off",
                       interpret=True)
-    r_t, stats = engine.fit(pts, init, n_groups=g, max_iters=50, tol=1e-5,
-                            backend=tb, device="cpu", return_stats=True)
-    _assert_parity(r_t, r_j, exact_evals=tb == "lloyd")
+    kw = dict(n_groups=g, max_iters=50, tol=1e-5, backend=tb, device="cpu")
+    with reference_cap():
+        r_ref = engine.fit(pts, init, **kw)
+    _assert_parity(r_ref, r_j, exact_evals=tb == "lloyd")
+    r_t, stats = engine.fit(pts, init, return_stats=True, **kw)
+    assert_same_fit_less_work(r_t, r_ref)
     assert stats.backend == tb
     # group table fetch + one shift read per iteration (lloyd: per iter)
     assert stats.host_syncs == r_t.n_iters + (tb != "lloyd")

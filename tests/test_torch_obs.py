@@ -15,8 +15,9 @@ What must agree, and how closely:
   1e-6), ``cap_n`` and ``cap_g`` exactly; the ``n_cand`` and ``evals``
   columns' totals within rtol 5e-2, the rtol
   ``test_engine_fit_matches_jax`` holds ``distance_evals`` to (ROADMAP
-  Queue 3 item 1: the ``best_d < ub_t`` rounding), and their first row
-  exactly; the final row's exact inertia to rtol 1e-5. Row by row the
+  Queue 3 item 1: the ``best_d < ub_t`` rounding; the port runs with
+  the reference's cap rule there, ``tests/_torch_cap.py``), and their
+  first row exactly; the final row's exact inertia to rtol 1e-5. Row by row the
   filtered backends' counts part further, because a row holds a few
   dozen points and one flipped lower bound moves it: at
   ``make_points(2000, 10, 16, seed=3)`` a row's ``evals`` differs by up
@@ -38,6 +39,7 @@ from repro.core import engine as jengine
 from repro.core import kmeans_plusplus
 from repro.data import make_points
 from repro_torch import KMeans
+from _torch_cap import assert_same_fit_less_work, reference_cap
 from repro_torch import obs
 from repro_torch.core import engine
 from repro_torch.obs.ring import (COL_CAP_G, COL_CAP_N, COL_EVALS,
@@ -106,8 +108,9 @@ def test_ring_evals_sum_matches_evalcount_exactly(jb, tb):
 def test_ring_columns_match_jax(jb, tb):
     pts, init = _dataset(n=2000, d=10, k=16)
     kw = dict(n_groups=4, max_iters=30, tol=1e-6)
-    res, stats = _fit(pts, init, tb,
-                      obs.ObsConfig(registry=obs.MetricsRegistry()), **kw)
+    with reference_cap():
+        res, stats = _fit(pts, init, tb,
+                          obs.ObsConfig(registry=obs.MetricsRegistry()), **kw)
     r_j, s_j = jengine.fit(jnp.asarray(pts), jnp.asarray(init), backend=jb,
                            interpret=True, tune="off", return_stats=True,
                            obs=jobs.ObsConfig(
@@ -135,6 +138,13 @@ def test_ring_columns_match_jax(jb, tb):
         jobs.summarize_ring(ring, 2000, init_evals=stats.init_evals)
     assert obs.format_ring_table(ring, 2000) == \
         jobs.format_ring_table(ring, 2000)
+    # the port's own cap: the same fit, and no more work in the ring
+    r_t, s_t = _fit(pts, init, tb,
+                    obs.ObsConfig(registry=obs.MetricsRegistry()), **kw)
+    assert_same_fit_less_work(r_t, res)
+    assert s_t.init_evals + s_t.ring[:, COL_EVALS].sum() == \
+        int(r_t.distance_evals)
+    np.testing.assert_array_equal(s_t.ring[:, COL_SHIFT], ring[:, COL_SHIFT])
 
 
 def test_engine_stats_to_dict_json_serializable():

@@ -17,7 +17,9 @@ how closely:
   drift resets equal, centroids and counts to 1e-4, ``distance_evals``
   to the 5e-2 of ``test_engine_fit_matches_jax`` (another summation
   order flips a few of the pass's ``changed`` comparisons, ROADMAP
-  Queue 3 item 1).
+  Queue 3 item 1), with the port under the reference's cap rule
+  (``tests/_torch_cap.py``); the port as it is gives the same labels,
+  centroids and counts bit for bit with no more evals.
 
 Bound soundness, the reference's Hypothesis property, runs as fixed
 parametrised cases, also through the estimator after drift, reseeds,
@@ -46,6 +48,7 @@ from repro_torch.serve import CentroidIndex
 from repro_torch.data import PointStream
 from repro_torch.streaming import StreamingKMeans, inflate_bounds
 from repro_torch.streaming.estimator import _fetch_step
+from _torch_cap import reference_cap
 
 EVALS_RTOL = 5e-2
 CPU = dict(device="cpu")
@@ -359,6 +362,10 @@ def test_stream_matches_jax(k, d, true_k, g, decay, weighted, extra):
     kw = dict(shard_size=256, n_shards=5, n_dims=d, k=true_k, seed=7)
     ps, js = PointStream(**kw), JaxPointStream(**kw)
     j, t = _pair(k, n_groups=g, decay=decay, seed=2, **extra)
+    # t runs under the reference's cap rule (tests/_torch_cap.py), own
+    # as the port is
+    own = _jax_seeds(StreamingKMeans(k, tune="off", n_groups=g,
+                                     decay=decay, seed=2, **CPU, **extra))
     sched = [(s, ps.shard(s)) for s in range(ps.n_shards)]
     if outliers:
         far = ps.shard(0).copy()
@@ -370,7 +377,10 @@ def test_stream_matches_jax(k, d, true_k, g, decay, weighted, extra):
             w = np.random.default_rng(sid).uniform(0.5, 2.0, 256).astype(
                 np.float32) if weighted else None
             j.partial_fit(pts, shard_id=sid, sample_weight=w)
-            t.partial_fit(pts, shard_id=sid, sample_weight=w)
+            with reference_cap():
+                t.partial_fit(pts, shard_id=sid, sample_weight=w)
+            own.partial_fit(pts, shard_id=sid, sample_weight=w)
+            np.testing.assert_array_equal(own.labels_, t.labels_)
             if epoch == 0:
                 np.testing.assert_array_equal(t.labels_, j.labels_)
                 if first:           # the first batch: its pairs too
@@ -397,6 +407,10 @@ def test_stream_matches_jax(k, d, true_k, g, decay, weighted, extra):
         assert st.reseeds > 0
     if extra.get("drift_reset_factor"):
         assert st.drift_resets > 0
+    # the port's own cap: the same stream bit for bit, no more work
+    np.testing.assert_array_equal(own.cluster_centers_, t.cluster_centers_)
+    np.testing.assert_array_equal(own.counts_, t.counts_)
+    assert own.stats_.distance_evals <= st.distance_evals
 
 
 def test_fit_stream_sources_match_jax():
