@@ -192,13 +192,35 @@ the order they run:
    ``n_iters`` and ``distance_evals`` those of the single-device compact
    fit, centroids bit for bit; each world's fit seconds beside the
    single-device fit's, ``host_syncs``, one iteration's all-reduce time
-   and ``shard_skew``.
+   and ``shard_skew``; in (a)'s world the measured sharded search
+   (``autotune(shards=4)`` on one shard's worth of the points, one
+   round of at most 4 configs, one repeat each): one winner on every
+   rank under the ``|s4`` key, adopted by ``tune="auto"`` with the
+   labels of the default config's fit.
+17. the sharded stream (``StreamingKMeans(mesh=...)``), its worlds
+   started by ``spawn_world`` with a deadline: (a) phase 14's stream (16
+   shards of 65,536, 3 epochs, decay 1.0, phase 14's seeds) over a world
+   of 4 ``gloo`` ranks sharing the card, the main path (counts reset
+   just before and read just after it on every rank): 48 sharded
+   batches, the counts' sum phase 14's, the first batch's labels phase
+   14's but at fp32 near-ties, the final inertia within rtol 1e-3 of
+   phase 14's, ``distance_evals`` within 5% of phase 14's, the ranks bit
+   for bit alike, ``centroid_update`` at least once a batch a rank;
+   points/s an epoch beside phase 14's and one warm batch's time in the
+   all-reduces, gathers and ``inflate_bounds``; (b) a world of 1 over
+   NCCL: centroids, counts, both ledger arrays and ``distance_evals``
+   phase 14's bit for bit; (c) in (a)'s world at 2 epochs, a resilient
+   stream on a 2-rank sub-mesh through one ``FailureInjector`` failure
+   bit for bit its uninterrupted run, its step-16 checkpoint grown into
+   the 4-rank mesh and a 4-rank checkpoint shrunk into the 2-rank mesh,
+   each within 2% of its uninterrupted run's inertia.
 
-Phases 11-16 run after phase 7, before 2c. The last lines are a
+Phases 11-17 run after phase 7, before 2c. The last lines are a
 ``kernels`` JSON line (each kernel's ``launches`` is the sum of its
 ``launches_by_path``: the k-means kernels' on the main fit and predict,
 phase 13's ``kernel`` backend, phase 14's stream, phase 15's resilient
-stream and phase 16's sharded fit summed over its ranks), the card's name
+stream, phase 16's sharded fit and phase 17's sharded stream, each
+summed over its ranks), the card's name
 and power limit from ``nvidia-smi``, and ``{"ok": true, "device":
 {...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
@@ -1440,7 +1462,8 @@ def stream_phase(dev, wrappers, pts_np, plain_versions, fit_kw, k,
     final = dict(centroids=est._centroids.clone(),
                  counts=est._counts.clone(),
                  ledger_centroid=est._ledger.centroid.copy(),
-                 ledger_group=est._ledger.group.copy())
+                 ledger_group=est._ledger.group.copy(), first=first,
+                 distance_evals=est.stats_.distance_evals)
     t0 = time.perf_counter()
     labels = est.predict(pts_np)
     inertia = est.inertia_of(pts_np)
@@ -1793,7 +1816,8 @@ def resilient_phase(dev, wrappers, pts_np, k, n_groups, yardstick,
 
 # -- phase 16: the sharded batch fit on torch.distributed --------------------
 
-SHARDED = dict(world=4, uneven=1_048_573, timeout=240)
+SHARDED = dict(world=4, uneven=1_048_573, timeout=240,
+               search=dict(max_rounds=1, max_measurements=4, repeats=1))
 
 
 def sharded_rank(rank, world, job):
@@ -1872,6 +1896,10 @@ def sharded_rank(rank, world, job):
         fit("dense", pts, init, backend="dense", **kw)
         fit("uneven", pts[:job["uneven"]], init, backend="compact", **kw)
         fit("compress", pts, init, backend="compact", compress=True, **kw)
+        if job.get("search"):
+            search(rank, world, mesh, pts, init, kw, job, out)
+            fit("auto", pts, init, backend="compact", tune="auto",
+                return_stats=True, **kw)
         del pts
     if "wide" in job:
         pts = np.load(job["wide"])
@@ -1887,6 +1915,26 @@ def sharded_rank(rank, world, job):
         fit("wide/ones", pts, init, backend="compact",
             sample_weight=np.ones(len(pts), np.float32), **kw)
     return out
+
+
+def search(rank, world, mesh, pts, init, kw, job, out):
+    """Phase 16's sharded search in a rank: ``autotune(shards=world)`` on
+    one shard's worth of points over the world's mesh, with
+    ``SHARDED["search"]``'s budget; every rank returns its winner and
+    the entry its cache holds."""
+    import torch
+    from repro_torch import tune
+    one = pts[:len(pts) // world]
+    t0 = time.perf_counter()
+    cfg = tune.autotune(one, init, shards=world, mesh=mesh,
+                        device=job["device"], **kw, **SHARDED["search"])
+    seconds = time.perf_counter() - t0
+    dev = job["device"] or torch.device("cuda",
+                                        rank % torch.cuda.device_count())
+    sig = tune.signature(len(one), init.shape[0], one.shape[1],
+                         platform=tune.platform_name(dev), shards=world)
+    out["search"] = dict(config=cfg.to_dict(), seconds=seconds, sig=sig,
+                         entry=tune.default_cache().entry(sig))
 
 
 def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
@@ -1940,7 +1988,8 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
     w_s = time.perf_counter() - t0
     del wpts
     job = dict(device=rank_device, xlarge=xl_path, xlarge_init=init_np,
-               uneven=uneven, wide=wide_path, wide_init=winit_np)
+               uneven=uneven, wide=wide_path, wide_init=winit_np,
+               search=True)
     t0 = time.perf_counter()
     ranks = spawn_world(sharded_rank, world, args=(job,),
                         timeout=SHARDED["timeout"])
@@ -1998,6 +2047,26 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
         f"{cz['seconds']:.3f} s")
     check(abs(cz["inertia"] - main["inertia"]) <= 1e-2 * main["inertia"],
           "phase 16: compressed inertia beyond 1% of the fit's")
+    # the sharded search: one winner on every rank, under |s<world>,
+    # adopted by tune="auto" with the labels of the default config's
+    from repro_torch.core.engine import DEFAULT_CONFIG
+    srch, auto = got["search"], got["auto"]
+    log(f"phase 16 (a) sharded search: {srch['sig']} -> {srch['config']} "
+        f"in {srch['seconds']:.2f} s, entry {srch['entry']}; tune='auto' "
+        f"after it {auto['seconds']:.3f} s with config {auto['config']}")
+    check(srch["sig"].endswith(f"|s{world}") and srch["entry"] is not None
+          and srch["entry"]["shards"] == world
+          and "lloyd_ms" not in srch["entry"]
+          and srch["config"]["backend"] == "compact",
+          "phase 16: the sharded search stored no compact |sS entry")
+    check(all(r["search"]["config"] == srch["config"] for r in ranks),
+          "phase 16: the ranks' search winners differ")
+    check(main["config"] == DEFAULT_CONFIG.to_dict(),
+          "phase 16: the main fit did not run the default config")
+    check(auto["config"] == srch["config"], "phase 16: tune='auto' did "
+          "not adopt the search's winner")
+    check(np.array_equal(auto["labels"], main["labels"]),
+          "phase 16: tune='auto' moved the labels")
     skew = np.asarray(main["shard_skew"])
     ms_iter = got["compact_warm"]["seconds"] * 1e3 / (main["n_iters"] + 1)
     warm = [r["compact_warm"] for r in ranks]
@@ -2024,6 +2093,7 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
         host_syncs=main["host_syncs"], caps=main["caps"],
         uneven=dict(n=uneven, labels_apart=u_apart, n_iters=un["n_iters"]),
         compress_inertia_ratio=cz["inertia"] / main["inertia"],
+        search=dict(srch, auto_s=auto["seconds"]),
         shard_skew_mean=float(skew.mean()), shard_skew_max=float(skew.max())),
         all_reduce_ms=ar_ms, all_reduce_share=share, iteration_ms=ms_iter,
         launches=launches)
@@ -2083,6 +2153,369 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
                       seconds=o_s, first_s=o["seconds"],
                       world_seconds=one_world_s,
                       all_reduce_s=one_reduce_s)
+    return rep
+
+
+# -- phase 17: the sharded stream on torch.distributed ----------------------
+
+# the elastic part's schedule, in batches of phase 14's stream: a
+# 2-epoch run, checkpoints every 8, one failure off the lattice, the
+# step-16 checkpoint grown into the world's mesh
+ELASTIC = dict(epochs=2, ckpt_every=8, fail_at=13, restore_at=16)
+
+
+def stream_rank(rank, world, job):
+    """One rank of a phase 17 world (``spawn_world`` runs it): (a) phase
+    14's stream sharded over the world's mesh for ``job["epochs"]``
+    epochs, the main path, with the kernels' counts reset just before it
+    and read just after it; then one warm batch timed by part (each call
+    of the all-reduce, the gathers and ``inflate_bounds`` between two
+    card syncs). With ``job["elastic"]`` also (c): a resilient 2-epoch
+    stream on a 2-rank sub-mesh through one failure against its
+    uninterrupted run, its step-16 checkpoint grown into the world's
+    mesh, and (a)'s step-16 checkpoint shrunk into the 2-rank mesh,
+    each streamed on to the end of epoch 2. Returns rank 0's labels and
+    centroids, every rank's state and numbers."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch.kernels as kernels
+    from repro_torch.core import distributed as dist_
+    from repro_torch.core import engine, make_mesh
+    from repro_torch.data import PointStream
+    from repro_torch.runtime import FailureInjector
+    from repro_torch.streaming import StreamingKMeans
+    from repro_torch.streaming import estimator as est_mod
+    dev = job["device"] or torch.device(
+        "cuda", rank % torch.cuda.device_count())
+    pts = np.load(job["points"])
+    shard, k, g = job["shard"], job["k"], job["n_groups"]
+    stream = PointStream(shard_size=shard, data=pts)
+    per_epoch = len(stream)
+    wrappers = {"grouped_assign": kernels.grouped_assign,
+                "centroid_update": kernels.centroid_update}
+    mesh = make_mesh(world)
+    m2 = make_mesh(2) if job["elastic"] else None
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def estimator(m):
+        return StreamingKMeans(k, n_groups=g, decay=1.0, init_size=shard,
+                               seed=0, mesh=m, device=job["device"])
+
+    def state(skm):
+        return dict(centroids=skm._centroids.cpu().numpy(),
+                    counts=skm._counts.cpu().numpy(),
+                    ledger_centroid=skm._ledger.centroid.copy(),
+                    ledger_group=skm._ledger.group.copy(),
+                    stats=skm.stats_.to_dict())
+
+    def run(skm, start, stop):
+        for step in range(start, stop):
+            b = stream.global_batch(step)
+            skm.partial_fit(b["points"], shard_id=b["shard_id"])
+
+    ckpt = job["ckpt"]
+    out = {}
+    # (a) the main path
+    skm = estimator(mesh)
+    seeded = []
+    seed = skm._seed_centroids
+
+    def keep_seeds(points, weights):
+        seeded.append(seed(points, weights))
+        return seeded[-1]
+
+    skm._seed_centroids = keep_seeds
+    reset_launches(wrappers)
+    sync()
+    first, epochs, two = None, [], None
+    for ep in range(job["epochs"]):
+        st = skm.stats_
+        ev0, hits0 = st.distance_evals, st.cache_hits
+        t0 = time.perf_counter()
+        for sid, batch in stream.batches(1):
+            skm.partial_fit(batch, shard_id=sid)
+            if first is None and skm.initialized:
+                first = skm.labels_.copy()
+        sync()
+        dt = time.perf_counter() - t0
+        epochs.append(dict(seconds=dt, points_per_s=len(pts) / dt,
+                           distance_evals=st.distance_evals - ev0,
+                           cache_hits=st.cache_hits - hits0))
+        if job["elastic"] and ep == 0:
+            # the 4-rank checkpoint the shrink restores (untimed)
+            skm.save(os.path.join(ckpt, "shrink"), per_epoch)
+        if ep == 1:
+            two = skm._centroids.cpu().numpy()
+    launches = read_launches(wrappers)
+    out["a"] = dict(state(skm), epochs=epochs, launches=launches,
+                    device=str(skm._centroids.device))
+    if rank == 0:
+        out["a"].update(first=first, seeds=seeded[0].cpu().numpy(),
+                        two=two)
+
+    # one warm batch by part: every call of each, between two card syncs
+    spent = {"all_reduce": [], "gather": [], "inflate_bounds": []}
+
+    def timed(key, fn):
+        def wrapped(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            sync()
+            spent[key].append(time.perf_counter() - t)
+            return r
+        return wrapped
+
+    saved = engine._all_reduce, dist_._gather, est_mod.inflate_bounds
+    engine._all_reduce = timed("all_reduce", saved[0])
+    dist_._gather = timed("gather", saved[1])
+    est_mod.inflate_bounds = timed("inflate_bounds", saved[2])
+    try:
+        sync()
+        t0 = time.perf_counter()
+        skm.partial_fit(stream.shard(1), shard_id=1)
+        sync()
+        batch_s = time.perf_counter() - t0
+    finally:
+        engine._all_reduce, dist_._gather, est_mod.inflate_bounds = saved
+    out["a"]["warm_batch"] = dict(
+        seconds=batch_s, **{f"{k_}_s": sum(v) for k_, v in spent.items()},
+        **{f"{k_}_calls": len(v) for k_, v in spent.items()})
+    del skm
+    if not job["elastic"]:
+        return out
+
+    # (c) elastic, at 2 epochs
+    n2 = ELASTIC["epochs"] * per_epoch
+    grow_dir = os.path.join(ckpt, "grow")
+    if rank < 2:
+        full = estimator(m2)
+        t0 = time.perf_counter()
+        run(full, 0, n2)
+        sync()
+        full_s = time.perf_counter() - t0
+        rec = estimator(m2)
+        t0 = time.perf_counter()
+        rec.fit_stream(stream, epochs=ELASTIC["epochs"], resilient=True,
+                       ckpt_dir=grow_dir, ckpt_every=ELASTIC["ckpt_every"],
+                       injector=FailureInjector(
+                           fail_at=(ELASTIC["fail_at"],)))
+        sync()
+        rec_s = time.perf_counter() - t0
+        out["c/two"] = dict(full=state(full), recovered=state(rec),
+                            full_s=full_s, recovered_s=rec_s)
+        del full, rec
+    dist.barrier()
+    t0 = time.perf_counter()
+    grown, step = StreamingKMeans.restore(
+        grow_dir, step=ELASTIC["restore_at"], mesh=mesh,
+        device=job["device"])
+    run(grown, step, n2)
+    sync()
+    out["c/grow"] = dict(state(grown), step=step,
+                         seconds=time.perf_counter() - t0)
+    del grown
+    if rank < 2:
+        t0 = time.perf_counter()
+        shrunk, step = StreamingKMeans.restore(
+            os.path.join(ckpt, "shrink"), mesh=m2, device=job["device"])
+        run(shrunk, step, n2)
+        sync()
+        out["c/shrink"] = dict(state(shrunk), step=step,
+                               seconds=time.perf_counter() - t0)
+    dist.barrier()
+    if rank:
+        # the elastic numbers are rank 0's; the other ranks' centroids
+        # are only compared with its own
+        if "c/two" in out:
+            out["c/two"] = out["c/two"]["recovered"]
+        for key in ("c/two", "c/grow", "c/shrink"):
+            if key in out:
+                out[key] = {"centroids": out[key]["centroids"]}
+    return out
+
+
+def _inertia(pts_dev, centroids):
+    """Exact inertia of ``centroids`` on the points (the engine's tiled
+    assignment, the ``grouped_assign`` kernel)."""
+    import torch
+    from repro_torch.core import engine
+    _, d = engine.assign(pts_dev, torch.from_numpy(centroids).to(
+        pts_dev.device), device=pts_dev.device)
+    return float(torch.sum(d.double() * d.double()))
+
+
+def sharded_stream_phase(dev, pts_np, k, n_groups, yard, stream_rep,
+                         scratch, *, world=SHARDED["world"], nccl=True,
+                         rank_device=None, shard=STREAM["shard"],
+                         epochs=STREAM["epochs"]):
+    """Phase 17: ``StreamingKMeans(mesh=...)`` on phase 14's stream (16
+    shards of 65,536 at full size, 3 epochs, decay 1.0, phase 14's
+    seeds), its worlds started by ``spawn_world`` with a deadline.
+
+    (a) A world of ``world`` ``gloo`` ranks sharing the card, the main
+    path (counts reset just before and read just after the stream on
+    every rank), every batch sharded: the counts' sum phase 14's, the first batch's labels phase 14's but at fp32
+    near-ties (phase 13's rule, against the seeds), the final inertia
+    within rtol 1e-3 of phase 14's, the ``distance_evals`` ratio within
+    5%, the ranks bit for bit alike, ``centroid_update`` at least once
+    a batch a rank; points/s an epoch beside phase 14's, and one warm
+    batch's time in the all-reduces, gathers and ``inflate_bounds``.
+    (b) A world of 1 over NCCL (``nccl=False``: gloo, for a rehearsal on
+    the CPU): centroids, counts, both ledger arrays and
+    ``distance_evals`` phase 14's bit for bit. (c) In (a)'s world at 2
+    epochs: a resilient stream on a 2-rank sub-mesh through one failure
+    bit for bit its uninterrupted run; its step-16 checkpoint grown into
+    the world's mesh and (a)'s shrunk into the 2-rank mesh, each within
+    2% of the uninterrupted run's inertia. ``yard`` is phase 14's final
+    state, ``stream_rep`` its report. Returns the report; its
+    ``launches`` are (a)'s, summed over ranks."""
+    import torch
+    from repro_torch.core.distributed import spawn_world
+    path = str(Path(scratch) / "stream_points.npy")
+    np.save(path, pts_np)
+    ckpt = tempfile.mkdtemp(prefix="stream_ckpt_", dir=scratch)
+    job = dict(device=rank_device, points=path, shard=shard, k=k,
+               n_groups=n_groups, epochs=epochs, elastic=True, ckpt=ckpt)
+    t0 = time.perf_counter()
+    ranks = spawn_world(stream_rank, world, args=(job,),
+                        timeout=SHARDED["timeout"])
+    world_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    got = ranks[0]["a"]
+    rep = dict(world=world, world_seconds=world_s)
+    st = got["stats"]
+    n_shards = len(pts_np) // shard
+
+    # (a) against phase 14
+    check(st["sharded_batches"] == epochs * n_shards == st["batches"],
+          f"phase 17: {st['sharded_batches']} sharded batches")
+    for r in ranks[1:]:
+        a = r["a"]
+        check(all(np.array_equal(a[key], got[key]) for key in
+                  ("centroids", "counts", "ledger_centroid",
+                   "ledger_group")) and a["stats"] == st,
+              "phase 17: the ranks' streams differ")
+    launches = {nm: sum(r["a"]["launches"][nm] for r in ranks)
+                for nm in ("grouped_assign", "centroid_update")}
+    per_rank = [r["a"]["launches"]["centroid_update"] for r in ranks]
+    check(min(per_rank) >= st["batches"], f"phase 17: centroid_update "
+          f"launched {per_rank} times a rank for {st['batches']} batches")
+    y_counts = yard["counts"].double().sum().item()
+    check(float(got["counts"].astype(np.float64).sum()) == y_counts,
+          "phase 17: the counts' sum is not phase 14's")
+    pts_dev = torch.from_numpy(pts_np).to(dev)
+    inertia = _inertia(pts_dev, got["centroids"])
+    y_inertia = stream_rep["inertia"]
+    rel = abs(inertia - y_inertia) / y_inertia
+    evals_ratio = st["distance_evals"] / stream_rep["stats"]["distance_evals"]
+    first = got["first"]
+    bad = np.nonzero(first != yard["first"])[0]
+    seeds64 = got["seeds"].astype(np.float64)
+    x0 = pts_np[:shard]
+    norms = near_ties(x0[bad], seeds64, first[bad], yard["first"][bad])[1] \
+        if len(bad) else np.zeros(0)
+    pps = [e["points_per_s"] for e in got["epochs"]]
+    y_pps = [e["points_per_s"] for e in stream_rep["epochs"]]
+    wb = got["warm_batch"]
+    log(f"phase 17 (a) world of {world} gloo ranks: {st['batches']} "
+        f"batches ({st['sharded_batches']} sharded), {st['cache_hits']} "
+        f"hits; points/s an epoch {', '.join(f'{p:.4g}' for p in pps)} "
+        f"(phase 14: {', '.join(f'{p:.4g}' for p in y_pps)}); inertia "
+        f"{inertia:.9g} (phase 14 {y_inertia:.9g}, rel {rel:.3g}); "
+        f"distance_evals {st['distance_evals']:.0f} ({evals_ratio:.5f}x "
+        f"phase 14's); first batch {len(bad)} labels apart, largest "
+        f"squared gap {norms.max() if len(bad) else 0:.3g} of phase 2b's "
+        f"scale; launches {launches}; the world started and ran in "
+        f"{world_s:.1f} s")
+    log(f"phase 17 (a) a warm batch on rank 0: {wb['seconds'] * 1e3:.2f} "
+        f"ms; all-reduces {wb['all_reduce_s'] * 1e3:.2f} ms "
+        f"({wb['all_reduce_calls']} calls), gathers "
+        f"{wb['gather_s'] * 1e3:.2f} ms ({wb['gather_calls']}), "
+        f"inflate_bounds {wb['inflate_bounds_s'] * 1e3:.2f} ms "
+        f"({wb['inflate_bounds_calls']})")
+    check(rel <= 1e-3, f"phase 17: inertia {rel:.3g} from phase 14's")
+    check(abs(evals_ratio - 1.0) <= 0.05,
+          f"phase 17: distance_evals {evals_ratio:.4f}x phase 14's")
+    check(bool(np.all(norms <= 2.0)), "phase 17: the first batch's labels "
+          "differ from phase 14's off an fp32 near-tie")
+    rep.update(stats=st, epochs=got["epochs"], inertia=inertia,
+               inertia_rel=rel, evals_ratio=evals_ratio,
+               first_apart=len(bad), warm_batch=[r["a"]["warm_batch"]
+                                                 for r in ranks],
+               launches=launches, phase14_points_per_s=y_pps)
+
+    # (c) elastic
+    two, grow, shrink = ranks[0]["c/two"], ranks[0]["c/grow"], \
+        ranks[0]["c/shrink"]
+    same = all(np.array_equal(two["full"][key], two["recovered"][key])
+               for key in ("centroids", "counts", "ledger_centroid",
+                           "ledger_group"))
+    rst = two["recovered"]["stats"]
+    check(same and np.array_equal(ranks[1]["c/two"]["centroids"],
+                                  two["recovered"]["centroids"]),
+          "phase 17: the 2-rank resilient stream is not its uninterrupted "
+          "run bit for bit, or its ranks differ")
+    check(rst["restores"] == 1 and rst["replayed_batches"] ==
+          ELASTIC["fail_at"] - ELASTIC["ckpt_every"],
+          f"phase 17: {rst['restores']} restores, {rst['replayed_batches']}"
+          f" replays")
+    for r in ranks[1:]:
+        check(np.array_equal(r["c/grow"]["centroids"], grow["centroids"]),
+              "phase 17: the grown ranks differ")
+    in_two = _inertia(pts_dev, two["full"]["centroids"])
+    in_grow = _inertia(pts_dev, grow["centroids"])
+    in_a2 = _inertia(pts_dev, got["two"])
+    in_shrink = _inertia(pts_dev, shrink["centroids"])
+    del pts_dev
+    g_rel = abs(in_grow - in_two) / in_two
+    s_rel = abs(in_shrink - in_a2) / in_a2
+    log(f"phase 17 (c) 2-rank sub-mesh, 2 epochs: {two['full_s']:.2f} s "
+        f"uninterrupted, {two['recovered_s']:.2f} s resilient ("
+        f"{rst['restores']} restore, {rst['replayed_batches']} replays, "
+        f"{rst['ckpt_saves']} saves), bit for bit: {same}; grown 2 -> "
+        f"{world} from step {grow['step']}: inertia {in_grow:.9g} against "
+        f"{in_two:.9g} (rel {g_rel:.3g}, {grow['seconds']:.2f} s, "
+        f"{grow['stats']['cache_hits']} hits); shrunk {world} -> 2 from "
+        f"step {shrink['step']}: {in_shrink:.9g} against {in_a2:.9g} (rel "
+        f"{s_rel:.3g}, {shrink['seconds']:.2f} s)")
+    check(grow["step"] == ELASTIC["restore_at"] and g_rel < 0.02,
+          f"phase 17: the grown stream {g_rel:.3g} from its run")
+    check(shrink["step"] == n_shards and s_rel < 0.02,
+          f"phase 17: the shrunk stream {s_rel:.3g} from its run")
+    rep["elastic"] = dict(
+        bit_for_bit=same, restores=rst["restores"],
+        replayed=rst["replayed_batches"], full_s=two["full_s"],
+        recovered_s=two["recovered_s"], grow_rel=g_rel, shrink_rel=s_rel,
+        grow_s=grow["seconds"], shrink_s=shrink["seconds"])
+
+    # (b) a world of 1 over NCCL
+    job1 = dict(job, elastic=False)
+    t0 = time.perf_counter()
+    one = spawn_world(stream_rank, 1, args=(job1,),
+                      backend="nccl" if nccl else "gloo",
+                      timeout=SHARDED["timeout"])[0]["a"]
+    one_s = time.perf_counter() - t0
+    bits = {key: bool(np.array_equal(one[key], want)) for key, want in (
+        ("centroids", yard["centroids"].cpu().numpy()),
+        ("counts", yard["counts"].cpu().numpy()),
+        ("ledger_centroid", yard["ledger_centroid"]),
+        ("ledger_group", yard["ledger_group"]))}
+    bits["distance_evals"] = \
+        one["stats"]["distance_evals"] == yard["distance_evals"]
+    opps = [e["points_per_s"] for e in one["epochs"]]
+    log(f"phase 17 (b) world of 1 over {'NCCL' if nccl else 'gloo'}: "
+        f"points/s an epoch {', '.join(f'{p:.4g}' for p in opps)}, bit for "
+        f"bit phase 14's: {bits}; the world started and ran in {one_s:.1f}"
+        f" s")
+    check(all(bits.values()), f"phase 17: the world of 1 is not phase 14's "
+          f"stream bit for bit: {bits}")
+    rep["one"] = dict(backend="nccl" if nccl else "gloo", bits=bits,
+                      epochs=one["epochs"], world_seconds=one_s,
+                      warm_batch=one["warm_batch"])
     return rep
 
 
@@ -3077,7 +3510,6 @@ def main() -> None:
     t0 = time.perf_counter()
     report["resilient"] = resilient_phase(
         dev, wrappers, pts_np, k, max(k // 10, 1), stream_final, stream_pps)
-    del stream_final
     log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
     resilient_launches = report["resilient"]["launches"]
 
@@ -3087,6 +3519,15 @@ def main() -> None:
                                       winit, scratch)
     log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
     sharded_launches = report["sharded"]["launches"]
+
+    # -- 17. the sharded stream on torch.distributed ---------------------
+    t0 = time.perf_counter()
+    report["sharded_stream"] = sharded_stream_phase(
+        dev, pts_np, k, max(k // 10, 1), stream_final, report["stream"],
+        scratch)
+    del stream_final
+    log(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+    sharded_stream_launches = report["sharded_stream"]["launches"]
 
     # -- 2c. the LM kernels against their plain versions -----------------
     from repro_torch.configs import get_config
@@ -3122,7 +3563,8 @@ def main() -> None:
                                     "centroid_update": 0},  # phase 13
                     "stream": stream_launches,           # phase 14
                     "resilient_stream": resilient_launches,  # phase 15
-                    "sharded": sharded_launches}         # phase 16
+                    "sharded": sharded_launches,         # phase 16
+                    "sharded_stream": sharded_stream_launches}  # phase 17
     line = {"kernels": [
         row("grouped_assign", ga_main,
             "src/repro_torch/kernels/csrc/grouped_assign.cu",

@@ -43,7 +43,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .._unported import ITEM_9B
+from .._unported import ITEM_11_5
 from ..device import resolve_device
 
 
@@ -269,7 +269,8 @@ def restore_checkpoint(ckpt_dir, like, *, step: int | None = None,
     another mesh) belongs to the sharded drivers and raises."""
     if shardings is not None:
         raise NotImplementedError(
-            f"restore_checkpoint(shardings=...) is not ported yet: {ITEM_9B}")
+            f"restore_checkpoint(shardings=...) is not ported yet: "
+            f"{ITEM_11_5}")
     dev = resolve_device(device)
     step, _, leaves = load_checkpoint_arrays(ckpt_dir, step=step,
                                              fallback=fallback)

@@ -1,5 +1,5 @@
 """Sharded KPynq: data-parallel filtered K-means on ``torch.distributed``
-(port of ``repro.core.distributed``, the batch fit).
+(port of ``repro.core.distributed``).
 
 One process per shard. Every rank calls :func:`distributed_yinyang` with
 the same global points, pads them to the shard lattice and keeps its own
@@ -36,6 +36,13 @@ points. Uneven N is padded to the shard lattice with sentinel rows
 fit_core`), which add nothing to any centroid sum and are never
 candidates.
 
+:func:`make_stream_bounds_sharded` / :func:`make_stream_update_sharded`
+are the sharded ``engine.stream_bounds`` / ``engine.stream_step``: one
+global mini-batch split over the mesh, the candidate pass on each
+rank's rows, the batch sums and counts all-reduced into the decayed
+EMA; :class:`repro_torch.streaming.StreamingKMeans` (``mesh=``) drives
+them.
+
 The mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh``
 (:func:`make_mesh`); the reductions run over ``mesh.get_group(axis)``.
 Under ``gloo`` a CUDA tensor is reduced and gathered through the host,
@@ -55,22 +62,40 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .._unported import ITEM_9B
 from ..device import as_float32, resolve_device
 from ..obs import ring as _obs_ring
 from ..obs.metrics import normalize_obs
 from .engine import (DEFAULT_CONFIG, EngineConfig, EngineStats, PassCore,
-                     Reducer, build_group_tables, cap_ladders, fit_core)
+                     Reducer, StreamStepOut, build_group_tables, cap_ladders,
+                     fit_core, pending_gmax, stream_bounds, stream_step)
 from .kmeans import KMeansResult, group_centroids
 
+
 def _reducer(mesh, axes, compress: bool) -> Reducer:
-    return Reducer(group=mesh.get_group(_axis(mesh, axes)),
-                   compress=bool(compress))
+    return Reducer(group=_group(mesh, axes), compress=bool(compress))
+
+
+def _group(mesh, axes):
+    """The process group of ``mesh``'s axis ``axes[0]``, after checking
+    that this rank is in the mesh (a rank outside it has no group to
+    ask for)."""
+    axis = _axis(mesh, axes)
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the mesh")
+    return mesh.get_group(axis)
+
+
+def mesh_rank(mesh, axes=("data",)) -> int:
+    """This rank's index along ``mesh``'s axis (``ValueError`` outside
+    the mesh): the shard of a global batch it keeps, and 0 for the rank
+    that writes a mesh's checkpoints and tuning cache."""
+    import torch.distributed as dist
+    return dist.get_rank(_group(mesh, axes))
 
 
 def _axis(mesh, axes) -> str:
     axes = tuple(axes)
-    names = tuple(mesh.mesh_dim_names or ())
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
     if len(axes) != 1 or axes[0] not in names:
         raise ValueError(f"axes must name the one dimension of a 1-D mesh; "
                          f"got {axes} for a mesh of {names}")
@@ -182,15 +207,18 @@ def _pad_sharded(arr, shards: int, shard: int | None = None):
     return rows, valid
 
 
-def _gather(x, group, shards: int):
+def _gather(x, group, shards: int, host: bool = False):
     """Every rank's ``x`` concatenated in group-rank order, on ``x``'s
-    device. Under ``gloo`` a CUDA tensor goes through the host."""
+    device, or with ``host=True`` on the CPU (one device-to-host copy
+    either way). Under ``gloo`` a CUDA tensor goes through the host."""
     import torch.distributed as dist
     via_host = x.is_cuda and dist.get_backend(group) == "gloo"
     src = x.cpu() if via_host else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(shards)]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts)
+    if host:
+        return out.cpu()
     return out.to(x.device) if via_host else out
 
 
@@ -265,8 +293,9 @@ def distributed_yinyang(points, init_centroids, mesh,
     oracle (:func:`make_fit_sharded`, N divisible by the shard count).
     ``tune`` consults the per-(card, N, K, D, shards) tuning cache for
     the compact body's knobs (``n`` the per-shard count; ``"force"`` on
-    a miss raises, the sharded search being ROADMAP item 9b);
-    ``config`` pins them. ``sample_weight``: (N,) per-point weights,
+    a miss runs the measured sharded search once, over this mesh:
+    :func:`repro_torch.tune.autotune` with ``shards``); ``config`` pins
+    them. ``sample_weight``: (N,) per-point weights,
     sharded with their points (weighted sums, counts and inertia; the
     int8 ``compress`` payload stays the (K, D) sums).
 
@@ -290,11 +319,9 @@ def distributed_yinyang(points, init_centroids, mesh,
         raise ValueError(f"unknown tune mode {tune!r}; expected "
                          f"'auto', 'off' or 'force'")
     axes = tuple(axes)
-    group = mesh.get_group(_axis(mesh, axes))
+    group = _group(mesh, axes)
     import torch.distributed as dist
     shard = dist.get_rank(group)
-    if shard < 0:
-        raise ValueError("this rank is not in the mesh")
     dev = _default_device(device)
     k = init_centroids.shape[0]
     if n_groups is None:
@@ -332,8 +359,9 @@ def distributed_yinyang(points, init_centroids, mesh,
     else:
         shard_n = len(local)
         cfg = _resolve_sharded_config(
-            shard_n=shard_n, k=k, d=d, shards=shards, config=config,
-            tune=tune, device=dev)
+            points, init_c, mesh, axes, shard_n=shard_n, k=k, d=d,
+            shards=shards, config=config, tune=tune, n_groups=n_groups,
+            max_iters=int(max_iters), tol=float(tol), device=dev)
         # group map + tables, built once on the host (true Lmax)
         groups = group_centroids(init_c, n_groups)
         members, gsize = build_group_tables(groups.cpu().numpy(), n_groups,
@@ -358,13 +386,16 @@ def distributed_yinyang(points, init_centroids, mesh,
     return (result, stats) if return_stats else result
 
 
-def _resolve_sharded_config(*, shard_n, k, d, shards, config, tune,
+def _resolve_sharded_config(points, init_c, mesh, axes, *, shard_n, k, d,
+                            shards, config, tune, n_groups, max_iters, tol,
                             device) -> EngineConfig:
     """Config precedence for the compact sharded fit: explicit
     ``config`` > the tuned ``...|sS`` entry for the per-shard shape >
-    the single-device entry for the per-shard shape > defaults.
-    ``tune="force"`` on a miss of the sharded key raises: the measured
-    sharded search is ROADMAP item 9b."""
+    (``tune="force"`` only) a fresh measured sharded search over this
+    mesh, on ``points[:shard_n]`` (:func:`repro_torch.tune.autotune`
+    with ``shards``; every rank of the mesh runs it and gets the same
+    winner) > the single-device entry for the per-shard shape >
+    defaults."""
     if config is not None:
         return config
     if tune == "off":
@@ -374,12 +405,89 @@ def _resolve_sharded_config(*, shard_n, k, d, shards, config, tune,
     cfg = _tune.lookup(n=shard_n, k=k, d=d, shards=shards,
                        platform=platform)
     if cfg is None and tune == "force":
-        raise NotImplementedError(
-            f"distributed_yinyang(tune='force') on a cache miss runs the "
-            f"sharded tuning search, which is not ported yet: {ITEM_9B}")
+        cfg = _tune.autotune(
+            points[:shard_n], init_c, n_groups=n_groups,
+            max_iters=max_iters, tol=tol, shards=shards, mesh=mesh,
+            axes=axes, device=device)
     if cfg is None:
         cfg = _tune.lookup(n=shard_n, k=k, d=d, platform=platform)
     return cfg or DEFAULT_CONFIG
+
+
+# --------------------------------------------------------------------------
+# sharded streaming steps (repro_torch.streaming.StreamingKMeans drives them)
+# --------------------------------------------------------------------------
+
+def make_stream_bounds_sharded(mesh, axes: Sequence[str] = ("data",)):
+    """The sharded :func:`~repro_torch.core.engine.stream_bounds`: the
+    point-level filter over carried (drift-inflated) bounds on this
+    rank's rows of one global mini-batch.
+
+    Returns ``bounds(points, centroids, assign, ub, lb) -> (ub_t, need,
+    max_shard_cand, tightened, gmax)``: ``ub_t``/``need`` the rank's own
+    rows on its device; ``max_shard_cand`` the largest per-rank
+    candidate count (what the static per-rank ``cap_n`` must cover),
+    ``tightened`` the own-distance refreshes summed over the ranks, and
+    ``gmax`` this rank's own pending group high-water (so its compact
+    pass takes its branch without a read of its own), as host ints.
+    The three come home in one read: each rank's three counts are
+    all-gathered in one collective and reduced on the host, the same
+    integers on every rank."""
+    axes = tuple(axes)
+    group = _group(mesh, axes)
+    shards = _mesh_shards(mesh, axes)
+    rank = mesh_rank(mesh, axes)
+
+    def bounds(points, centroids, assign, ub, lb):
+        ub_t, need, n_cand, n_tight = stream_bounds(points, centroids,
+                                                    assign, ub, lb)
+        mine = torch.stack([n_cand, n_tight,
+                            pending_gmax(need, ub_t, lb)]).long()
+        counts = _gather(mine[None], group, shards, host=True)  # (S, 3)
+        return (ub_t, need, int(counts[:, 0].max()), int(counts[:, 1].sum()),
+                int(counts[rank, 2]))
+
+    return bounds
+
+
+def make_stream_update_sharded(mesh, axes, *, k: int, n_groups: int,
+                               cap_n: int, cap_g: int, chunk: int = 2048,
+                               group_gather_factor: int = 4,
+                               compress: bool = False,
+                               weighted: bool = False):
+    """The sharded :func:`~repro_torch.core.engine.stream_step`: one
+    global mini-batch split over the mesh, the same step body on each
+    rank's rows at ``PassCore(backend="compact", reducer=Reducer(group,
+    compress))``. The reducer joins the batch sums and counts, so the
+    decayed EMA and the drift come out the same on every rank, and
+    reduces the telemetry (``pairs``, ``batch_cost`` summed; ``gmax``
+    the largest). ``cap_n`` must cover the largest per-rank candidate
+    count (:func:`make_stream_bounds_sharded` returns it).
+    ``compress=True`` int8-compresses the (K, D) sums only.
+
+    Returns ``update(points, centroids, counts, decay, groups, members,
+    gsize, assignments, ub_t, lb, need, weights=None, *, gmax=None) ->
+    StreamStepOut`` on this rank's rows; ``assignments``/``ub``/``lb``
+    come back as the rank's rows (the caller gathers them). ``weights``
+    is given exactly when ``weighted``; ``gmax`` is this rank's own
+    pending group high-water where the caller has it."""
+    core = PassCore(backend="compact", k=k, n_groups=n_groups,
+                    cap_n=cap_n, cap_g=cap_g, chunk=chunk,
+                    group_gather_factor=group_gather_factor,
+                    reducer=_reducer(mesh, axes, compress))
+
+    def update(points, centroids, counts, decay, groups, members, gsize,
+               assignments, ub_t, lb, need, weights=None, *,
+               gmax=None) -> StreamStepOut:
+        if (weights is not None) != bool(weighted):
+            raise ValueError(f"this update was built with weighted="
+                             f"{weighted}; weights must be given exactly "
+                             f"then")
+        return stream_step(points, centroids, counts, decay, groups,
+                           members, gsize, assignments, ub_t, lb, need,
+                           weights, core=core, gmax=gmax)
+
+    return update
 
 
 # --------------------------------------------------------------------------

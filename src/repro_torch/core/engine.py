@@ -157,17 +157,18 @@ def _bucket_cap(count: int, floor: int, ceil: int) -> int:
 # the collective: identity locally, an all-reduce in the sharded fit
 # --------------------------------------------------------------------------
 
-def _all_reduce(x, group):
-    """``x`` SUM-reduced over ``group``, every rank getting the same
-    bits. Under ``gloo`` a CUDA tensor goes through the host: the
-    reduction runs on a CPU copy."""
+def _all_reduce(x, group, op=None):
+    """``x`` reduced over ``group`` by ``op`` (default SUM), every rank
+    getting the same bits. Under ``gloo`` a CUDA tensor goes through the
+    host: the reduction runs on a CPU copy."""
     import torch.distributed as dist
+    op = dist.ReduceOp.SUM if op is None else op
     if x.is_cuda and dist.get_backend(group) == "gloo":
         host = x.cpu()
-        dist.all_reduce(host, group=group)
+        dist.all_reduce(host, op=op, group=group)
         return host.to(x.device)
     out = x.clone()
-    dist.all_reduce(out, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -203,6 +204,13 @@ class Reducer:
     def add(self, x):
         """Exact SUM (counts, int64 eval counters, inertia)."""
         return x if self.group is None else _all_reduce(x, self.group)
+
+    def max(self, x):
+        """MAX (candidate counts, group high-waters)."""
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+        return _all_reduce(x, self.group, dist.ReduceOp.MAX)
 
 
 LOCAL_REDUCER = Reducer()
@@ -1386,7 +1394,15 @@ def stream_step(points, centroids, counts, decay, groups, members, gsize,
     compact pass spills past into its dense branch. ``gmax`` is the
     pass's surviving-group high-water where the caller knows it, so the
     compact pass takes its branch without a host read. ``weights``
-    enter the batch sums, counts and cost only."""
+    enter the batch sums, counts and cost only.
+
+    ``core.reducer`` joins the ranks of a sharded step
+    (:func:`repro_torch.core.distributed.make_stream_update_sharded`):
+    the batch sums and counts inside :func:`move_and_bounds`, so the EMA
+    and the drift come out the same on every rank, and the telemetry
+    (``pairs`` and ``batch_cost`` summed, ``gmax`` the largest). The
+    local reducer is the identity; ``assignments``, ``ub`` and ``lb``
+    stay the rank's own rows either way."""
     x2 = row_norms_sq(points)
     c2 = row_norms_sq(centroids)
     decay = torch.as_tensor(decay, dtype=torch.float32,
@@ -1398,12 +1414,14 @@ def stream_step(points, centroids, counts, decay, groups, members, gsize,
     with phase("kpynq/move_and_bounds", points.is_cuda):
         mv = move_and_bounds(points, centroids, new_as, nub, nlb, groups,
                              k=core.k, n_groups=core.n_groups,
-                             update=EMA_UPDATE, counts=counts, decay=decay,
-                             weights=weights, refresh=False)
+                             reducer=core.reducer, update=EMA_UPDATE,
+                             counts=counts, decay=decay, weights=weights,
+                             refresh=False)
     cost = nub * nub if weights is None else weights * nub * nub
+    red = core.reducer
     return StreamStepOut(mv.centroids, mv.counts, new_as, mv.ub, mv.lb,
-                         pairs, pass_gmax, mv.drift, mv.gdrift,
-                         mv.batch_counts, torch.sum(cost))
+                         red.add(pairs), red.max(pass_gmax), mv.drift,
+                         mv.gdrift, mv.batch_counts, red.add(torch.sum(cost)))
 
 
 def assign(points, centroids, *, n_groups: int | None = None, groups=None,

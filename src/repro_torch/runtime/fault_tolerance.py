@@ -9,8 +9,11 @@
   ``threshold`` times the EWMA is flagged.
 * :class:`FailureInjector`: deterministic chaos for tests.
 
-``ElasticController`` (re-targeting a checkpoint onto another mesh)
-belongs to the sharded drivers, ROADMAP Queue 1 item 9b.
+``ElasticController`` (re-targeting a sharded train state's checkpoint
+onto another mesh) belongs to the sharded train state, ROADMAP Queue 1
+item 11.5. The k-means stream's elastic path needs none of it: it is
+``StreamingKMeans.restore(d, mesh=...)`` over host state that is the
+same on every rank.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._unported import ITEM_9B
+from .._unported import ITEM_11_5
 from ..checkpoint.checkpoint import (restore_checkpoint, save_checkpoint,
                                      tree_flatten)
 
@@ -154,7 +157,7 @@ class ResilientLoop:
         if state_shardings is not None:
             raise NotImplementedError(
                 f"ResilientLoop.run(state_shardings=...) is not ported "
-                f"yet: {ITEM_9B}")
+                f"yet: {ITEM_11_5}")
         if start_step is not None:
             step = int(start_step)
         else:

@@ -1,5 +1,6 @@
 """StreamingKMeans: bound-carrying mini-batch K-means (port of
-``repro.streaming.estimator``, single-device).
+``repro.streaming.estimator``), on one device or sharded over the ranks
+of a mesh.
 
 The batch engine realises KPynq's two filter levels as skipped work
 inside one fit; this estimator carries the same candidate pass over
@@ -44,8 +45,26 @@ Checkpoints: ``save`` snapshots the full stream state (the
 restores the other's) through :mod:`repro_torch.checkpoint`;
 ``restore``/``restore_state`` bring it back and
 ``fit_stream(resilient=True)`` replays the deterministic stream after a
-failure (:mod:`repro_torch.streaming.resilient`). Not ported yet, and
-raising: the sharded step (``mesh=``; ROADMAP Queue 1 item 9b).
+failure (:mod:`repro_torch.streaming.resilient`).
+
+Sharded (``mesh=``, a 1-D mesh from
+:func:`repro_torch.core.distributed.make_mesh`): every rank of the mesh
+calls ``partial_fit``/``fit_stream`` with the same global batch. Each
+pads it to the shard lattice with sentinel rows (weight 0, label K - 1,
+``ub`` 0, ``lb`` +inf, never a candidate; an unweighted padded batch
+passes the valid mask as its weights) and keeps its own rows for the
+device work (:func:`~repro_torch.core.distributed.
+make_stream_bounds_sharded`, :func:`~repro_torch.core.distributed.
+make_stream_update_sharded`). A batch's collectives are the all-reduce
+of the (K, D) sums and (K,) counts, the telemetry's, the one gather of
+a revisit's candidate counts and the one gather of the step's rows:
+every rank then holds the global batch's labels and bounds, and the
+host upkeep (ledger, cache, reservoir, reseeds, stats) runs on the same
+inputs on every rank, so every rank takes the same branches, issues the
+same collectives and would write the same checkpoint. Rank 0 of the
+mesh writes it. A checkpoint restores under any other mesh or none
+(:meth:`StreamingKMeans.restore`): the cache holds the global batch's
+rows unpadded, and the next batch re-pads into the new lattice.
 """
 from __future__ import annotations
 
@@ -56,7 +75,6 @@ import time
 import numpy as np
 import torch
 
-from .._unported import ITEM_9B
 from ..core import engine as _engine
 from ..core.api import NotFittedError
 from ..core.engine import PassCore, _bucket_cap
@@ -75,21 +93,45 @@ def _host_array(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def _fetch_step(out: _engine.StreamStepOut, b: int, g: int):
-    """The nine step outputs the host keeps, in ONE device-to-host
-    transfer: each is viewed as 32-bit integers (the int64 scalars as
-    two), concatenated on the device, copied home and viewed back, so
-    every bit survives. Returns numpy ``(assignments, ub, lb, pairs,
-    gmax, drift, gdrift, batch_counts, batch_cost)``."""
+def _step_words(out: _engine.StreamStepOut) -> torch.Tensor:
+    """The nine step outputs the host keeps as one int32 tensor on the
+    device: each viewed as 32-bit words (the int64 scalars as two) and
+    concatenated, so every bit survives the trip home."""
     def bits(t):
         return t.contiguous().reshape(-1).view(torch.int32)
 
     parts = [out.pairs.long().reshape(1), out.gmax.long().reshape(1),
              out.assignments.int(), out.ub, out.lb, out.drift, out.gdrift,
              out.batch_counts, out.batch_cost.reshape(1)]
-    flat = torch.cat([bits(p) for p in parts]).cpu().numpy()
-    pairs, gmax = flat[:4].copy().view(np.int64)
+    return torch.cat([bits(p) for p in parts])
+
+
+def _fetch_step(out: _engine.StreamStepOut, b: int, g: int):
+    """The nine step outputs the host keeps, in ONE device-to-host
+    transfer (:func:`_step_words`). Returns numpy ``(assignments, ub,
+    lb, pairs, gmax, drift, gdrift, batch_counts, batch_cost)``."""
+    return _unpack_step(_step_words(out).cpu().numpy(), b, g,
+                        out.drift.shape[0])
+
+
+def _fetch_step_sharded(out: _engine.StreamStepOut, b: int, g: int,
+                        group, shards: int):
+    """:func:`_fetch_step` for a sharded step: every rank's words are
+    all-gathered in one collective (one device-to-host copy), the
+    rows concatenated in rank order and cut to the global batch's ``b``;
+    the reduced outputs are the same on every rank."""
+    from ..core.distributed import _gather
     k = out.drift.shape[0]
+    words = _gather(_step_words(out), group, shards, host=True).numpy()
+    per = [_unpack_step(w, out.ub.shape[0], g, k)
+           for w in words.reshape(shards, -1)]
+    nas, ub, lb = (np.concatenate([p[i] for p in per])[:b]
+                   for i in range(3))
+    return (nas, ub, lb) + per[0][3:]
+
+
+def _unpack_step(flat: np.ndarray, b: int, g: int, k: int):
+    pairs, gmax = flat[:4].copy().view(np.int64)
     sizes = (b, b, b * g, k, g, k, 1)
     ends = np.cumsum((4,) + sizes)
     nas, ub, lb, drift, gdrift, bcounts, cost = (
@@ -129,7 +171,12 @@ class StreamingKMeans:
         stream never searches). Results are the same either way.
     obs : publishes per-batch metrics and a ``stream_batch`` event to
         the registry (:mod:`repro_torch.obs`); host bookkeeping only.
-    mesh / mesh_axes : the sharded step, not ported (raises).
+    mesh / mesh_axes : a 1-D ``DeviceMesh`` and its axis (default
+        ``("data",)``): the global batch is split over the mesh's ranks,
+        each runs the step on its rows and the batch sums are
+        all-reduced (see the module docstring). Every rank of the mesh
+        makes the same calls; a rank outside it raises ``ValueError``.
+        With ``device=None`` rank r runs on ``cuda:(r % card count)``.
     """
 
     def __init__(self, n_clusters: int, *, n_groups: int | None = None,
@@ -141,10 +188,7 @@ class StreamingKMeans:
                  drift_reset_factor: float = 8.0,
                  chunk: int | None = None,
                  tune: str = "auto",
-                 mesh=None, mesh_axes=None, obs=None, device=None):
-        if mesh is not None or mesh_axes is not None:
-            raise NotImplementedError(
-                f"StreamingKMeans(mesh=...) is not ported yet: {ITEM_9B}")
+                 mesh=None, mesh_axes=("data",), obs=None, device=None):
         if init not in ("k-means++", "random"):
             raise ValueError(f"unknown init {init!r}")
         if not 0.0 < decay <= 1.0:
@@ -167,7 +211,19 @@ class StreamingKMeans:
         self.chunk = int(chunk) if chunk is not None else 2048
         self.tune = tune
         self._ggf = 4                     # group-gather crossover factor
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axes = tuple(mesh_axes or ("data",))
+        self._n_shards, self._rank, self._group = 1, 0, None
+        if mesh is not None:
+            from ..core import distributed as _dist
+            self._group = _dist._group(mesh, self.mesh_axes)
+            self._rank = _dist.mesh_rank(mesh, self.mesh_axes)
+            self._n_shards = _dist._mesh_shards(mesh, self.mesh_axes)
+            self.device = _dist._default_device(device)
+        else:
+            self.device = resolve_device(device)
+        self._sharded_bounds = None       # built lazily for the mesh
+        self._sharded_updates: dict = {}  # (cap_n, cap_g, weighted) -> fn
 
         self._obs = normalize_obs(obs)
         self.stats_ = StreamStats()
@@ -303,12 +359,48 @@ class StreamingKMeans:
                         n_groups=self._g, cap_n=cap_n, cap_g=cap_g,
                         chunk=self.chunk, group_gather_factor=self._ggf)
 
+    def _sharded_update_fn(self, cap_n: int, cap_g: int, weighted: bool):
+        key = (cap_n, cap_g, weighted)
+        fn = self._sharded_updates.get(key)
+        if fn is None:
+            from ..core import distributed as _dist
+            fn = _dist.make_stream_update_sharded(
+                self.mesh, self.mesh_axes, k=self.n_clusters,
+                n_groups=self._g, cap_n=cap_n, cap_g=cap_g,
+                chunk=self.chunk, group_gather_factor=self._ggf,
+                weighted=weighted)
+            self._sharded_updates[key] = fn
+        return fn
+
+    def _barrier(self) -> None:
+        """Wait for every rank of the mesh (no-op without one)."""
+        if self._group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self._group)
+
     def _step(self, pts_np: np.ndarray, sid, w_np=None) -> None:
         t0 = time.perf_counter()
         b = pts_np.shape[0]
         g = self._g
+        k = self.n_clusters
         st = self.stats_
         dev = self.device
+        sharded = self.mesh is not None
+        # this rank's rows of the global batch padded to the shard
+        # lattice: [lo, lo + shard_b), the real ones [lo, hi)
+        shard_b = (b + (-b) % self._n_shards) // self._n_shards
+        lo = self._rank * shard_b
+        hi = min(lo + shard_b, b)
+        n_sent = shard_b - max(hi - lo, 0)
+        pad = shard_b * self._n_shards - b
+        mine = slice(min(lo, b), hi)
+
+        def padded(part, fill):
+            """This rank's real rows, then its sentinel rows (``fill``)."""
+            if not n_sent:
+                return part
+            return np.concatenate([part, np.full(
+                (n_sent,) + part.shape[1:], fill, part.dtype)])
 
         entry = self._cache.get(sid) if sid is not None else None
         if entry is not None:
@@ -319,50 +411,90 @@ class StreamingKMeans:
                 st.drift_resets += 1
                 entry = None
 
-        pts = as_float32(pts_np, dev)
-        w = None if w_np is None else as_float32(w_np, dev)
+        pts = as_float32(padded(pts_np[mine], 0.0), dev)
+        # sentinel rows weigh 0: an unweighted padded batch passes the
+        # valid mask (ones on real rows are no weights, bit for bit)
+        w = None
+        if w_np is not None or pad:
+            ones = np.ones((b,), np.float32) if w_np is None else w_np
+            w = as_float32(padded(ones[mine], 0.0), dev)
         tightened = 0
         if entry is not None:
             st.cache_hits += 1
-            ub_i, lb_i = inflate_bounds(entry, self._ledger.centroid,
+            # inflate this rank's rows only; the entry stays global
+            own = entry if not sharded else dataclasses.replace(
+                entry, assignments=entry.assignments[mine],
+                ub=entry.ub[mine], lb=entry.lb[mine],
+                ub_off=entry.ub_off[mine])
+            ub_i, lb_i = inflate_bounds(own, self._ledger.centroid,
                                         self._ledger.group)
             assign = torch.from_numpy(
-                entry.assignments.astype(np.int32)).to(dev)
-            lb_d = torch.from_numpy(lb_i).to(dev)
-            ub_t, need, n_cand, n_tight = _engine.stream_bounds(
-                pts, self._centroids, assign, torch.from_numpy(ub_i).to(dev),
-                lb_d)
-            # the one read of a revisit: cap_n needs the candidate count
-            # on the host, and with the pass's gmax beside it the compact
-            # pass takes its branch without a read of its own
-            n_cand, tightened, gmax = (int(v) for v in torch.stack([
-                n_cand, n_tight,
-                _engine.pending_gmax(need, ub_t, lb_d)]).tolist())
+                padded(own.assignments.astype(np.int32), k - 1)).to(dev)
+            lb_d = torch.from_numpy(padded(lb_i, np.inf)).to(dev)
+            ub_i = torch.from_numpy(padded(ub_i, 0.0)).to(dev)
+            if sharded:
+                if self._sharded_bounds is None:
+                    from ..core import distributed as _dist
+                    self._sharded_bounds = _dist.make_stream_bounds_sharded(
+                        self.mesh, self.mesh_axes)
+                # n_cand is the largest per-rank count, what the
+                # per-rank cap_n must cover; gmax is this rank's own
+                ub_t, need, n_cand, tightened, gmax = self._sharded_bounds(
+                    pts, self._centroids, assign, ub_i, lb_d)
+            else:
+                ub_t, need, n_cand, n_tight = _engine.stream_bounds(
+                    pts, self._centroids, assign, ub_i, lb_d)
+                # the one read of a revisit: cap_n needs the candidate
+                # count on the host, and with the pass's gmax beside it
+                # the compact pass takes its branch without a read
+                n_cand, tightened, gmax = (int(v) for v in torch.stack([
+                    n_cand, n_tight,
+                    _engine.pending_gmax(need, ub_t, lb_d)]).tolist())
             gmax_guess = max(int(entry.gmax), 1)
         else:
             st.cache_misses += 1
-            assign = torch.zeros((b,), dtype=torch.int32, device=dev)
-            ub_t = torch.full((b,), float("inf"), device=dev)
-            lb_d = torch.zeros((b, g), device=dev)
-            need = torch.ones((b,), dtype=torch.bool, device=dev)
+
+            def vacuous(tail, real, sentinel, dtype):
+                t = torch.full((shard_b,) + tail, real, dtype=dtype,
+                               device=dev)
+                if n_sent:
+                    t[shard_b - n_sent:] = sentinel
+                return t
+
+            assign = vacuous((), 0, k - 1, torch.int32)
+            ub_t = vacuous((), float("inf"), 0.0, torch.float32)
+            lb_d = vacuous((g,), 0.0, float("inf"), torch.float32)
+            need = vacuous((), True, False, torch.bool)
             # vacuous bounds: every point a candidate, every group alive
-            n_cand, gmax, gmax_guess = b, g, g
+            n_cand, gmax, gmax_guess = shard_b, g, g
 
         # pow2 capacity lattice: cap_n >= the candidate count is a hard
-        # requirement of the compact pass; cap_g is a guess it spills past
-        cap_n = min(_bucket_cap(max(n_cand, 1), min(self.min_bucket, b), b),
-                    b)
+        # requirement of the compact pass; cap_g is a guess it spills
+        # past. Sharded, both are per rank, sized from the worst rank
+        cap_n = min(_bucket_cap(max(n_cand, 1), min(self.min_bucket,
+                                                     shard_b), shard_b),
+                    shard_b)
         cap_g = _bucket_cap(gmax_guess, 1, g)
-        out = _engine.stream_step(
-            pts, self._centroids, self._counts, self.decay, self._groups,
-            self._members, self._gsize, assign, ub_t, lb_d, need, w,
-            core=self._local_core(cap_n, cap_g), gmax=gmax)
+        if sharded:
+            upd = self._sharded_update_fn(cap_n, cap_g, w is not None)
+            out = upd(pts, self._centroids, self._counts, self.decay,
+                      self._groups, self._members, self._gsize, assign,
+                      ub_t, lb_d, need, w, gmax=gmax)
+            st.sharded_batches += 1
+        else:
+            out = _engine.stream_step(
+                pts, self._centroids, self._counts, self.decay,
+                self._groups, self._members, self._gsize, assign, ub_t,
+                lb_d, need, w, core=self._local_core(cap_n, cap_g),
+                gmax=gmax)
         self._centroids, self._counts = out.centroids, out.counts
         if self.chaos_hook is not None:
             self.chaos_hook(self, sid)
 
         (nas_np, ub_np, lb_np, pairs, gmax, drift_np, gdrift_np,
-         bcounts_np, bcost) = _fetch_step(out, b, g)
+         bcounts_np, bcost) = (
+            _fetch_step_sharded(out, b, g, self._group, self._n_shards)
+            if sharded else _fetch_step(out, b, g))
         self._ledger.add(drift_np.astype(np.float64),
                          gdrift_np.astype(np.float64))
 
@@ -524,7 +656,7 @@ class StreamingKMeans:
             "stats": self.stats_.to_dict(),
             "shards_seen": sorted(self._shards_seen),
             "cache": cache_meta,
-            "n_shards_at_save": 1,
+            "n_shards_at_save": self._n_shards,
         }
         return leaves, meta
 
@@ -534,12 +666,25 @@ class StreamingKMeans:
         the ``LATEST`` pointer, an optional async writer thread
         (returned, for the caller to ``join``). ``step`` is the
         stream-schedule index the state stands at; a restore hands it
-        back so replay knows where to resume."""
+        back so replay knows where to resume.
+
+        Sharded, every rank calls it and rank 0 of the mesh writes (the
+        state is the same on every rank; the others return ``None``).
+        ``ckpt_dir`` must be one every rank reads. A synchronous save
+        returns on every rank once the checkpoint is published (a
+        barrier on the mesh's group); after an async one the caller
+        joins rank 0's writer and waits at :meth:`_barrier` before any
+        rank restores."""
         from ..checkpoint.checkpoint import save_checkpoint
-        leaves, meta = self._pack_state()
-        t = save_checkpoint(ckpt_dir, step, leaves, async_=async_,
-                            meta=meta)
+        self._require_fitted()
+        t = None
+        if self._rank == 0:
+            leaves, meta = self._pack_state()
+            t = save_checkpoint(ckpt_dir, step, leaves, async_=async_,
+                                meta=meta)
         self.stats_.ckpt_saves += 1
+        if not async_:
+            self._barrier()
         return t
 
     @classmethod
@@ -605,6 +750,10 @@ class StreamingKMeans:
                 gdrift_snap=np.array(gsnap), gmax=int(ce["gmax"]),
                 ub_scale=float(ce["ub_scale"])))
         self._buffer, self._buffered = [], 0
+        # a step built for the saving estimator's buckets stays valid,
+        # but drop it as the reference does
+        self._sharded_bounds = None
+        self._sharded_updates = {}
 
     def restore_state(self, ckpt_dir, *, step: int | None = None,
                       fallback: bool = True) -> int:
@@ -622,13 +771,18 @@ class StreamingKMeans:
 
     @classmethod
     def restore(cls, ckpt_dir, *, step: int | None = None, mesh=None,
-                mesh_axes=None, obs=None, fallback: bool = True,
+                mesh_axes=("data",), obs=None, fallback: bool = True,
                 device=None):
         """Build a fresh estimator on ``device`` (``None`` = ``cuda``)
         from a checkpoint, the package's own or the reference's. It is
         built with ``tune="off"`` and takes the checkpoint's
         ``min_bucket``, ``chunk`` and group-gather factor. Returns
-        ``(estimator, step)``. ``mesh=`` raises (item 9b)."""
+        ``(estimator, step)``.
+
+        The elastic entry point: ``mesh`` is the new mesh (grown,
+        shrunk, or ``None`` for one device), whatever mesh saved the
+        checkpoint; the state re-pads into it on the next batch. Every
+        rank of the new mesh calls it."""
         from ..checkpoint.checkpoint import load_checkpoint_arrays
         got_step, manifest, leaves = load_checkpoint_arrays(
             ckpt_dir, step=step, fallback=fallback)

@@ -1,5 +1,5 @@
 """Fault-tolerant streaming fits: checkpoint, restore, replay (port of
-``repro.streaming.resilient``, single device).
+``repro.streaming.resilient``).
 
 The glue between three pieces:
 
@@ -23,6 +23,17 @@ a fixed order (``centroid_update`` has no atomics), so the centroids,
 counts, ledger and bound cache land bit for bit on an uninterrupted
 run's. Only :class:`StreamStats` differs: replayed work is counted
 (``replayed_batches``, ``restores``, ``ckpt_saves``).
+
+Sharded (``StreamingKMeans(mesh=...)``): every rank of the mesh runs
+the loop with the same stream and the same injector. Rank 0 of the mesh
+writes the checkpoints into a directory every rank reads, and the ranks
+wait at a barrier on the mesh's group before the fit looks for an
+existing checkpoint and, after each save has been joined, before any
+rank restores; so every rank restores the same step. Bit parity holds
+for the same mesh. Elasticity rides on the same files: a checkpoint
+taken under one mesh restores under any other or none
+(:meth:`StreamingKMeans.restore`), where another partition of the
+reduction makes it numerical parity, not bit parity.
 
 Observability: with ``obs`` on the estimator, recovery is visible as
 ``ckpt_saves_total``, ``ckpt_save_seconds``, ``ckpt_last_step``,
@@ -76,6 +87,7 @@ def fit_stream_resilient(skm, stream, *, ckpt_dir, epochs: int = 1,
     reg = skm._obs.resolve_registry() if skm._obs is not None else None
 
     start = 0
+    skm._barrier()         # a checkpoint from before is there for all
     if resume and available_steps(ckpt_dir):
         start = skm.restore_state(ckpt_dir, fallback=True)
         if reg is not None:
@@ -120,6 +132,8 @@ def fit_stream_resilient(skm, stream, *, ckpt_dir, epochs: int = 1,
         return thread
 
     def restore_fn(state):
+        # the loop joined rank 0's writer: the newest save is published
+        skm._barrier()
         if available_steps(ckpt_dir):
             step = skm.restore_state(ckpt_dir, fallback=True)
             reason = "failure"

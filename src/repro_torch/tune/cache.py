@@ -96,11 +96,15 @@ class TuneCache:
             return None
         return EngineConfig.from_dict(e["config"])
 
-    def store(self, sig: str, config, **meta) -> None:
-        """Store ``config`` (an ``EngineConfig`` or ``ServeConfig``)."""
+    def store(self, sig: str, config, *, persist: bool = True,
+              **meta) -> None:
+        """Store ``config`` (an ``EngineConfig`` or ``ServeConfig``);
+        ``persist=False`` keeps it in memory only (the ranks of a mesh
+        but the one that writes the file)."""
         with self._lock:
             self.load()[sig] = {"config": config.to_dict(), **meta}
-            self.save()
+            if persist:
+                self.save()
 
     def drop(self, sig: str) -> None:
         with self._lock:

@@ -18,6 +18,13 @@ tests can drive the search with a stub; the default measures real
 wall-clock (best-of-``repeats`` of a full ``engine.fit``, the card
 synchronised after each, a warm-up call excluded).
 
+A sharded key (``shards > 1``, ``...|sS``) is searched by sharded
+measurement (:func:`sharded_timing_measure`, the sharded fit over a
+mesh): no backend grid and no Lloyd, only the compact knobs climb. Every
+rank of the mesh runs the search; each measurement is the slowest
+rank's, so every rank compares the same numbers and returns the same
+winner, and rank 0 of the mesh writes it to the cache file.
+
 Correctness is never at stake: every candidate gives bit-identical
 labels, ``n_iters`` and inertia (``tests/test_torch_tune.py`` asserts
 it), so the cache can be stale or hand-edited without risking results.
@@ -28,7 +35,6 @@ import time
 
 import torch
 
-from .._unported import ITEM_9B
 from ..core.engine import EngineConfig
 from ..device import as_float32, resolve_device
 from ..obs.trace import span
@@ -113,41 +119,116 @@ def timing_measure(points, init_c, *, n_groups=None, max_iters=50,
     return measure
 
 
-def sharded_timing_measure(*args, **kwargs):
-    raise NotImplementedError(
-        f"sharded_timing_measure is not ported yet: {ITEM_9B}")
+def sharded_timing_measure(shard_points, init_c, shards: int, *,
+                           mesh=None, axes=("data",), n_groups=None,
+                           max_iters=50, tol=1e-4, repeats=3, device=None):
+    """Measurement for the sharded keys (``...|sS``): the best of
+    ``repeats`` runs (a warm-up excluded) of
+    ``distributed_yinyang(backend="compact", config=cfg, tune="off")``,
+    the card synchronised inside each, so sharded winners come from
+    sharded measurement. Each run's time is the slowest rank's (a MAX
+    all-reduce over the mesh), so every rank gets the same number.
+
+    ``shard_points`` is one shard's worth of points, the unit the key
+    is keyed on; the global problem is its ``shards``-fold tiling, so
+    the per-rank shapes are those of a real S-way fit. ``mesh=None``
+    builds :func:`~repro_torch.core.distributed.make_mesh` ``(shards)``
+    over the initialised world (every rank of the world calls it; it
+    raises without one). ``device=None`` is ``cuda:(rank % card
+    count)``. Every rank of the mesh calls the measure with the same
+    configs, in the same order."""
+    from ..core import distributed as _dist
+    from ..core.engine import _all_reduce
+
+    if mesh is None:
+        mesh = _dist.make_mesh(shards)
+        axes = ("data",)
+    axes = tuple(axes)
+    if _dist._mesh_shards(mesh, axes) != int(shards):
+        raise ValueError(f"the mesh has {_dist._mesh_shards(mesh, axes)} "
+                         f"shards, not {shards}")
+    group = _dist._group(mesh, axes)
+    dev = _dist._default_device(device)
+    one = as_float32(shard_points, dev)
+    global_pts = torch.cat([one] * int(shards))
+    init_c = as_float32(init_c, dev)
+
+    def slowest(dt: float) -> float:
+        import torch.distributed as dist
+        t = torch.tensor([dt], dtype=torch.float64,
+                         device=dev if dist.get_backend(group) == "nccl"
+                         else "cpu")
+        return float(_all_reduce(t, group, dist.ReduceOp.MAX))
+
+    def measure(cfg: EngineConfig) -> float:
+        def run():
+            _dist.distributed_yinyang(
+                global_pts, init_c, mesh, axes=axes, n_groups=n_groups,
+                max_iters=max_iters, tol=tol, backend="compact",
+                config=cfg, tune="off", device=dev)
+            _sync(dev)
+
+        run()                               # build kernels + warm caches
+        best = float("inf")
+        # a fixed count: the ranks run the same collectives
+        for _ in range(max(int(repeats), 1)):
+            t0 = time.perf_counter()
+            run()
+            best = min(best, slowest(time.perf_counter() - t0))
+        return best
+
+    return measure
 
 
 def autotune(points, init_c, *, n_groups=None, max_iters: int = 50,
              tol: float = 1e-4, cache: TuneCache | None = None,
              measure=None, repeats: int = 3, max_rounds: int = 2,
              max_measurements: int = 32, platform: str | None = None,
-             shards: int = 1, device=None,
+             shards: int = 1, mesh=None, axes=("data",), device=None,
              verbose: bool = False) -> EngineConfig:
     """Search the engine configuration space for this problem on
     ``device`` (default ``cuda``) and store the winner under its
-    (platform, N, K, D) signature.
+    (platform, N, K, D[, shards]) signature.
 
     Returns the winning :class:`EngineConfig`. ``measure`` overrides the
     wall-clock measurement (tests use a stub); ``max_measurements``
     bounds the number of distinct configs measured. ``platform``
     defaults to the device's (:func:`platform_name`) and picks the
-    backend grid. ``shards > 1`` (the measured sharded search) raises
-    ``NotImplementedError``: ROADMAP item 9b."""
-    if int(shards) > 1:
-        raise NotImplementedError(
-            f"autotune(shards > 1) is not ported yet: {ITEM_9B}")
+    backend grid.
+
+    ``shards > 1`` tunes the sharded key, ``points`` being one shard's
+    worth: the default measure is :func:`sharded_timing_measure` over
+    ``mesh`` (``make_mesh(shards)`` over the world when ``None``), the
+    backend grid is skipped and the climb runs over the compact knobs.
+    Every rank of the mesh runs it and returns the same winner; each
+    holds it in its cache in memory, and rank 0 of the mesh writes the
+    file."""
+    shards = int(shards)
+    writer = True
+    if shards > 1:
+        from ..core import distributed as _dist
+        if mesh is None and measure is None:
+            mesh, axes = _dist.make_mesh(shards), ("data",)
+        if mesh is not None:
+            writer = _dist.mesh_rank(mesh, axes) == 0
+            device = _dist._default_device(device)
     if platform is None:
         platform = platform_name(resolve_device(device))
     n, d = points.shape
     k = init_c.shape[0]
-    sig = signature(n, k, d, platform)
+    sig = signature(n, k, d, platform, shards=shards)
     if cache is None:
         cache = default_cache()
     if measure is None:
-        measure = timing_measure(points, init_c, n_groups=n_groups,
-                                 max_iters=max_iters, tol=tol,
-                                 repeats=repeats, device=device)
+        if shards > 1:
+            measure = sharded_timing_measure(
+                points, init_c, shards, mesh=mesh, axes=axes,
+                n_groups=n_groups, max_iters=max_iters, tol=tol,
+                repeats=repeats, device=device)
+        else:
+            measure = timing_measure(points, init_c, n_groups=n_groups,
+                                     max_iters=max_iters, tol=tol,
+                                     repeats=repeats, device=device)
 
     memo: dict = {}
 
@@ -168,11 +249,17 @@ def autotune(points, init_c, *, n_groups=None, max_iters: int = 50,
     # phase 1: backend grid at default knobs. Lloyd is the bar to clear,
     # not a climb candidate: climb the best FILTERED backend even when
     # its default-knob seed loses to Lloyd, and settle the backend
-    # question after the climb
-    lloyd_cost = cost(EngineConfig(backend="lloyd"))
-    engine_seeds = [EngineConfig(backend=b)
-                    for b in candidate_backends(platform) if b != "lloyd"]
-    best = min(engine_seeds, key=cost)
+    # question after the climb. A sharded key has no backend question:
+    # the sharded fit is always the compact pass on the ladder
+    if shards > 1:
+        lloyd_cost = None
+        best = EngineConfig(backend="compact")
+    else:
+        lloyd_cost = cost(EngineConfig(backend="lloyd"))
+        engine_seeds = [EngineConfig(backend=b)
+                        for b in candidate_backends(platform)
+                        if b != "lloyd"]
+        best = min(engine_seeds, key=cost)
     best_cost = cost(best)
     climb_knobs = BACKEND_KNOBS[best.backend]
 
@@ -192,16 +279,18 @@ def autotune(points, init_c, *, n_groups=None, max_iters: int = 50,
             break
 
     # phase 3: the backend decision, made on tuned-vs-lloyd terms
-    if lloyd_cost < best_cost:
+    if lloyd_cost is not None and lloyd_cost < best_cost:
         best, best_cost = EngineConfig(backend="lloyd"), lloyd_cost
 
-    cache.store(sig, best, ms=best_cost * 1e3, measured=len(memo),
-                n=int(n), k=int(k), d=int(d), shards=1,
-                lloyd_ms=lloyd_cost * 1e3)
+    extra = {} if lloyd_cost is None else {"lloyd_ms": lloyd_cost * 1e3}
+    cache.store(sig, best, persist=writer, ms=best_cost * 1e3,
+                measured=len(memo), n=int(n), k=int(k), d=int(d),
+                shards=shards, **extra)
     if verbose:
+        vs = "" if lloyd_cost is None else \
+            f" vs lloyd {lloyd_cost * 1e3:.2f}ms"
         print(f"tune[{sig}] winner: {best.backend} "
-              f"{best_cost * 1e3:.2f}ms vs lloyd {lloyd_cost * 1e3:.2f}ms "
-              f"({len(memo)} configs)")
+              f"{best_cost * 1e3:.2f}ms{vs} ({len(memo)} configs)")
     return best
 
 

@@ -137,7 +137,9 @@ def test_uniform_weights_bit_identical(backend):
 
 
 def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
+    # the sharded stream has landed: a mesh is validated (an object that
+    # is not a 1-D mesh is refused by name)
+    with pytest.raises(ValueError, match="1-D mesh"):
         StreamingKMeans(2, mesh=object(), device="cpu")
     # the ladder runs only inside the sharded fit, as in the reference
     with pytest.raises(ValueError, match="ladder"):

@@ -199,7 +199,7 @@ def test_bf16_leaf_raises_type_error_naming_it(tmp_path):
 def test_shardings_and_default_device(tmp_path):
     save_checkpoint(tmp_path, 1, _state())
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 9"):
+                       match="ROADMAP Queue 1 item 11.5"):
         restore_checkpoint(tmp_path, _state(), shardings=object(), **CPU)
     if not torch.cuda.is_available():         # None means cuda
         with pytest.raises(RuntimeError, match="CUDA"):

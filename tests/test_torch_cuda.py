@@ -976,3 +976,31 @@ def test_sharded_fit_in_a_gloo_world_on_the_card():
     np.testing.assert_allclose(got["inertia"], float(one.inertia), rtol=1e-5)
     assert (got["assignments"] != one.assignments.cpu().numpy()).mean() \
         <= 1e-3
+
+
+@pytest.mark.cuda
+def test_sharded_stream_in_a_gloo_world_on_the_card():
+    """A world of 2 ``gloo`` ranks shares the card and streams the
+    6-shard stream of ``_stream_on_card`` for 3 epochs (``device=None``:
+    rank r on ``cuda:(r % count)``): the ranks agree bit for bit, each
+    launches ``centroid_update`` at least once a batch, and the stream
+    is held against the single-device stream on the card by its counts'
+    sum (exact), inertia (rtol 1e-3) and first labels (all but 1e-3;
+    another partition of the sums may part a near-tie, ROADMAP Queue 3
+    item 2)."""
+    _need_card()
+    import _torch_world
+    from repro_torch.core.distributed import spawn_world
+    ranks = spawn_world(_torch_world.card_stream_pair, 2, timeout=600)
+    got = ranks[0]
+    assert got["device"] == "cuda:0"
+    assert got["stats"]["sharded_batches"] == 18
+    assert all(r["launches"] >= 18 for r in ranks)
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["centroids"], got["centroids"])
+        assert r["stats"] == got["stats"]
+    local = _torch_world.card_stream(None)
+    assert local["stats"]["cache_hits"] == got["stats"]["cache_hits"] == 12
+    assert got["counts"].sum() == local["counts"].sum()
+    np.testing.assert_allclose(got["inertia"], local["inertia"], rtol=1e-3)
+    assert (got["first"] != local["first"]).mean() <= 1e-3

@@ -390,7 +390,12 @@ def test_stored_shard_config_is_adopted_without_changing_labels(port):
 
 def test_errors_name_their_cause(port):
     assert "shards" in port["mesh_error"]
-    assert "item 9b" in port["tune/force_error"]
+    # tune="force" on a miss now runs the sharded search once and
+    # stores its winner under the |s8 key
+    sig, entry, cfg = port["tune/force_entry"]
+    assert sig.endswith(f"|s{WORLD}")
+    assert entry["shards"] == WORLD and "lloyd_ms" not in entry
+    assert EngineConfig.from_dict(entry["config"]) == cfg
 
 
 # -- a world that fails or hangs ----------------------------------------------

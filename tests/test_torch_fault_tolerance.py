@@ -148,5 +148,6 @@ def test_only_injected_failures_are_recovered(tmp_path):
                          async_ckpt=False)
     with pytest.raises(InjectedFailure):
         loop.run(t0, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 11.5"):
         loop.run(t0, 8, state_shardings=object())

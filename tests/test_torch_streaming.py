@@ -699,10 +699,15 @@ def test_later_items_raise_with_their_roadmap_items(tmp_path):
         StreamingKMeans.restore(tmp_path, **CPU)
     with pytest.raises(ValueError, match="global_batch"):
         skm.fit_stream([], resilient=True, ckpt_dir=tmp_path)
-    for kw in ({"mesh": object()}, {"mesh_axes": ("data",)}):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 9"):
-            StreamingKMeans(2, **CPU, **kw)
+    # item 9b has landed: a mesh is validated, and the axes alone build
+    # a single-device estimator
+    with pytest.raises(ValueError, match="1-D mesh"):
+        StreamingKMeans(2, mesh=object(), **CPU)
+    with pytest.raises(ValueError, match="1-D mesh"):
+        StreamingKMeans(2, mesh=object(), mesh_axes=("model",), **CPU)
+    skm = StreamingKMeans(2, mesh_axes=("data",), **CPU)
+    assert skm.mesh is None and skm.mesh_axes == ("data",)
+    assert skm.partial_fit(np.eye(4, dtype=np.float32)).initialized
     if not torch.cuda.is_available():         # the default device
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamingKMeans(2)

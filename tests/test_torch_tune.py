@@ -122,9 +122,11 @@ def test_ports_keys_never_match_jax_keys():
             "cuda" if torch.cuda.is_available() else "cpu"))
 
 
-def test_sharded_keys_raise_not_implemented():
+def test_sharded_keys_raise_not_implemented(tmp_path):
     # the sharded keys are the reference's (|sS, n per shard); the
-    # measured sharded search still raises, naming item 9b
+    # sharded search under a stub measure stores under |s4 and leaves
+    # the single-device key alone (the reference's test_tune.py:345);
+    # its default measure needs a world
     pts, init = _dataset(512, 8, 16)
     sig = tune.signature(512, 16, 8, "cpu", shards=4)
     assert sig == "torch|cpu|n512|k16|d8|s4"
@@ -133,11 +135,23 @@ def test_sharded_keys_raise_not_implemented():
     assert tune.signature(512, 16, 8, "cpu", shards=1) == \
         "torch|cpu|n512|k16|d8"
     assert tune.lookup(n=512, k=16, d=8, shards=4) is None
-    for call in (lambda: tune.autotune(pts, init, shards=4, platform="cpu",
-                                       measure=lambda cfg: 1.0),
-                 lambda: tune.sharded_timing_measure(pts, init, 4)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-            call()
+    cache = tune.TuneCache(path=str(tmp_path / "t.json"))
+    seen = []
+
+    def measure(cfg):
+        seen.append(cfg.backend)
+        return 1.0 + 0.1 * (cfg.min_cap != 256)
+
+    best = tune.autotune(pts, init, shards=4, platform="cpu", cache=cache,
+                         measure=measure)
+    assert set(seen) == {"compact"} and best.backend == "compact"
+    assert cache.signatures() == [sig]
+    assert "lloyd_ms" not in cache.entry(sig)
+    assert cache.entry(sig)["shards"] == 4
+    assert tune.TuneCache(path=cache.path).lookup(sig) == best
+    assert cache.lookup(tune.signature(512, 16, 8, "cpu")) is None
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        tune.sharded_timing_measure(pts, init, 4, device="cpu")
 
 
 # -- search -----------------------------------------------------------------
