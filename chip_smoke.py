@@ -215,12 +215,50 @@ the order they run:
    the 4-rank mesh and a 4-rank checkpoint shrunk into the 2-rank mesh,
    each within 2% of its uninterrupted run's inertia.
 
-Phases 11-17 run after phase 7, before 2c. The last lines are a
-``kernels`` JSON line (each kernel's ``launches`` is the sum of its
-``launches_by_path``: the k-means kernels' on the main fit and predict,
-phase 13's ``kernel`` backend, phase 14's stream, phase 15's resilient
-stream, phase 16's sharded fit and phase 17's sharded stream, each
-summed over its ranks), the card's name
+2d. the backward kernels (``flash_attention_gqa_bwd``,
+   ``ssd_intra_chunks_bwd``) against their plain versions, after 2c:
+   attention at hymba-1.5b's training shape (B = 2, S = 2048, 25/5
+   heads of 64) in bf16 and fp32, at a ragged S in bf16 and at S = 1000
+   in fp32 at a head dim of 128; SSD at hymba-1.5b's training cells, at
+   Q = 100 and at mamba2-780m's widths (N = 128, P = 64): each gradient
+   within 1e-4 (fp32) of the plain version's largest |value|, in bf16
+   within 3e-2 or 1.5 times the distance of autograd through
+   ``scaled_dot_product_attention`` from the plain version, whichever
+   is larger; two calls bit for bit; the training shapes timed by CUDA
+   events beside the bound, the plain version and (attention) the
+   autograd backward of SDPA;
+18. hymba-1.5b training at full width and depth (1.64e9 bf16
+   parameters, fp32 moments, ``remat="full"``): 4 steps of 2 x 2048
+   tokens from ``TokenPipeline(seed=0)``, counts reset just before and
+   read just after (each step: 64 forward launches of each LM kernel,
+   the layer's own and its recomputation, all attention on the tensor
+   cores, and 32 of each backward kernel); step ms (median of the last
+   3), tokens/s and peak memory; (a) the first step through the plain
+   route (plain forwards, plain backward formulas) against the kernels'
+   in loss and ``grad_norm``, within 3e-2 or 1.5 times the distance of
+   a route through SDPA's autograd from the plain one, whichever is
+   larger; (b) the first step twice from one state: parameters and
+   moments bit for bit; (c) every loss finite;
+19. ``ResilientLoop`` over hymba-1.5b at full width, cut to 2 layers
+   and 512 tokens (checkpoints of about 2 GB): 8 steps, a checkpoint
+   every 4, a failure at step 6; the final parameters and moments the
+   uninterrupted run's bit for bit;
+20. the rest of the k-means surface: the three examples
+   (``repro_torch.examples``) as processes with ``--device cuda``
+   (``serve_kmeans --smoke``), each exiting 0; phase 14's stream
+   through ``PrefetchingLoader`` into ``fit_stream`` for one epoch,
+   bit for bit the directly fed epoch; ``cluster_kv_cache`` over phase
+   10's layer-0 KV cache (S = 2048, 5 kv heads of 64, K = 64): counts
+   summing to S a head, centroids within 1e-4 of the same call on the
+   CPU from the same seeds.
+
+Phases 11-17 run after phase 7, before 2c; 2d, then 18-20, after 10.
+The last lines are a ``kernels`` JSON line (each kernel's ``launches``
+is the sum of its ``launches_by_path``: the k-means kernels' on the
+main fit and predict, phase 13's ``kernel`` backend, phase 14's stream,
+phase 15's resilient stream, phase 16's sharded fit and phase 17's
+sharded stream, each summed over its ranks; the LM kernels' on phase
+10's serving path and phase 18's training steps), the card's name
 and power limit from ``nvidia-smi``, and ``{"ok": true, "device":
 {...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
@@ -248,12 +286,34 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# uci-xlarge and uci-wide of the paper suite (repro/configs/kpynq.py),
-# copied
-XLARGE = dict(n=1 << 20, d=32, k=256, max_iters=50, tol=1e-4)
-WIDE = dict(n=32_768, d=128, k=64, max_iters=50, tol=1e-4)
+
+def paper_problem(name: str):
+    """A problem of the paper suite (``repro_torch.configs.paper_suite``)
+    as the dict the phases read: n, d, k, max_iters, tol."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.kpynq import paper_suite
+    p = next(p for p in paper_suite if p.name == name)
+    return dict(n=p.n_points, d=p.n_dims, k=p.k, max_iters=p.max_iters,
+                tol=p.tol)
+
+
+# uci-xlarge, uci-wide and uci-highk of the paper suite; without the
+# repository beside this file there is none, and main() says so
+try:
+    XLARGE, WIDE, HIGHK = (paper_problem(nm) for nm in
+                           ("uci-xlarge", "uci-wide", "uci-highk"))
+except ImportError:
+    XLARGE = WIDE = HIGHK = None
 # the LM serving path: hymba-1.5b at full width and depth, 2 prompts
 SERVE = dict(arch="hymba-1.5b", batch=2, prompt=2048, steps=32)
+# LM training at hymba-1.5b's full width: phase 18 at full depth, phase
+# 19 cut to 2 layers and 512 tokens (checkpoints of about 2 GB)
+TRAIN = dict(arch="hymba-1.5b", batch=2, seq=2048, steps=4)
+RESILIENT_TRAIN = dict(layers=2, seq=512, steps=8, ckpt_every=4,
+                       fail_at=6)
+# phase 20: the k-means clusters of phase 10's layer-0 KV cache
+KV_CLUSTERS = 64
 # device peaks by card name: (bytes/s, fp32 FLOP/s without tensor
 # cores, dense bf16 tensor-core FLOP/s), from NVIDIA's data sheets; SXM
 # figures unless the name says otherwise
@@ -355,6 +415,20 @@ def device_ms_by_kernel(fn, calls: int = 10) -> dict:
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total}
 
 
+def host_ms(fn, calls: int = 20) -> float:
+    """Host ms a call of ``fn`` takes to enqueue its work, without
+    waiting for the card (after a warm-up call and a sync): beside an
+    events time, it says whether the host or the card sets the pace."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = (time.perf_counter() - t0) * 1e3 / calls
+    sync()
+    return dt
+
+
 def roof(nbytes: float, flops: float, bw: float, peak: float):
     """(least ms, "bytes" or "operations"): the larger of the two."""
     t_b, t_f = nbytes / bw * 1e3, flops / peak * 1e3
@@ -406,6 +480,14 @@ def lm_route(attention, ssd_chunks):
 def plain_route():
     fla, ssd = kernel_module("flash_attention"), kernel_module("ssd_intra")
     return lm_route(fla.flash_attention_gqa_plain, ssd.ssd_intra_chunks_plain)
+
+
+def plain_train_route():
+    """Both LM kernels swapped for their plain forwards with their plain
+    backward formulas (``*_plain_vjp``): a training step's plain route."""
+    fla, ssd = kernel_module("flash_attention"), kernel_module("ssd_intra")
+    return lm_route(fla.flash_attention_gqa_plain_vjp,
+                    ssd.ssd_intra_chunks_plain_vjp)
 
 
 def sdpa_gqa(q, k, v):
@@ -634,7 +716,8 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
 def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
     """Phase 10: the LM serving path of ``cfg``: ``batch`` prompts of
     ``prompt`` tokens, then ``steps`` greedy decode steps. Returns the
-    report, with the launches of the main path (prefill + decode)."""
+    report, with the launches of the main path (prefill + decode), and
+    the first prompt's layer-0 keys and values (S, KV, Dh)."""
     import torch
 
     from repro_torch.models import init_params
@@ -800,7 +883,9 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
     rep["trace_decode"] = traced(
         lambda: serve_step(params, cache, tok, s + steps),
         "traced decode step")
-    return rep
+    # phase 20's input: the first prompt's layer-0 keys and values
+    kv0 = tuple(cache[nm][0, 0, :s].clone() for nm in ("k", "v"))
+    return rep, kv0
 
 
 def decode_cache(cfg, pcache, max_len, dev):
@@ -826,11 +911,446 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+# -- phase 2d: the backward kernels against their plain versions --------------
+
+def rel_err(a, b) -> float:
+    """max |a - b| over the largest |b|, in fp32."""
+    b = b.float()
+    return float((a.float() - b).abs().max()) / (float(b.abs().max())
+                                                 + 1e-30)
+
+
+def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
+    """Phase 2d: ``flash_attention_gqa_bwd`` and ``ssd_intra_chunks_bwd``
+    against their plain versions at the shapes ``cfg``'s training step
+    gives them for ``batch`` rows of ``seq`` tokens, and at ragged ones.
+    Returns the timed entries of the training shapes (attention, SSD)."""
+    import torch
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    fla, ssd = kernel_module("flash_attention"), kernel_module("ssd_intra")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def attn_case(label, b, s, h, kvh, d, dtype, timed=False):
+        q, do = randn(b, s, h, d, dtype=dtype), randn(b, s, h, d, dtype=dtype)
+        k, v = (randn(b, s, kvh, d, dtype=dtype) for _ in range(2))
+        o = kernels.flash_attention_gqa(q, k, v)
+        got = fla.flash_attention_gqa_bwd(q, k, v, o, do)
+        again = fla.flash_attention_gqa_bwd(q, k, v, o, do)
+        want = fla.flash_attention_gqa_bwd_plain(q, k, v, o, do)
+        sync()
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        del again
+        errs = {nm: rel_err(g, w) for nm, g, w in zip(("dq", "dk", "dv"),
+                                                       got, want)}
+        floor = None
+        if dtype == torch.float32:
+            tol = 1e-4
+        else:
+            # another correct backward: autograd through SDPA
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            lib = torch.autograd.grad(sdpa_gqa(*leaves), leaves, do)
+            floor = max(rel_err(a, w) for a, w in zip(lib, want))
+            tol = max(3e-2, 1.5 * floor)
+            del lib, leaves
+        check(same, f"flash_attention_bwd {label}: two calls differ")
+        check(all(bool(torch.isfinite(g).all()) and g.shape == w.shape
+                  and g.dtype == dtype for g, w in zip(got, want)),
+              f"flash_attention_bwd {label}: non-finite or misshapen grads")
+        check(max(errs.values()) <= tol, f"flash_attention_bwd {label}: "
+              f"{errs} of the plain version's scale, beyond {tol:.3g}")
+        entry = dict(case=label, shape=dict(b=b, s=s, h=h, kv=kvh, d=d),
+                     dtype=str(dtype), rel_err=errs, tol=tol,
+                     sdpa_rel_err=floor, deterministic=same,
+                     max_abs_err=max(float((g.float() - w.float()).abs()
+                                           .max())
+                                     for g, w in zip(got, want)))
+        del got, want
+        if timed:
+            es = q.element_size()
+            # q, o, dO in and dq out; k, v in and dk, dv out
+            nbytes = es * (4 * b * s * h * d + 4 * b * s * kvh * d)
+            # the five products a backward needs (S again, dV, dP, dQ,
+            # dK) over the causal half: 2.5x the forward's
+            flops = 5 * 2.0 * d * b * h * s * (s + 1) / 2
+            peak = fp32 if dtype == torch.float32 else bf16
+            bound_ms, by = roof(nbytes, flops, bw, peak)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = sdpa_gqa(*leaves)
+
+            def new():
+                return fla.flash_attention_gqa_bwd(q, k, v, o, do)
+
+            def library():
+                return torch.autograd.grad(out, leaves, do,
+                                           retain_graph=True)
+            turns = {"library": [median_ms(library)],
+                     "new": [median_ms(new), median_ms(new)]}
+            turns["library"].append(median_ms(library))
+            entry.update(
+                ms=statistics.mean(turns["new"]), turns_ms=turns,
+                plain_ms=median_ms(
+                    lambda: fla.flash_attention_gqa_bwd_plain(q, k, v, o,
+                                                              do),
+                    reps=3, inner=1),
+                bound_ms=bound_ms, bound_by=by,
+                library_ms=statistics.mean(turns["library"]),
+                device_ms=device_ms_by_kernel(new), host_ms=host_ms(new))
+            del out, leaves
+        log(f"flash_attention_bwd {label}: {json.dumps(entry)}")
+        return entry
+
+    def ssd_case(label, bsz, nc, q, h, g, n, p, timed=False):
+        C, B = (randn(bsz, nc, q, g, n) for _ in range(2))
+        x, dy = (randn(bsz, nc, q, h, p) for _ in range(2))
+        step = torch.nn.functional.softplus(randn(bsz, nc, q, h)) * 0.1
+        cum = torch.cumsum(-step, dim=2)
+        args = (C, B, x, cum, dy)
+        got = ssd.ssd_intra_chunks_bwd(*args)
+        again = ssd.ssd_intra_chunks_bwd(*args)
+        want = ssd.ssd_intra_chunks_bwd_plain(*args)
+        sync()
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        del again
+        errs = {nm: rel_err(gr, w) for nm, gr, w in
+                zip(("dC", "dB", "dx", "dcum"), got, want)}
+        check(same, f"ssd_intra_bwd {label}: two calls differ")
+        check(all(bool(torch.isfinite(gr).all()) and gr.shape == t.shape
+                  for gr, t in zip(got, (C, B, x, cum))),
+              f"ssd_intra_bwd {label}: non-finite or misshapen grads")
+        check(max(errs.values()) <= 1e-4, f"ssd_intra_bwd {label}: {errs} "
+              f"of the plain version's scale, beyond 1e-4")
+        entry = dict(case=label, shape=dict(b=bsz, nc=nc, q=q, h=h, g=g,
+                                            n=n, p=p),
+                     rel_err=errs, tol=1e-4, deterministic=same,
+                     max_abs_err=max(float((gr - w).abs().max())
+                                     for gr, w in zip(got, want)))
+        del got, want
+        if timed:
+            cells, pairs = bsz * nc * h, q * (q + 1) / 2
+            # dS and dx (P-long products), M, dC and dB (N-long) over
+            # the causal half of each cell
+            flops = cells * pairs * 2.0 * (2 * p + 3 * n)
+            nbytes = 4 * 2 * (C.numel() + B.numel() + x.numel()
+                              + cum.numel()) + 4 * dy.numel()
+            bound_ms, by = roof(nbytes, flops, bw, fp32)
+
+            def new():
+                return ssd.ssd_intra_chunks_bwd(*args)
+            entry.update(
+                ms=median_ms(new), device_ms=device_ms_by_kernel(new),
+                host_ms=host_ms(new),
+                plain_ms=median_ms(
+                    lambda: ssd.ssd_intra_chunks_bwd_plain(*args), reps=3,
+                    inner=1),
+                bound_ms=bound_ms, bound_by=by, library_ms=None,
+                library="none: no single PyTorch call")
+        log(f"ssd_intra_bwd {label}: {json.dumps(entry)}")
+        return entry
+
+    b, s = batch, seq
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    bf = torch.bfloat16
+    attn_main = attn_case(f"{cfg.name} training B={b} S={s}", b, s, h, kvh,
+                          d, bf, timed=True)
+    attn_case(f"{cfg.name} training B={b} S={s} fp32", b, s, h, kvh, d,
+              torch.float32)
+    attn_case(f"ragged S={s + 1} bf16", 1, s + 1, h, kvh, d, bf)
+    attn_case("ragged S=1000 fp32, 28/4 heads of 128", 1, 1000, 28, 4, 128,
+              torch.float32)
+    m = cfg.ssm
+    ssd_main = ssd_case(f"{cfg.name} training B={b} S={s}", b, s // m.chunk,
+                        m.chunk, m.n_heads, m.n_groups, m.d_state,
+                        m.head_dim, timed=True)
+    ssd_case(f"{cfg.name} cells Q=100", b, 4, 100, m.n_heads, m.n_groups,
+             m.d_state, m.head_dim)
+    m2 = get_config("mamba2-780m").ssm
+    ssd_case("mamba2-780m cells", b, 4, m2.chunk, m2.n_heads, m2.n_groups,
+             m2.d_state, m2.head_dim)
+    return attn_main, ssd_main
+
+
+# -- phase 18: LM training at full width and depth ---------------------------
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    return all(torch_equal(x, y) for x, y in zip(tree_flatten(a)[0],
+                                                 tree_flatten(b)[0]))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+
+
+def train_phase(dev, gen, wrappers, cfg, batch, seq, steps):
+    """Phase 18: ``cfg``'s training at full width and depth, ``steps``
+    steps of ``batch`` x ``seq`` tokens from ``TokenPipeline(seed=0)``.
+    Returns the report, with the main path's launches."""
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    state0 = init_train_state(cfg, gen, device=dev)
+    sync()
+    n_params = sum(t.numel() for t in _leaves(state0.params))
+    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model},"
+        f" remat {cfg.remat!r}), {n_params} params in {cfg.dtype} with fp32 "
+        f"moments, made in {time.perf_counter() - t0:.2f} s")
+    pipe = TokenPipeline(cfg, batch=batch, seq=seq, seed=0)
+    step = make_train_step(cfg)
+    first = pipe.global_batch(0)
+
+    # (b) the first step twice from one state: the same bits
+    s1, m1 = step(state0, first)
+    s1b, m1b = step(state0, first)
+    sync()
+    same = _tree_equal(s1, s1b) and torch_equal(m1["loss"], m1b["loss"]) \
+        and torch_equal(m1["grad_norm"], m1b["grad_norm"])
+    del s1, s1b, m1b
+    check(same, "train: the same step from one state gave other bits")
+
+    # (a) the first step through the plain route, and through a second
+    # correct route (SDPA's autograd for attention, the plain SSD)
+    ssd_vjp = kernel_module("ssd_intra").ssd_intra_chunks_plain_vjp
+    with plain_train_route():
+        mp = step(state0, first)[1]
+    with lm_route(sdpa_gqa, ssd_vjp):
+        ms_ = step(state0, first)[1]
+    sync()
+
+    def rel(a, b_):
+        return abs(float(a) - float(b_)) / abs(float(b_))
+    floor = max(rel(ms_[k], mp[k]) for k in ("loss", "grad_norm"))
+    bound = max(3e-2, 1.5 * floor)
+    errs = {k: rel(m1[k], mp[k]) for k in ("loss", "grad_norm")}
+    log(f"train: first step, kernels {float(m1['loss']):.6f} loss "
+        f"{float(m1['grad_norm']):.6f} grad_norm; plain route "
+        f"{float(mp['loss']):.6f}, {float(mp['grad_norm']):.6f}; SDPA route "
+        f"{float(ms_['loss']):.6f}, {float(ms_['grad_norm']):.6f}; kernels "
+        f"vs plain {errs}, bound {bound:.4g}")
+    check(max(errs.values()) <= bound, f"train: the kernels' first step is "
+          f"{errs} from the plain route's, beyond {bound:.3g}")
+
+    # the main path: steps from state0, counts reset just before
+    reset_launches(wrappers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = state0
+    del state0
+    losses, norms, step_ms = [], [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        batch_i = pipe.global_batch(i)
+        sync()
+        t1 = time.perf_counter()
+        state, met = step(state, batch_i)
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    path_s = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(int(state.step) == steps, "train: the state's step counter")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"train: non-finite loss or grad_norm {losses} {norms}")
+    per_step = {nm: c / steps for nm, c in launches.items()}
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention.tc": 2 * cfg.n_layers,
+            "flash_attention.ffma": 0, "ssd_intra": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "ssd_intra_bwd": cfg.n_layers}
+    for nm, cnt in per_step.items():
+        check(cnt == want.get(nm, 0), f"train: {nm} launched {cnt} times a "
+              f"step, not {want.get(nm, 0)}")
+    med = statistics.median(step_ms[1:])
+    rep = dict(arch=cfg.name, batch=batch, seq=seq, steps=steps,
+               params=n_params, remat=cfg.remat, launches=launches,
+               launches_per_step=per_step, main_path_s=path_s,
+               step_ms=step_ms, step_ms_median_last=med,
+               tokens_per_s=batch * seq / (med / 1e3), losses=losses,
+               grad_norms=norms, peak_gib=peak_gib,
+               first_step=dict(kernels={k: float(m1[k]) for k in errs},
+                               plain={k: float(mp[k]) for k in errs},
+                               sdpa={k: float(ms_[k]) for k in errs},
+                               rel_err=errs, sdpa_rel_err=floor,
+                               bound=bound),
+               deterministic=same)
+    log(f"train: {steps} steps in {path_s:.3f} s, step ms {step_ms} (median "
+        f"of the last {steps - 1}: {med:.2f} ms, {rep['tokens_per_s']:.5g} "
+        f"tokens/s); losses {losses}; peak memory {peak_gib:.3f} GiB; "
+        f"launches a step {per_step}")
+    # where a step's time goes: one more step, traced, after the path
+    nxt = pipe.global_batch(steps)
+    rep["trace"] = traced(lambda: step(state, nxt), "traced train step")
+    return rep
+
+
+# -- phase 19: the resilient training loop ------------------------------------
+
+def resilient_train_phase(dev, gen, cfg, tmpdir, layers, seq, steps,
+                          ckpt_every, fail_at):
+    """Phase 19: ``ResilientLoop`` over ``cfg`` at full width cut to
+    ``layers`` layers and ``seq`` tokens: ``steps`` steps with a
+    checkpoint every ``ckpt_every`` and a failure at ``fail_at``, against
+    the uninterrupted run bit for bit."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.runtime import FailureInjector, ResilientLoop
+    from repro_torch.train import init_train_state, make_train_step
+
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    state = init_train_state(cut, gen, device=dev)
+    pipe = TokenPipeline(cut, batch=2, seq=seq, seed=0)
+    step = make_train_step(cut)
+
+    def run(tag, fail):
+        loop = ResilientLoop(step, pipe, Path(tmpdir) / tag,
+                             ckpt_every=ckpt_every,
+                             injector=FailureInjector(fail))
+        t0 = time.perf_counter()
+        final = loop.run(state, steps)
+        sync()
+        return loop, final, time.perf_counter() - t0
+
+    _, clean, clean_s = run("clean", ())
+    loop, faulted, fault_s = run("fault", (fail_at,))
+    ckpt = Path(tmpdir) / "clean" / f"step_{ckpt_every:06d}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+    same = _tree_equal(clean, faulted)
+    shutil.rmtree(tmpdir, ignore_errors=True)
+    rep = dict(layers=layers, seq=seq, steps=steps, ckpt_every=ckpt_every,
+               fail_at=fail_at, restarts=loop.restarts,
+               checkpoint_bytes=ckpt_bytes, clean_s=clean_s,
+               faulted_s=fault_s, bit_for_bit=same,
+               losses=[m["loss"] for m in loop.metrics_log])
+    log(f"resilient train: {cfg.name} cut to {layers} layers and {seq} "
+        f"tokens, {steps} steps, a checkpoint every {ckpt_every} "
+        f"({ckpt_bytes / 1e9:.3f} GB), a failure at step {fail_at}: "
+        f"{loop.restarts} restart, uninterrupted {clean_s:.2f} s, faulted "
+        f"{fault_s:.2f} s, final state bit for bit: {same}")
+    check(loop.restarts == 1, "resilient train: no restart happened")
+    check(same, "resilient train: the replayed run's final state differs "
+          "from the uninterrupted run's")
+    return rep
+
+
+# -- phase 20: the rest of the k-means surface --------------------------------
+
+EXAMPLES = {"quickstart": [], "kmeans_clustering": [],
+            "serve_kmeans": ["--smoke"]}
+
+
+def kmeans_surface_phase(dev, pts_np, k, n_groups, kv0, n_clusters,
+                         shard=None, examples=EXAMPLES,
+                         example_device="cuda"):
+    """Phase 20: the examples as processes, phase 14's stream through
+    ``PrefetchingLoader``, and ``cluster_kv_cache`` over ``kv0`` (keys
+    and values (S, KV, Dh) on the card) against the same call on the
+    CPU from the same seeds."""
+    import torch
+
+    from repro_torch.core.init import kmeans_plusplus
+    from repro_torch.core.integrations import (cluster_kv_cache,
+                                               clustered_attention_scores)
+    from repro_torch.data import PointStream, PrefetchingLoader
+
+    shard = shard or STREAM["shard"]
+    rep = {}
+    # (a) the examples, at once, as a user runs them
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = {nm: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{nm}", "--device",
+         example_device, *extra], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for nm, extra in
+        examples.items()}
+    outs = {}
+    try:
+        for nm, proc in procs.items():
+            outs[nm] = proc.communicate(timeout=600)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rep["examples_s"] = time.perf_counter() - t0
+    rep["examples"] = {nm: proc.returncode for nm, proc in procs.items()}
+    for nm, out in outs.items():
+        tail = out.strip().splitlines()[-3:]
+        log(f"example {nm}: exit {procs[nm].returncode}; " + " | ".join(tail))
+        check(procs[nm].returncode == 0, f"example {nm} failed:\n"
+              f"{out[-3000:]}")
+
+    # (b) phase 14's stream through the prefetch thread, one epoch
+    stream = PointStream(shard_size=shard, data=pts_np)
+    t0 = time.perf_counter()
+    direct = stream_estimator(dev, k, n_groups, shard).fit_stream(stream)
+    sync()
+    direct_s = time.perf_counter() - t0
+    loader = PrefetchingLoader(stream, device=dev)
+    t0 = time.perf_counter()
+    try:
+        fed = stream_estimator(dev, k, n_groups, shard).fit_stream(
+            next(loader) for _ in range(stream.n_shards))
+        sync()
+    finally:
+        loader.close()
+    fed_s = time.perf_counter() - t0
+    same = torch_equal(fed._centroids, direct._centroids) and \
+        torch_equal(fed._counts, direct._counts)
+    rep["prefetch"] = dict(batches=stream.n_shards, direct_s=direct_s,
+                           prefetched_s=fed_s, bit_for_bit=same)
+    log(f"prefetch: {stream.n_shards} batches through PrefetchingLoader "
+        f"{fed_s:.3f} s, fed directly {direct_s:.3f} s; centroids and "
+        f"counts bit for bit: {same}")
+    check(same, "prefetch: the prefetched epoch differs from the direct one")
+
+    # (c) the layer-0 KV cache, clustered on the card and on the CPU
+    kc, vc = kv0
+    s, kvh, _ = kc.shape
+    k_cpu, v_cpu = kc.float().cpu(), vc.float().cpu()
+    inits = torch.stack([kmeans_plusplus(torch.Generator().manual_seed(hd),
+                                         k_cpu[:, hd], n_clusters)
+                         for hd in range(kvh)])
+    t0 = time.perf_counter()
+    card = cluster_kv_cache(kc, vc, n_clusters, inits=inits)
+    sync()
+    card_s = time.perf_counter() - t0
+    cpu = cluster_kv_cache(k_cpu, v_cpu, n_clusters, inits=inits)
+    counts_ok = bool((card[2].sum(0) == s).all())
+    scale = max(1.0, float(cpu[0].abs().max()))
+    cent_err = float((card[0].cpu() - cpu[0]).abs().max())
+    val_err = float((card[1].cpu() - cpu[1]).abs().max())
+    count_diff = int((card[2].cpu() != cpu[2]).sum())
+    probs = clustered_attention_scores(kc[-1].float(), card[0], card[2],
+                                       kc.shape[-1] ** -0.5)
+    rep["kv_cache"] = dict(s=s, kv_heads=kvh, clusters=n_clusters,
+                           seconds=card_s, counts_sum_to_s=counts_ok,
+                           centroid_max_abs_diff=cent_err, scale=scale,
+                           value_max_abs_diff=val_err,
+                           count_slots_differing=count_diff)
+    log(f"kv cache: {kvh} heads of {s} keys into {n_clusters} clusters in "
+        f"{card_s:.3f} s on the card; counts sum to S: {counts_ok}; "
+        f"centroids {cent_err:.3g} from the CPU's (scale {scale:.3g}), "
+        f"values {val_err:.3g}, {count_diff} counts differ; scores sum "
+        f"{float(probs.sum(-1).max()):.6f}")
+    check(counts_ok, "kv cache: counts do not sum to S a head")
+    check(cent_err <= 1e-4 * scale, f"kv cache: centroids {cent_err:.3g} "
+          f"from the CPU's, beyond 1e-4 of scale {scale:.3g}")
+    return rep
+
+
 # the port's own kernels (csrc/*.cu's __global__ functions), as the
 # profiler names them
 PORT_KERNEL = re.compile(r"^(void )?(\(anonymous namespace\)|tc|simt)::"
                          r"(ga|ga_plan|ga_simple|cu_partial|cu_reduce|psd|fa|"
-                         r"fa_tc|ssd)(_kernel)?[<(]")
+                         r"fa_tc|ssd|fa_bwd_pre|fa_bwd_dkdv|fa_bwd_dq|"
+                         r"ssd_bwd_cell|ssd_bwd_reduce)(_kernel)?[<(]")
 
 
 def traced(fn, label):
@@ -2588,7 +3108,12 @@ def main() -> None:
                 # each counts both its wrappers' launches (the entry
                 # point's and the model's)
                 "flash_attention": kernels.flash_attention,
-                "ssd_intra": kernels.ssd_intra}
+                "ssd_intra": kernels.ssd_intra,
+                # the model's backward launches (training)
+                "flash_attention_bwd":
+                    kernel_module("flash_attention").flash_attention_gqa_bwd,
+                "ssd_intra_bwd":
+                    kernel_module("ssd_intra").ssd_intra_chunks_bwd}
 
     @contextlib.contextmanager
     def plain_versions():
@@ -2803,15 +3328,16 @@ def main() -> None:
     cu_case("uci-xlarge weighted", points, blob, k,
             torch.rand(n, generator=gen, device=dev))
 
-    hk_np, hk_c, _ = make_points(262_144, 32, 1024, seed=1)
+    hk_n, hk_k = HIGHK["n"], HIGHK["k"]
+    hk_np, hk_c, _ = make_points(hk_n, HIGHK["d"], hk_k, seed=1)
     hk = torch.from_numpy(hk_np).to(dev)
-    hk_cent = hk[:: 262_144 // 1024][:1024].contiguous()
+    hk_cent = hk[:: hk_n // hk_k][:hk_k].contiguous()
     for dens in (1.0, 0.3):
-        ga_case(f"uci-highk K=1024 G=102 density {dens}", hk, hk_cent, 102,
-                dens)
-    hk_lab = torch.randint(-1, 1024, (262_144,), generator=gen, device=dev,
+        ga_case(f"uci-highk K={hk_k} G={hk_k // 10} density {dens}", hk,
+                hk_cent, hk_k // 10, dens)
+    hk_lab = torch.randint(-1, hk_k, (hk_n,), generator=gen, device=dev,
                            dtype=torch.int32)
-    cu_case("uci-highk K=1024 with -1 labels", hk, hk_lab, 1024)
+    cu_case(f"uci-highk K={hk_k} with -1 labels", hk, hk_lab, hk_k)
 
     hm_np, _, _ = make_points(65_536, 128, 1024, seed=2)
     hm = torch.from_numpy(hm_np).to(dev)
@@ -3058,7 +3584,7 @@ def main() -> None:
         for dens in (0.0, 0.35, 1.0):
             # timed where the bound is set: uci-highk, every block live
             fa_case(f"uci-highk {tn}x{tk} density {dens}", hk, hk_cent,
-                    rand_mask(262_144, 1024, tn, tk, dens), tn, tk,
+                    rand_mask(hk_n, hk_k, tn, tk, dens), tn, tk,
                     timed=dens == 1.0)
             fa_case(f"uci-xlarge {tn}x{tk} density {dens}", points, centers,
                     rand_mask(n, k, tn, tk, dens), tn, tk)
@@ -3535,12 +4061,42 @@ def main() -> None:
     attn_main, ssd_main = lm_kernel_phase(dev, gen, bw, fp32, bf16, lm_cfg,
                                           SERVE["batch"], SERVE["prompt"])
 
+    # -- 2d. the backward kernels against their plain versions -----------
+    t0 = time.perf_counter()
+    attn_bwd, ssd_bwd = lm_backward_phase(dev, gen, bw, fp32, bf16, lm_cfg,
+                                          TRAIN["batch"], TRAIN["seq"])
+    log(f"phase 2d took {time.perf_counter() - t0:.1f} s")
+
     # -- 10. the LM serving path: hymba-1.5b at full width and depth -----
     del points
-    serve_rep = serve_phase(dev, torch.Generator(device=dev).manual_seed(0),
-                            wrappers, lm_cfg, SERVE["batch"], SERVE["prompt"],
-                            SERVE["steps"])
+    serve_rep, kv0 = serve_phase(
+        dev, torch.Generator(device=dev).manual_seed(0), wrappers, lm_cfg,
+        SERVE["batch"], SERVE["prompt"], SERVE["steps"])
     report["serve"] = serve_rep
+
+    # -- 18. training at hymba-1.5b's full width and depth ---------------
+    t0 = time.perf_counter()
+    train_cfg = get_config(TRAIN["arch"])
+    report["train"] = train_rep = train_phase(
+        dev, torch.Generator(device=dev).manual_seed(1), wrappers, train_cfg,
+        TRAIN["batch"], TRAIN["seq"], TRAIN["steps"])
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 19. the resilient training loop ---------------------------------
+    t0 = time.perf_counter()
+    report["resilient_train"] = resilient_train_phase(
+        dev, torch.Generator(device=dev).manual_seed(2), train_cfg,
+        tempfile.mkdtemp(prefix="train_", dir=scratch), **RESILIENT_TRAIN)
+    log(f"phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 20. the rest of the k-means surface -----------------------------
+    t0 = time.perf_counter()
+    report["kmeans_surface"] = kmeans_surface_phase(
+        dev, pts_np, k, max(k // 10, 1), kv0, KV_CLUSTERS)
+    del kv0
+    log(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+    lm_paths = {"lm_serve": serve_rep["launches"],       # phase 10
+                "train": train_rep["launches"]}          # phase 18
 
     def row(nm, entry, source, replaces, by_path):
         """``by_path``: {path: that path's launch counts}; ``launches``
@@ -3581,15 +4137,24 @@ def main() -> None:
             "src/repro_torch/kernels/csrc/filtered_assign.cu",
             "src/repro/kernels/filtered_assign.py:61",
             {"entry_point": entry_launches}),
-        # launched by the LM serving path (phase 10)
+        # launched by the LM serving path (phase 10) and training
+        # (phase 18)
         row("flash_attention", attn_main,
             "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:77",
-            {"lm_serve": serve_rep["launches"]}),
+            "src/repro/kernels/flash_attention.py:77", lm_paths),
         row("ssd_intra", ssd_main,
             "src/repro_torch/kernels/csrc/ssd_intra.cu",
+            "src/repro/kernels/ssd_intra.py:44", lm_paths),
+        # the backward of each: the Pallas kernels have none, so each
+        # names the forward it differentiates
+        row("flash_attention_bwd", attn_bwd,
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:77",
+            {"train": train_rep["launches"]}),
+        row("ssd_intra_bwd", ssd_bwd,
+            "src/repro_torch/kernels/csrc/ssd_intra_bwd.cu",
             "src/repro/kernels/ssd_intra.py:44",
-            {"lm_serve": serve_rep["launches"]}),
+            {"train": train_rep["launches"]}),
     ]}
     report["kernels"] = line["kernels"]
     if args.out:

@@ -19,6 +19,16 @@ so each package reads the other's files:
   ``fallback=True`` walks back to the newest complete save when the
   newest is torn.
 
+bf16 leaves are stored as the reference stores them: ``np.savez`` of a
+numpy ``bfloat16`` array (what ``np.asarray`` of a JAX array gives)
+writes its 16-bit words as a ``|V2`` array, and the manifest says
+``"bfloat16"``. The port writes a bf16 tensor's words the same way
+(numpy itself has no bfloat16, and the card's machine has no package
+that adds one) and reads such a leaf back with
+``view(torch.bfloat16)``, so a bf16 train state crosses between the
+packages in both files' directions. (The reference's own
+``restore_checkpoint`` refuses a ``|V2`` leaf: ROADMAP Queue 3.)
+
 Leaves are flattened in ``jax.tree.flatten``'s order (:func:`tree_flatten`):
 a dict by sorted key (an ``OrderedDict`` by insertion), lists and tuples
 in order, a namedtuple by field, and ``None`` holds no leaf. A state
@@ -110,19 +120,38 @@ def tree_unflatten(treedef, leaves):
     return build(treedef)
 
 
-def _host_leaf(x, path: str) -> np.ndarray:
-    """A host numpy snapshot of one leaf that later writes to ``x`` do
-    not reach (tensors are copied; numpy arrays are taken as they are,
-    as the reference takes them)."""
+BF16_WORDS = np.dtype("V2")     # how npz holds a bfloat16 leaf
+
+
+def _host_leaf(x, path: str):
+    """``(array, dtype name)``: a host numpy snapshot of one leaf that
+    later writes to ``x`` do not reach (tensors are copied; numpy arrays
+    are taken as they are, as the reference takes them), and the dtype
+    the manifest gives it. A bf16 tensor becomes its 16-bit words
+    (``|V2``) under the name ``"bfloat16"``."""
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(BF16_WORDS), "bfloat16"
         try:
-            return x.numpy()
+            arr = x.numpy()
         except TypeError as e:
             raise TypeError(
                 f"checkpoint leaf {path} has dtype {x.dtype}, which numpy "
                 f"(and so the npz format) cannot hold") from e
-    return np.asarray(x)
+        return arr, str(arr.dtype)
+    arr = np.asarray(x)
+    return arr, str(arr.dtype)
+
+
+def _leaf_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """The tensor of a stored leaf: a ``"bfloat16"`` leaf's 16-bit
+    words (``|V2``, or numpy's ``bfloat16`` where a package defines
+    it) viewed as bf16, any other leaf as it is."""
+    if dtype == "bfloat16":
+        words = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(words).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 # -- save ----------------------------------------------------------------------
@@ -138,7 +167,8 @@ def save_checkpoint(ckpt_dir, step: int, state, *, async_: bool = False,
     copy them first."""
     ckpt_dir = Path(ckpt_dir)
     flat, _, paths = tree_flatten(state)
-    host_leaves = [_host_leaf(x, p) for x, p in zip(flat, paths)]
+    host = [_host_leaf(x, p) for x, p in zip(flat, paths)]
+    host_leaves = [a for a, _ in host]
 
     def _write():
         step_dir = ckpt_dir / f"step_{step:06d}"
@@ -146,8 +176,8 @@ def save_checkpoint(ckpt_dir, step: int, state, *, async_: bool = False,
         tmp_dir.mkdir(parents=True, exist_ok=True)
         manifest = {
             "step": step,
-            "leaves": [{"shape": list(x.shape), "dtype": str(x.dtype)}
-                       for x in host_leaves],
+            "leaves": [{"shape": list(a.shape), "dtype": dt}
+                       for a, dt in host],
         }
         if meta is not None:
             manifest["meta"] = meta
@@ -264,16 +294,17 @@ def restore_checkpoint(ckpt_dir, like, *, step: int | None = None,
     """Restore into the structure of ``like`` (tensors, arrays, or
     anything with a ``.shape``); returns ``(state, step)`` with every
     leaf a tensor on ``device`` (``None`` = ``cuda``) in its stored
-    dtype. ``fallback=True`` drops back to the newest complete save when
-    the newest is corrupt or partial. ``shardings=`` (restoring onto
-    another mesh) belongs to the sharded drivers and raises."""
+    dtype (a ``"bfloat16"`` leaf as bf16). ``fallback=True`` drops back
+    to the newest complete save when the newest is corrupt or partial.
+    ``shardings=`` (restoring onto another mesh) belongs to the sharded
+    train state and raises."""
     if shardings is not None:
         raise NotImplementedError(
             f"restore_checkpoint(shardings=...) is not ported yet: "
             f"{ITEM_11_5}")
     dev = resolve_device(device)
-    step, _, leaves = load_checkpoint_arrays(ckpt_dir, step=step,
-                                             fallback=fallback)
+    step, manifest, leaves = load_checkpoint_arrays(ckpt_dir, step=step,
+                                                    fallback=fallback)
     flat_like, treedef, _ = tree_flatten(like)
     if len(leaves) != len(flat_like):
         raise ValueError(
@@ -284,5 +315,6 @@ def restore_checkpoint(ckpt_dir, like, *, step: int | None = None,
             raise ValueError(
                 f"checkpoint leaf shape {got.shape} != expected "
                 f"{tuple(np.shape(want))}")
-    return tree_unflatten(treedef, [torch.from_numpy(x).to(dev)
-                                    for x in leaves]), step
+    dtypes = [m["dtype"] for m in manifest["leaves"]]
+    return tree_unflatten(treedef, [_leaf_tensor(x, dt).to(dev)
+                                    for x, dt in zip(leaves, dtypes)]), step

@@ -1,5 +1,7 @@
-"""Architecture registry: one module per architecture (data only)."""
+"""Architecture registry: one module per architecture (data only), and
+the paper's k-means problems (``kpynq``)."""
 from .base import ArchConfig, MLAConfig, SSMConfig, get_config, list_configs
+from .kpynq import KMeansProblem, paper_suite, production, smoke
 
 _LOADED = False
 
@@ -21,4 +23,5 @@ def _load_all():
 
 
 __all__ = ["ArchConfig", "MLAConfig", "SSMConfig", "get_config",
-           "list_configs", "ARCH_MODULES"]
+           "list_configs", "ARCH_MODULES", "KMeansProblem", "paper_suite",
+           "production", "smoke"]

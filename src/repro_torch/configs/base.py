@@ -5,8 +5,11 @@ Every architecture is one frozen :class:`ArchConfig` in this package;
 tiny widths). The fields are the reference's, so a config carries
 across by name; the sharding and analysis knobs (``attn_cp``,
 ``causal_slice``, ``unroll_layers``, ``unroll_chunks``, ``batch_2d``,
-``serve_tp_params``, ``remat``) are kept for that reason and change no
-value in the port.
+``serve_tp_params``) are kept for that reason and change no value in
+the port. ``remat="full"`` makes training recompute each layer in the
+backward pass instead of keeping its activations
+(``models.transformer.forward``), which changes memory and time, never
+a value.
 """
 from __future__ import annotations
 

@@ -5,10 +5,11 @@ plain numpy arrays; :func:`kmeans_state_from_numpy` turns it into the
 port's :class:`~repro_torch.core.kmeans.KMeansResult` on a device, and
 ``KMeans.from_state`` wraps that into a fitted estimator.
 
-An LM's parameter tree and a prefill cache, leaves as numpy arrays
-(bf16 leaves as the numpy ``bfloat16`` type that ``np.asarray`` of a JAX
-array gives), become the port's trees with
-:func:`lm_params_from_numpy` and :func:`lm_cache_from_numpy`. Each
+An LM's parameter tree, a prefill cache and a train state, leaves as
+numpy arrays (bf16 leaves as the numpy ``bfloat16`` type that
+``np.asarray`` of a JAX array gives), become the port's with
+:func:`lm_params_from_numpy`, :func:`lm_cache_from_numpy` and
+:func:`train_state_from_numpy`. Each
 leaf goes through float32, which holds every bf16 value exactly, so
 nothing here needs the package that defines that numpy type.
 """
@@ -22,6 +23,7 @@ from .core.kmeans import KMeansResult
 from .device import resolve_device
 from .models.transformer import (check_supported, flatten_with_path,
                                  leaf_dtype, param_shapes, rebuild)
+from .train.steps import TrainState
 
 
 def kmeans_state_from_numpy(result, device=None) -> KMeansResult:
@@ -77,3 +79,23 @@ def lm_cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
         raise ValueError(f"unknown cache leaves {sorted(set(tree) - set(known))}")
     return {k: _leaf(a, torch.float32 if k == "ssm" else cfg.compute_dtype,
                      dev) for k, a in tree.items()}
+
+
+def train_state_from_numpy(state, cfg: ArchConfig, device=None):
+    """JAX's ``TrainState`` (``repro.train.steps``: step, params, m, v),
+    leaves as numpy arrays, -> the port's
+    :class:`~repro_torch.train.TrainState` on ``device`` (``None``:
+    ``cuda``): params as :func:`lm_params_from_numpy` casts them, the
+    moments in float32 on the same tree, the step an int32 scalar."""
+    dev = resolve_device(device)
+    params = lm_params_from_numpy(state.params, cfg, device=dev)
+    shapes = param_shapes(cfg)
+
+    def moments(tree):
+        given = dict(flatten_with_path(tree))
+        return rebuild(shapes, {p: _leaf(given[p], torch.float32, dev)
+                                for p, _ in flatten_with_path(shapes)})
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return TrainState(step, params, moments(state.m), moments(state.v))

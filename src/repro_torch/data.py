@@ -1,11 +1,115 @@
-"""Synthetic data: the port's own copies of ``repro.data.make_points``
-and ``repro.data.PointStream``.
+"""Data pipelines (port of ``repro.data.pipeline``): synthetic or
+corpus-backed token batches, point clouds and point streams for the
+K-means workloads, and a prefetch thread that moves batches to the
+device.
 
-Numpy-seeded, so both packages draw the same points from one seed.
+Numpy-seeded, so both packages draw the same tokens and points from one
+seed. Batches are made from ``(seed, step)`` alone, so any step's batch
+can be made again: restart from a checkpoint needs no loader state.
 """
 from __future__ import annotations
 
+import queue
+import threading
+
 import numpy as np
+import torch
+
+from .device import resolve_device
+
+
+class TokenPipeline:
+    """Deterministic LM batches: ``global_batch(step)`` draws
+    ``batch`` rows of ``seq + 1`` tokens from ``rng((seed, step))``,
+    uniform over the vocab or, with ``corpus``, windows of it at random
+    starts; ``tokens`` are the first ``seq``, ``labels`` the last
+    (numpy int32), as the reference draws them. A vlm config also gets
+    ``vision_embeds`` (batch, n_vision_tokens, d_model) standard normal
+    in float32: numpy has no bfloat16, and the model rounds them to its
+    compute dtype, as the reference's cast does."""
+
+    def __init__(self, cfg, batch: int, seq: int, seed: int = 0,
+                 corpus: np.ndarray | None = None):
+        self.cfg = cfg
+        self.batch = batch
+        self.seq = seq
+        self.seed = seed
+        self.corpus = corpus
+
+    def global_batch(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step))
+        if self.corpus is not None:
+            starts = rng.integers(0, len(self.corpus) - self.seq - 1,
+                                  size=self.batch)
+            toks = np.stack([self.corpus[s:s + self.seq + 1]
+                             for s in starts])
+        else:
+            toks = rng.integers(0, self.cfg.vocab,
+                                size=(self.batch, self.seq + 1),
+                                dtype=np.int32)
+        out = {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+        if self.cfg.n_vision_tokens:
+            out["vision_embeds"] = rng.standard_normal(
+                (self.batch, self.cfg.n_vision_tokens, self.cfg.d_model),
+                dtype=np.float32)
+        return out
+
+
+def to_device(batch: dict, device) -> dict:
+    """A batch's arrays as tensors on ``device`` (other values as they
+    are). The copy is synchronous: a tensor is never read before it
+    has landed."""
+    return {k: torch.as_tensor(v).to(device) if isinstance(v, np.ndarray)
+            else v for k, v in batch.items()}
+
+
+class PrefetchingLoader:
+    """A thread that keeps ``depth`` batches of ``pipeline`` (anything
+    with ``global_batch(step)``) ahead of the consumer, already on
+    ``device`` (``None``: ``cuda``). ``next(loader)`` gives
+    ``(step, batch)`` in step order from ``start_step``; ``close()``
+    stops the thread and drains the queue.
+
+    Each batch is copied by :func:`to_device` on the thread, from
+    pageable memory, which returns only when the copy has ended, so the
+    consumer's stream never reads a batch still in flight (an
+    asynchronous copy on the thread's own stream would race with it).
+    """
+
+    def __init__(self, pipeline, device=None, start_step: int = 0,
+                 depth: int = 2):
+        self.pipeline = pipeline
+        self.device = resolve_device(device)
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.step = start_step
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._worker, daemon=True)
+        self.thread.start()
+
+    def _worker(self):
+        step = self.step
+        while not self._stop.is_set():
+            batch = to_device(self.pipeline.global_batch(step), self.device)
+            while not self._stop.is_set():
+                try:
+                    self.q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __next__(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self.thread.join(timeout=10)
 
 
 def make_points(n: int, d: int, k: int, seed: int = 0,

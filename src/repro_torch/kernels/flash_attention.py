@@ -19,10 +19,22 @@ them and count on ``flash_attention.launches`` (every launch), and on
 
 Both read their inputs through strides, so neither copies. On a CPU
 tensor each takes its plain version instead.
+
+Training: :func:`flash_attention_gqa` on CUDA tensors that need a
+gradient goes through :class:`FlashAttentionGQA`, an autograd Function
+whose forward is the same launch and whose backward is
+:func:`flash_attention_gqa_bwd`, the hand-written kernel of
+``csrc/flash_attention_bwd.cu`` (counted on
+``flash_attention_gqa_bwd.launches``); beside it,
+:func:`flash_attention_gqa_bwd_plain` writes the gradient formulas out
+in plain torch. Under ``no_grad`` the launch is the serving one, with
+no Function around it. On a CPU tensor autograd differentiates the
+plain forward.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -30,6 +42,7 @@ from . import _build
 from .ref import flash_attention_ref
 
 NAME = "flash_attention"
+BWD_NAME = "flash_attention_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 TC_HEAD_DIMS = (64, 128)         # the head dims the tensor-core kernel takes
@@ -199,10 +212,20 @@ def flash_attention_gqa(q, k, v):
     """The model's causal attention: q (B, S, H, D), k and v
     (B, S, KV, D) with H a multiple of KV -> (B, S, H, D) in q's dtype,
     softmax in fp32, ``scale = 1/sqrt(D)``, any S. A CUDA tensor
-    launches the kernel :func:`route_for` picks (or raises); a CPU
-    tensor takes :func:`flash_attention_gqa_plain`."""
+    launches the kernel :func:`route_for` picks (or raises), through
+    :class:`FlashAttentionGQA` where autograd records (a gradient is
+    asked of q, k or v); a CPU tensor takes
+    :func:`flash_attention_gqa_plain`."""
     if not q.is_cuda:
         return flash_attention_gqa_plain(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionGQA.apply(q, k, v, False)
+    return _gqa_forward(q, k, v)
+
+
+def _gqa_forward(q, k, v):
+    """The model's forward launch on CUDA tensors."""
     _check(q, k, v, kv_axis=2)
     b, s, h, d = q.shape
     if k.shape[:2] != (b, s):
@@ -215,6 +238,105 @@ def flash_attention_gqa(q, k, v):
                    route=route_for(q.dtype, d))
 
 
+def flash_attention_gqa_bwd_plain(q, k, v, o, do):
+    """Plain version of :func:`flash_attention_gqa_bwd`: the gradient
+    formulas written out in fp32 (P recomputed from q and k, D from o
+    and dO), dK and dV summed over each kv head's query heads; grads in
+    the inputs' dtypes."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    scale = 1.0 / math.sqrt(d)
+    qf, of, gf = (t.float().transpose(1, 2) for t in (q, o, do))
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+              for t in (k, v))
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    sc = (qf @ kf.transpose(-1, -2) * scale).masked_fill(~causal, -math.inf)
+    p = torch.softmax(sc, dim=-1)                        # (B, H, S, S)
+    dv = p.transpose(-1, -2) @ gf
+    dp = gf @ vf.transpose(-1, -2)
+    delta = (gf * of).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = ds @ kf * scale
+    dk = ds.transpose(-1, -2) @ qf * scale
+
+    def group(t):                        # (B, H, S, D) -> (B, S, KV, D)
+        return t.reshape(b, kv, rep, s, d).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), group(dk).to(k.dtype),
+            group(dv).to(v.dtype))
+
+
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def flash_attention_gqa_bwd(q, k, v, o, do):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_gqa` at
+    (q, k, v), whose output was ``o``, for the output gradient ``do``
+    (all (B, S, H or KV, D), one dtype, fp32 or bf16), in the inputs'
+    dtypes. A CUDA tensor launches ``csrc/flash_attention_bwd.cu``
+    (three kernels, no atomics: two calls give the same bits) or
+    raises; a CPU tensor takes :func:`flash_attention_gqa_bwd_plain`."""
+    if not q.is_cuda:
+        return flash_attention_gqa_bwd_plain(q, k, v, o, do)
+    _check(q, k, v, kv_axis=2)
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    if k.shape[:2] != (b, s) or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_gqa_bwd: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)} do not match")
+    if o.dtype != q.dtype or do.dtype != q.dtype or \
+            o.device != q.device or do.device != q.device:
+        raise TypeError("flash_attention_gqa_bwd: o and do must share q's "
+                        "dtype and device")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _build.entry(BWD_NAME, "flash_attention_bwd_launch", _BWD_ARGS)
+    with _build.on_device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), b, s, h, kv, d,
+                DTYPES[q.dtype], _build.stream_ptr(q.device))
+    _build.check(BWD_NAME, rc)
+    _build.count_launch(flash_attention_gqa_bwd)
+    return dq, dk, dv
+
+
+class FlashAttentionGQA(torch.autograd.Function):
+    """The model's attention with a gradient: forward the launch of
+    :func:`flash_attention_gqa`, backward :func:`flash_attention_gqa_bwd`
+    (q, k, v and the output saved). ``plain=True`` takes the plain
+    versions of both instead (:func:`flash_attention_gqa_plain_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, plain):
+        out = flash_attention_gqa_plain(q, k, v) if plain else \
+            _gqa_forward(q, k, v)
+        ctx.plain = plain
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        bwd = flash_attention_gqa_bwd_plain if ctx.plain else \
+            flash_attention_gqa_bwd
+        return (*bwd(q, k, v, o, do.contiguous()), None)
+
+
+def flash_attention_gqa_plain_vjp(q, k, v):
+    """:func:`flash_attention_gqa_plain` whose backward is
+    :func:`flash_attention_gqa_bwd_plain`: the plain route of a
+    training step, launch for launch beside the kernels'."""
+    return FlashAttentionGQA.apply(q, k, v, True)
+
+
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_ffma = 0
+flash_attention_gqa_bwd.launches = 0

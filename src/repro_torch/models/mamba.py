@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..kernels.ssd_intra import repeat_groups
 from .layers import rms_norm
 
 
@@ -74,7 +75,7 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int,
 
     # chunk state contribution: sum_j exp(total - cum_j) B_j x_j
     w_in = torch.exp(total[:, :, None, :] - cum)            # (B,NC,Q,H)
-    Bh = Bc.repeat_interleave(rep, dim=3)                   # (B,NC,Q,H,N)
+    Bh = repeat_groups(Bc, rep, dim=3)                      # (B,NC,Q,H,N)
     state_in = torch.einsum("bcjhn,bcjhp->bchnp", Bh * w_in[..., None], xc)
     # inter-chunk recurrence: state_c = state_{c-1} exp(total_c) + in_c
     decay = torch.exp(total)[..., None, None]               # (B,NC,H,1,1)
@@ -85,7 +86,7 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int,
         state = state * decay[:, c] + state_in[:, c]
     prev_states = torch.stack(prev, dim=1)                  # (B,NC,H,N,P)
 
-    Ch = Cc.repeat_interleave(rep, dim=3)                   # (B,NC,Q,H,N)
+    Ch = repeat_groups(Cc, rep, dim=3)                      # (B,NC,Q,H,N)
     y_inter = torch.einsum("bcihn,bchnp->bcihp", Ch, prev_states) * \
         torch.exp(cum)[..., None]
 

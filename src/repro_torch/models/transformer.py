@@ -1,22 +1,31 @@
-"""Config-driven decoder for the serving path (port of
-``repro.models.transformer``: parameters, forward, prefill, decode).
+"""Config-driven decoder (port of ``repro.models.transformer``:
+parameters, forward, the training loss, prefill, decode).
 
 Parameters are a plain dict tree with per-layer leaves stacked on a
 leading ``n_layers`` axis, the reference's layout, so that its weights
 carry across one to one (``repro_torch.convert``); the layers run in a
-Python loop over that axis. Every config without MLA or MoE is
-supported: dense, vlm (with ``vision_embeds``), audio, ssm and hybrid.
-MLA, MoE and the int8 KV cache raise ``NotImplementedError``, each
-naming its ROADMAP.md item; training is not ported yet.
+Python loop over that axis, each leaf unbound once a pass (the
+gradient of ``unbind`` is one ``stack``, where a ``select`` per layer
+would build a zero tensor of the whole stack per layer). Every config
+without MLA or MoE is supported: dense, vlm (with ``vision_embeds``),
+audio, ssm and hybrid. MLA, MoE and the int8 KV cache raise
+``NotImplementedError``, each naming its ROADMAP.md item.
+
+``cfg.remat == "full"`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations, as the reference's ``jax.checkpoint(nothing_saveable)``
+does: the same values, less memory.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from .attention import gqa_decode, gqa_train
-from .layers import rms_norm, swiglu
+from .layers import cross_entropy_chunked, rms_norm, swiglu
 from .mamba import mamba_mixer_decode, mamba_mixer_train
 
 # ---------------------------------------------------------------------------
@@ -172,15 +181,20 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return rebuild(shapes, leaves)
 
 
-def _layer(tree: dict, i: int) -> dict:
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layers(tree: dict, n: int) -> list:
+    """The per-layer trees of a stacked tree, each leaf unbound once."""
+    flat = flatten_with_path(tree)
+    parts = {path: leaf.unbind(0) for path, leaf in flat}
+    return [rebuild(tree, {path: parts[path][i] for path, _ in flat})
+            for i in range(n)]
 
 
 def _embed(params, tokens, cfg: ArchConfig, vision_embeds=None):
     b, s = tokens.shape
     dt = cfg.compute_dtype
-    x = params["embed"][tokens.long()].to(dt)
+    # F.embedding's gradient on the card sums each row in a fixed
+    # order; an indexing gather's is an atomic index_put_
+    x = F.embedding(tokens.long(), params["embed"]).to(dt)
     if vision_embeds is not None and cfg.n_vision_tokens:
         nv = cfg.n_vision_tokens
         vis = torch.zeros_like(x)
@@ -224,12 +238,33 @@ def _layer_train(x, lp, cfg: ArchConfig, positions):
 
 
 def forward(params, tokens, cfg: ArchConfig, vision_embeds=None):
-    """tokens: (B, S) int -> final hidden states (B, S, D)."""
+    """tokens: (B, S) int -> final hidden states (B, S, D). Where
+    autograd records and ``cfg.remat == "full"``, each layer is
+    recomputed in the backward pass rather than kept."""
     check_supported(cfg)
     x, positions = _embed(params, tokens, cfg, vision_embeds)
-    for i in range(cfg.n_layers):
-        x = _layer_train(x, _layer(params["layers"], i), cfg, positions)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for lp in _layers(params["layers"], cfg.n_layers):
+        if remat:
+            # the layer draws no random numbers: no RNG state to keep
+            x = checkpoint(_layer_train, x, lp, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_train(x, lp, cfg, positions)
     return rms_norm(x, params["final_norm"])
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``, optional ``loss_mask`` and ``vision_embeds``, tensors on
+    the parameters' device), chunked by ``cfg.loss_chunk``."""
+    h = forward(params, batch["tokens"], cfg,
+                vision_embeds=batch.get("vision_embeds"))
+    lm_head = (params["embed"].T if cfg.tie_embeddings
+               else params["lm_head"])
+    return cross_entropy_chunked(h, lm_head, batch["labels"],
+                                 chunk=cfg.loss_chunk,
+                                 mask=batch.get("loss_mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -266,8 +301,8 @@ def prefill_forward(params, tokens, cfg: ArchConfig, vision_embeds=None):
     check_supported(cfg)
     x, positions = _embed(params, tokens, cfg, vision_embeds)
     caches = []
-    for i in range(cfg.n_layers):
-        x, c = _layer_prefill(x, _layer(params["layers"], i), cfg, positions)
+    for lp in _layers(params["layers"], cfg.n_layers):
+        x, c = _layer_prefill(x, lp, cfg, positions)
         caches.append(c)
     cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
     h = rms_norm(x[:, -1:], params["final_norm"])
@@ -332,10 +367,10 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     replaced) and returned; the reference returns a new one."""
     check_supported(cfg)
     pos = int(pos)
-    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
-    for i in range(cfg.n_layers):
+    x = F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
+    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         cl = {k: v[i] for k, v in cache.items()}
-        x, new = _layer_decode(x, _layer(params["layers"], i), cl, cfg, pos)
+        x, new = _layer_decode(x, lp, cl, cfg, pos)
         for k, v in new.items():
             cache[k][i] = v
     h = rms_norm(x, params["final_norm"])

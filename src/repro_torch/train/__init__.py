@@ -1,4 +1,7 @@
-"""Step functions of the LM serving path (port of ``repro.train``)."""
-from .steps import make_prefill_step, make_serve_step
+"""Step functions of the LM: training, prefill and decode (port of
+``repro.train``)."""
+from .steps import (TrainState, init_train_state, loss_and_grads,
+                    make_prefill_step, make_serve_step, make_train_step)
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["TrainState", "init_train_state", "loss_and_grads",
+           "make_train_step", "make_prefill_step", "make_serve_step"]

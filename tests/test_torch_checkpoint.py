@@ -190,10 +190,23 @@ def test_no_checkpoint_raises_filenotfound(tmp_path):
 # -- the port's own rules --------------------------------------------------------
 
 def test_bf16_leaf_raises_type_error_naming_it(tmp_path):
-    state = {"a": torch.zeros(2), "w": torch.zeros(3, dtype=torch.bfloat16)}
-    with pytest.raises(TypeError, match=r"\['w'\].*bfloat16"):
-        save_checkpoint(tmp_path, 1, state)
-    assert available_steps(tmp_path) == []
+    """bf16 leaves are stored as the reference stores them (their 16-bit
+    words, manifest dtype "bfloat16") and come back bit for bit; a leaf
+    of a dtype that numpy cannot hold (fp8) still raises ``TypeError``
+    naming it, and publishes nothing."""
+    w = torch.randn(3, 5, generator=torch.Generator().manual_seed(0))
+    state = {"a": torch.zeros(2), "w": w.to(torch.bfloat16)}
+    save_checkpoint(tmp_path / "bf16", 1, state)
+    _, manifest, _ = load_checkpoint_arrays(tmp_path / "bf16")
+    assert [m["dtype"] for m in manifest["leaves"]] == ["float32", "bfloat16"]
+    back, _ = restore_checkpoint(tmp_path / "bf16", state, **CPU)
+    assert back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"].view(torch.int16),
+                       state["w"].view(torch.int16))
+    bad = {"a": torch.zeros(2), "w": torch.zeros(3, dtype=torch.float8_e4m3fn)}
+    with pytest.raises(TypeError, match=r"\['w'\].*float8"):
+        save_checkpoint(tmp_path / "fp8", 1, bad)
+    assert available_steps(tmp_path / "fp8") == []
 
 
 def test_shardings_and_default_device(tmp_path):

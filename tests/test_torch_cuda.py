@@ -1004,3 +1004,199 @@ def test_sharded_stream_in_a_gloo_world_on_the_card():
     assert got["counts"].sum() == local["counts"].sum()
     np.testing.assert_allclose(got["inertia"], local["inertia"], rtol=1e-3)
     assert (got["first"] != local["first"]).mean() <= 1e-3
+
+
+# -- the LM kernels' backward, and training, on the card ---------------------
+#
+# Tolerances: each gradient within 1e-4 (fp32) or 3e-2 (bf16) of the
+# largest |value| of the plain version's, the forward's tolerances (the
+# kernels sum in another order than the plain version); a gradient of
+# the kernels against central finite differences of the fp32 forward
+# kernel within 1e-2 of the largest |gradient| (step 1e-2: the
+# difference's own error, O(step^2) and fp32 rounding over the step,
+# is about 1e-4 of the scale); two identical backward calls bit for bit.
+
+# the model's attention launch (b, s, h, kv, d): GQA_CASES (ragged S,
+# grouped heads, hymba's 25/5 heads of 64, a head dim of 128), a head
+# dim of 100, and one query head a kv head
+GQA_BWD_CASES = GQA_CASES + [(1, 65, 2, 2, 100), (2, 64, 3, 3, 32)]
+# ssd_intra_chunks (bsz, nc, q, h, g, n, p): the reduced configs' cell,
+# two groups, hymba-1.5b's cell (25 heads, one group), mamba2-780m's
+# (N 128, P 64), and a Q that is not a multiple of the 32-row tiles
+SSD_BWD_CASES = [(2, 3, 8, 4, 1, 8, 32), (1, 2, 16, 4, 2, 16, 16),
+                 (2, 2, 128, 25, 1, 16, 128), (1, 2, 128, 4, 1, 128, 64),
+                 (1, 3, 100, 6, 3, 16, 128)]
+
+
+def _scaled_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max()) / \
+        (float(want.abs().max()) + 1e-12)
+
+
+def _gqa_grad_inputs(b, s, h, kv, d, dtype, seed):
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+               for a in attn_inputs(b, s, h, kv, d, seed))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (b, s, h, d)).astype(np.float32)).to("cuda", dtype)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,kv,d", GQA_BWD_CASES)
+def test_flash_attention_gqa_bwd_kernel_matches_plain(b, s, h, kv, d, dtype,
+                                                      tol):
+    _need_card()
+    q, k, v, do = _gqa_grad_inputs(b, s, h, kv, d, dtype, s * h + d)
+    o = kernels.flash_attention_gqa(q, k, v)
+    before = fla.flash_attention_gqa_bwd.launches
+    got = fla.flash_attention_gqa_bwd(q, k, v, o, do)
+    again = fla.flash_attention_gqa_bwd(q, k, v, o, do)
+    torch.cuda.synchronize()
+    assert fla.flash_attention_gqa_bwd.launches == before + 2
+    want = fla.flash_attention_gqa_bwd_plain(q, k, v, o, do)
+    for name, g, w, a, x in zip(("dq", "dk", "dv"), got, want, again,
+                                (q, k, v)):
+        assert g.shape == x.shape and g.dtype == dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        assert _scaled_err(g, w) <= tol, (name, _scaled_err(g, w))
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
+def test_flash_attention_gqa_bwd_matches_finite_differences():
+    _need_card()
+    q, k, v, do = _gqa_grad_inputs(1, 11, 4, 2, 8, torch.float32, 3)
+    o = kernels.flash_attention_gqa(q, k, v)
+    grads = fla.flash_attention_gqa_bwd(q, k, v, o, do)
+    rng = np.random.default_rng(4)
+    eps = 1e-2
+    for which, g in enumerate(grads):
+        scale = float(g.abs().max())
+        for flat in rng.choice(g.numel(), 6, replace=False):
+            args = [q.clone(), k.clone(), v.clone()]
+            idx = np.unravel_index(flat, g.shape)
+            args[which][idx] += eps
+            up = float((kernels.flash_attention_gqa(*args) * do).sum())
+            args[which][idx] -= 2 * eps
+            dn = float((kernels.flash_attention_gqa(*args) * do).sum())
+            fd = (up - dn) / (2 * eps)
+            assert abs(fd - float(g[idx])) <= 1e-2 * scale, (which, idx)
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_launches_the_backward_kernel():
+    """With a gradient asked of q, the model's launch goes through the
+    Function: one forward launch, one backward launch, grads the
+    kernel's; under no_grad it is the serving launch alone."""
+    _need_card()
+    q, k, v, do = _gqa_grad_inputs(2, 70, 4, 2, 64, torch.bfloat16, 9)
+    fwd, bwd = kernels.flash_attention.launches, \
+        fla.flash_attention_gqa_bwd.launches
+    qg = q.clone().requires_grad_(True)
+    out = kernels.flash_attention_gqa(qg, k, v)
+    (dq,) = torch.autograd.grad(out, qg, do)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == fwd + 1
+    assert fla.flash_attention_gqa_bwd.launches == bwd + 1
+    assert torch.equal(dq, fla.flash_attention_gqa_bwd(q, k, v, out.detach(),
+                                                       do)[0])
+    with torch.no_grad():
+        kernels.flash_attention_gqa(qg, k, v)
+    assert kernels.flash_attention.launches == fwd + 2
+    assert fla.flash_attention_gqa_bwd.launches == bwd + 2
+
+
+def _ssd_grad_inputs(bsz, nc, q, h, g, n, p, seed):
+    rng = np.random.default_rng(seed)
+    C, B = (torch.from_numpy(rng.standard_normal(
+        (bsz, nc, q, g, n)).astype(np.float32)).cuda() for _ in range(2))
+    x, dy = (torch.from_numpy(rng.standard_normal(
+        (bsz, nc, q, h, p)).astype(np.float32)).cuda() for _ in range(2))
+    cum = torch.from_numpy(np.cumsum(-np.logaddexp(rng.standard_normal(
+        (bsz, nc, q, h)), 0.0) * 0.1, axis=2).astype(np.float32)).cuda()
+    return C, B, x, cum, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,nc,q,h,g,n,p", SSD_BWD_CASES)
+def test_ssd_intra_chunks_bwd_kernel_matches_plain(bsz, nc, q, h, g, n, p):
+    _need_card()
+    C, B, x, cum, dy = _ssd_grad_inputs(bsz, nc, q, h, g, n, p, q * h + n)
+    before = ssd.ssd_intra_chunks_bwd.launches
+    got = ssd.ssd_intra_chunks_bwd(C, B, x, cum, dy)
+    again = ssd.ssd_intra_chunks_bwd(C, B, x, cum, dy)
+    torch.cuda.synchronize()
+    assert ssd.ssd_intra_chunks_bwd.launches == before + 2
+    want = ssd.ssd_intra_chunks_bwd_plain(C, B, x, cum, dy)
+    for name, gr, w, a, t in zip(("dC", "dB", "dx", "dcum"), got, want,
+                                 again, (C, B, x, cum)):
+        assert gr.shape == t.shape and gr.dtype == torch.float32, name
+        assert _scaled_err(gr, w) <= 1e-4, (name, _scaled_err(gr, w))
+        assert torch.equal(gr, a), name
+
+
+@pytest.mark.cuda
+def test_ssd_intra_chunks_bwd_matches_finite_differences():
+    _need_card()
+    C, B, x, cum, dy = _ssd_grad_inputs(1, 2, 20, 4, 2, 8, 16, 5)
+    grads = ssd.ssd_intra_chunks_bwd(C, B, x, cum, dy)
+    rng = np.random.default_rng(6)
+    eps = 1e-2
+    for which, g in enumerate(grads):
+        scale = float(g.abs().max())
+        for flat in rng.choice(g.numel(), 6, replace=False):
+            args = [C.clone(), B.clone(), x.clone(), cum.clone()]
+            idx = np.unravel_index(flat, g.shape)
+            args[which][idx] += eps
+            up = float((kernels.ssd_intra_chunks(*args) * dy).sum())
+            args[which][idx] -= 2 * eps
+            dn = float((kernels.ssd_intra_chunks(*args) * dy).sum())
+            fd = (up - dn) / (2 * eps)
+            assert abs(fd - float(g[idx])) <= 1e-2 * scale, (which, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-780m", "qwen2-7b"])
+def test_train_step_on_card_matches_cpu_and_repeats(arch):
+    """A reduced config's train step (remat on) on the card against the
+    same step on the CPU (plain versions): loss and grad_norm within
+    1e-4, every updated leaf within 1e-4 of its scale; two steps from
+    one state on the card give the same bits; the backward kernels ran
+    once a layer."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = get_config(arch).reduced()
+    state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    batch = TokenPipeline(cfg, batch=2, seq=40, seed=0).global_batch(0)
+    step = make_train_step(cfg)
+    cpu_state, cpu_m = step(state, batch)
+    card = state._replace(step=state.step.cuda(),
+                          params=_to_cuda(state.params),
+                          m=_to_cuda(state.m), v=_to_cuda(state.v))
+    before = (fla.flash_attention_gqa_bwd.launches,
+              ssd.ssd_intra_chunks_bwd.launches)
+    one, m1 = step(card, batch)
+    torch.cuda.synchronize()
+    attn = cfg.family != "ssm"
+    ssm = cfg.family in ("ssm", "hybrid")
+    assert fla.flash_attention_gqa_bwd.launches == \
+        before[0] + attn * cfg.n_layers
+    assert ssd.ssd_intra_chunks_bwd.launches == before[1] + ssm * cfg.n_layers
+    two, m2 = step(card, batch)
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m1[key]) - float(cpu_m[key])) <= \
+            1e-4 * abs(float(cpu_m[key])), key
+        assert torch.equal(m1[key], m2[key]), key
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    for a, b, c in zip(tree_flatten(one)[0], tree_flatten(two)[0],
+                       tree_flatten(cpu_state)[0]):
+        assert torch.equal(a, b)
+        if a.is_floating_point():
+            assert _scaled_err(a.cpu(), c) <= 1e-4

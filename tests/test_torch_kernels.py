@@ -199,8 +199,9 @@ def test_kernel_sources_export_the_wrappers_entry_points():
     """Each wrapper binds ``<name>_launch`` and ``<name>_error_string``
     from ``csrc/<name>.cu``; the build keys on the source's hash."""
     assert set(_build.sources()) == {"centroid_update", "filtered_assign",
-                                     "flash_attention", "grouped_assign",
-                                     "pairwise_sq_dists", "ssd_intra"}
+                                     "flash_attention", "flash_attention_bwd",
+                                     "grouped_assign", "pairwise_sq_dists",
+                                     "ssd_intra", "ssd_intra_bwd"}
     for name in _build.sources():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert f"int {name}_launch(" in text
