@@ -8,10 +8,11 @@ the order they run:
 
 1. build every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
    compiler process per source, all at once; log ``-Xptxas -v``
-   (registers, shared memory, spills) of every kernel in full (all six
+   (registers, shared memory, spills) of every kernel in full (all eight
    have been redesigned for this card), and count the ``HGMMA``
-   instructions in the built ``flash_attention`` library
-   (``cuobjdump -sass``; none where ``cuobjdump`` exists fails the run);
+   instructions in the built ``flash_attention`` and
+   ``flash_attention_bwd`` libraries (``cuobjdump -sass``; none in
+   either where ``cuobjdump`` exists fails the run);
 2. ``grouped_assign`` and ``centroid_update`` against their plain
    versions on the card at the main path's shapes, uci-highk's group
    shape, Hamerly at D = 128, K = 1024, and a ragged N at mask
@@ -159,7 +160,9 @@ the order they run:
    (each case checks which launch counter moved), the prefill's shape
    in both dtypes; the tensor-core kernel timed in turns against the
    FFMA kernel on the same bf16 inputs (FFMA, tensor cores, tensor
-   cores, FFMA);
+   cores, FFMA), and the model's launch with each row's logsumexp
+   written (the training forward, ``lse_ms``) in turns with the
+   serving launch, which writes none;
 10. hymba-1.5b serving at full width and depth (32 layers, d_model
    1600, bf16 weights from a seeded generator on the card): 2 prompts
    of 2048 tokens through ``make_prefill_step``, then 32 greedy decode
@@ -219,21 +222,34 @@ the order they run:
    ``ssd_intra_chunks_bwd``) against their plain versions, after 2c:
    attention at hymba-1.5b's training shape (B = 2, S = 2048, 25/5
    heads of 64) in bf16 and fp32, at a ragged S in bf16 and at S = 1000
-   in fp32 at a head dim of 128; SSD at hymba-1.5b's training cells, at
-   Q = 100 and at mamba2-780m's widths (N = 128, P = 64): each gradient
-   within 1e-4 (fp32) of the plain version's largest |value|, in bf16
-   within 3e-2 or 1.5 times the distance of autograd through
-   ``scaled_dot_product_attention`` from the plain version, whichever
-   is larger; two calls bit for bit; the training shapes timed by CUDA
-   events beside the bound, the plain version and (attention) the
-   autograd backward of SDPA;
+   in fp32 at a head dim of 128, each given the L its forward wrote
+   (within 1e-3 in bf16, 1e-4 in fp32, of the plain logsumexp); bf16
+   at head dims 64 and 128 takes the tensor-core backward, the rest the
+   FFMA one (each case checks which route's counter moved); SSD at
+   hymba-1.5b's training cells, at Q = 100 and at mamba2-780m's widths
+   (N = 128, P = 64): each gradient within 1e-4 (fp32) of the plain
+   version's largest |value|, in bf16 within 3e-2 or 1.5 times the
+   distance of autograd through ``scaled_dot_product_attention`` from
+   the plain version, whichever is larger, and every attention row (dq's
+   query rows, dk's and dv's key rows) within
+   ``flash_attention.BWD_ROW_REL_TOL`` of the plain row's norm, so small
+   late rows are checked too; two calls bit for bit; the
+   training shapes timed by CUDA events beside the bound, the plain
+   version and (attention) the autograd backward of SDPA, the
+   tensor-core backward in turns with the FFMA route forced on the same
+   inputs (FFMA, SDPA, tensor cores, tensor cores, SDPA, FFMA:
+   ``earlier_ms``, the FFMA route held to the same bound), and each
+   timed call's device time by kernel under ``torch.profiler`` beside
+   the events' (``device_over_events``);
 18. hymba-1.5b training at full width and depth (1.64e9 bf16
    parameters, fp32 moments, ``remat="full"``): 4 steps of 2 x 2048
    tokens from ``TokenPipeline(seed=0)``, counts reset just before and
    read just after (each step: 64 forward launches of each LM kernel,
    the layer's own and its recomputation, all attention on the tensor
-   cores, and 32 of each backward kernel); step ms (median of the last
-   3), tokens/s and peak memory; (a) the first step through the plain
+   cores, and 32 of each backward kernel, attention's all on the
+   tensor-core route); step ms (median of the last 3), tokens/s, peak
+   memory, and a traced step's busy ms with the device ms of each
+   backward kernel; (a) the first step through the plain
    route (plain forwards, plain backward formulas) against the kernels'
    in loss and ``grad_norm``, within 3e-2 or 1.5 times the distance of
    a route through SDPA's autograd from the plain one, whichever is
@@ -363,7 +379,7 @@ def hgmma_count(lib: Path):
     count = sum("HGMMA" in line for line in out.stdout.splitlines())
     log(f"sass: {count} HGMMA instructions in {lib.name}")
     check(count > 0, f"no HGMMA instruction in {lib.name}: the tensor-core "
-          f"attention kernel did not compile to wgmma")
+          f"attention kernels did not compile to wgmma")
     return count
 
 
@@ -401,18 +417,32 @@ def median_ms(fn, reps: int = 7, inner: int = 5) -> float:
 
 def device_ms_by_kernel(fn, calls: int = 10) -> dict:
     """Device ms a call of each kernel ``fn`` launches, over ``calls``
-    calls under ``torch.profiler`` (after one warm-up call)."""
+    calls under ``torch.profiler``, after one warm-up call and a
+    profiler step of ``calls`` more calls whose records are dropped:
+    started cold, the profiler can miss the first calls' kernels, and
+    each kernel then reads a whole number of calls short (PERF.md §6).
+    A kernel seen a number of times that is not a multiple of ``calls``
+    is logged."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        sync()
-    return {ev.key: ev.self_device_time_total / 1e3 / calls
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total}
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            sync()
+            prof.step()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            out[ev.key] = ev.self_device_time_total / 1e3 / calls
+            if ev.count % calls:
+                log(f"device_ms_by_kernel: {ev.key[:60]} seen {ev.count} "
+                    f"times in {calls} calls")
+    return out
 
 
 def host_ms(fn, calls: int = 20) -> float:
@@ -602,6 +632,15 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
                 entry["ffma_ms"] = statistics.mean(turns["ffma"])
             else:
                 turns["new"].append(median_ms(new))
+            if not entry_point:
+                # the training forward, which also writes each row's L,
+                # in turns with the serving launch: lse, new, lse
+                def with_lse():
+                    return fla.flash_attention_gqa_with_lse(q, k, v)
+                turns["lse"] = [median_ms(with_lse)]
+                turns["new"].append(median_ms(new))
+                turns["lse"].append(median_ms(with_lse))
+                entry["lse_ms"] = statistics.mean(turns["lse"])
             entry.update(
                 ms=statistics.mean(turns["new"]), turns_ms=turns,
                 plain_ms=median_ms(
@@ -920,6 +959,14 @@ def rel_err(a, b) -> float:
                                                  + 1e-30)
 
 
+def row_errs(got, want) -> dict:
+    """``flash_attention.row_rel_err`` of dq's query rows and of dk's
+    and dv's key rows, under the backward's floor."""
+    fla = kernel_module("flash_attention")
+    return {nm: fla.row_rel_err(g, w, fla.BWD_ROW_FLOOR)
+            for nm, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
 def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
     """Phase 2d: ``flash_attention_gqa_bwd`` and ``ssd_intra_chunks_bwd``
     against their plain versions at the shapes ``cfg``'s training step
@@ -934,19 +981,39 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    bwd = fla.flash_attention_gqa_bwd
+
+    def route_counts():
+        return {"tc": bwd.launches_tc, "ffma": bwd.launches_ffma}
+
     def attn_case(label, b, s, h, kvh, d, dtype, timed=False):
         q, do = randn(b, s, h, d, dtype=dtype), randn(b, s, h, d, dtype=dtype)
         k, v = (randn(b, s, kvh, d, dtype=dtype) for _ in range(2))
-        o = kernels.flash_attention_gqa(q, k, v)
-        got = fla.flash_attention_gqa_bwd(q, k, v, o, do)
-        again = fla.flash_attention_gqa_bwd(q, k, v, o, do)
+        # the training forward: the output and each row's L
+        o, lse = fla.flash_attention_gqa_with_lse(q, k, v)
+        route = fla.route_for(dtype, d)
+        before = route_counts()
+        got = fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
+        again = fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
+        moved = {r: n - before[r] for r, n in route_counts().items()}
         want = fla.flash_attention_gqa_bwd_plain(q, k, v, o, do)
+        # the forward's L against the plain logsumexp
+        lse_err = float((lse - fla.flash_attention_gqa_lse_plain(q, k, v)[1])
+                        .abs().max())
         sync()
         same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
         del again
-        errs = {nm: rel_err(g, w) for nm, g, w in zip(("dq", "dk", "dv"),
-                                                       got, want)}
-        floor = None
+        check(moved == {r: 2 * (r == route) for r in moved},
+              f"flash_attention_bwd {label}: two calls moved the route "
+              f"counts by {moved}, not 2 on {route!r}")
+        lse_tol = 1e-4 if dtype == torch.float32 else 1e-3
+        check(lse_err <= lse_tol, f"flash_attention {label}: the forward's "
+              f"L is {lse_err:.3g} from the plain logsumexp, beyond "
+              f"{lse_tol}")
+        names = ("dq", "dk", "dv")
+        errs = {nm: rel_err(g, w) for nm, g, w in zip(names, got, want)}
+        rows = row_errs(got, want)
+        floor = lib_rows = None
         if dtype == torch.float32:
             tol = 1e-4
         else:
@@ -954,6 +1021,7 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             lib = torch.autograd.grad(sdpa_gqa(*leaves), leaves, do)
             floor = max(rel_err(a, w) for a, w in zip(lib, want))
+            lib_rows = row_errs(lib, want)
             tol = max(3e-2, 1.5 * floor)
             del lib, leaves
         check(same, f"flash_attention_bwd {label}: two calls differ")
@@ -962,13 +1030,31 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
               f"flash_attention_bwd {label}: non-finite or misshapen grads")
         check(max(errs.values()) <= tol, f"flash_attention_bwd {label}: "
               f"{errs} of the plain version's scale, beyond {tol:.3g}")
+        check(max(rows.values()) <= fla.BWD_ROW_REL_TOL,
+              f"flash_attention_bwd {label}: a row lies {rows} from the "
+              f"plain version's, beyond {fla.BWD_ROW_REL_TOL}")
         entry = dict(case=label, shape=dict(b=b, s=s, h=h, kv=kvh, d=d),
-                     dtype=str(dtype), rel_err=errs, tol=tol,
-                     sdpa_rel_err=floor, deterministic=same,
+                     dtype=str(dtype), route=route, rel_err=errs, tol=tol,
+                     row_rel_err=rows, row_tol=fla.BWD_ROW_REL_TOL,
+                     sdpa_rel_err=floor, sdpa_row_rel_err=lib_rows,
+                     deterministic=same,
+                     lse_max_abs_err=lse_err, lse_tol=lse_tol,
                      max_abs_err=max(float((g.float() - w.float()).abs()
                                            .max())
                                      for g, w in zip(got, want)))
-        del got, want
+        del got
+        if timed and route == "tc":
+            # the earlier kernels, the FFMA route, on the same inputs
+            ffma = fla.launch_gqa_bwd(q, k, v, o, do, lse, "ffma")
+            entry["ffma_rel_err"] = max(rel_err(g, w)
+                                        for g, w in zip(ffma, want))
+            entry["ffma_row_rel_err"] = max(row_errs(ffma, want).values())
+            check(entry["ffma_rel_err"] <= tol and entry["ffma_row_rel_err"]
+                  <= fla.BWD_ROW_REL_TOL, f"flash_attention_bwd {label}: "
+                  f"the FFMA route is {entry['ffma_rel_err']:.3g} (rows "
+                  f"{entry['ffma_row_rel_err']:.3g}) from the plain version")
+            del ffma
+        del want
         if timed:
             es = q.element_size()
             # q, o, dO in and dq out; k, v in and dk, dv out
@@ -978,27 +1064,41 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
             flops = 5 * 2.0 * d * b * h * s * (s + 1) / 2
             peak = fp32 if dtype == torch.float32 else bf16
             bound_ms, by = roof(nbytes, flops, bw, peak)
+            # the tc route's seven products (S and dP twice), beside it
+            design_ms = roof(nbytes, flops * 7 / 5, bw, peak)[0]
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             out = sdpa_gqa(*leaves)
 
             def new():
-                return fla.flash_attention_gqa_bwd(q, k, v, o, do)
+                return fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
 
             def library():
                 return torch.autograd.grad(out, leaves, do,
                                            retain_graph=True)
-            turns = {"library": [median_ms(library)],
-                     "new": [median_ms(new), median_ms(new)]}
+            def old():
+                return fla.launch_gqa_bwd(q, k, v, o, do, lse, "ffma")
+            # in turns: (ffma,) library, new, new, library (, ffma); the
+            # FFMA route is the earlier kernels where the new route is tc
+            turns = {"ffma": [median_ms(old)]} if route == "tc" else {}
+            turns["library"] = [median_ms(library)]
+            turns["new"] = [median_ms(new), median_ms(new)]
             turns["library"].append(median_ms(library))
+            if route == "tc":
+                turns["ffma"].append(median_ms(old))
+                entry["earlier_ms"] = statistics.mean(turns["ffma"])
+            dev_ms = device_ms_by_kernel(new)
+            ms = statistics.mean(turns["new"])
             entry.update(
-                ms=statistics.mean(turns["new"]), turns_ms=turns,
+                ms=ms, turns_ms=turns,
                 plain_ms=median_ms(
                     lambda: fla.flash_attention_gqa_bwd_plain(q, k, v, o,
                                                               do),
                     reps=3, inner=1),
-                bound_ms=bound_ms, bound_by=by,
+                bound_ms=bound_ms, bound_by=by, design_bound_ms=design_ms,
                 library_ms=statistics.mean(turns["library"]),
-                device_ms=device_ms_by_kernel(new), host_ms=host_ms(new))
+                device_ms=dev_ms, device_ms_sum=sum(dev_ms.values()),
+                device_over_events=sum(dev_ms.values()) / ms,
+                host_ms=host_ms(new))
             del out, leaves
         log(f"flash_attention_bwd {label}: {json.dumps(entry)}")
         return entry
@@ -1040,8 +1140,11 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
 
             def new():
                 return ssd.ssd_intra_chunks_bwd(*args)
+            ms = median_ms(new)
+            dev_ms = device_ms_by_kernel(new)
             entry.update(
-                ms=median_ms(new), device_ms=device_ms_by_kernel(new),
+                ms=ms, device_ms=dev_ms, device_ms_sum=sum(dev_ms.values()),
+                device_over_events=sum(dev_ms.values()) / ms,
                 host_ms=host_ms(new),
                 plain_ms=median_ms(
                     lambda: ssd.ssd_intra_chunks_bwd_plain(*args), reps=3,
@@ -1164,6 +1267,8 @@ def train_phase(dev, gen, wrappers, cfg, batch, seq, steps):
             "flash_attention.tc": 2 * cfg.n_layers,
             "flash_attention.ffma": 0, "ssd_intra": 2 * cfg.n_layers,
             "flash_attention_bwd": cfg.n_layers,
+            # bf16 at head dim 64: the tensor-core backward alone
+            "flash_attention_bwd.tc": cfg.n_layers,
             "ssd_intra_bwd": cfg.n_layers}
     for nm, cnt in per_step.items():
         check(cnt == want.get(nm, 0), f"train: {nm} launched {cnt} times a "
@@ -1187,7 +1292,13 @@ def train_phase(dev, gen, wrappers, cfg, batch, seq, steps):
         f"launches a step {per_step}")
     # where a step's time goes: one more step, traced, after the path
     nxt = pipe.global_batch(steps)
-    rep["trace"] = traced(lambda: step(state, nxt), "traced train step")
+    rep["trace"] = tr = traced(lambda: step(state, nxt), "traced train step")
+    bwd = {BWD_KERNEL.match(k_).group(1): v_ for k_, v_, _ in tr["port"]
+           if BWD_KERNEL.match(k_)}
+    tr["backward_ms"] = sum(bwd.values())
+    log(f"train: traced step busy {tr['busy_ms']:.1f} ms, of which the "
+        f"backward kernels {tr['backward_ms']:.2f} ms: "
+        + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in bwd.items()))
     return rep
 
 
@@ -1350,7 +1461,10 @@ def kmeans_surface_phase(dev, pts_np, k, n_groups, kv0, n_clusters,
 PORT_KERNEL = re.compile(r"^(void )?(\(anonymous namespace\)|tc|simt)::"
                          r"(ga|ga_plan|ga_simple|cu_partial|cu_reduce|psd|fa|"
                          r"fa_tc|ssd|fa_bwd_pre|fa_bwd_dkdv|fa_bwd_dq|"
+                         r"fa_bwd_dkdv_tc|fa_bwd_dq_tc|fa_bwd_sum|"
                          r"ssd_bwd_cell|ssd_bwd_reduce)(_kernel)?[<(]")
+# the backward kernels among them (training)
+BWD_KERNEL = re.compile(r".*?::((?:fa|ssd)_bwd_\w+)")
 
 
 def traced(fn, label):
@@ -3099,7 +3213,9 @@ def main() -> None:
         for line in text.splitlines():
             if "Compile time" not in line:
                 log(f"  ptxas {src}: {line.strip()}")
-    report["hgmma"] = hgmma_count(_build.library_path("flash_attention"))
+    # the forward's and the backward's tensor-core kernels
+    report["hgmma"] = {nm: hgmma_count(_build.library_path(nm))
+                       for nm in ("flash_attention", "flash_attention_bwd")}
 
     wrappers = {"grouped_assign": kernels.grouped_assign,
                 "centroid_update": kernels.centroid_update,

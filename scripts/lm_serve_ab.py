@@ -10,11 +10,15 @@ fresh process imports that root's package, builds its kernels into that
 root's ``build/``, makes hymba-1.5b's bf16 weights at full width and
 depth from seed 0, and runs the serving path of ``chip_smoke.py`` phase
 10: a prefill of 2 prompts of 2048 tokens, then ``--steps`` greedy
-decode steps. It prints one JSON line a turn: the root, the median of 3
-prefills after the first, and the median decode step after the first,
-each a host clock ending in a card sync, beside the card's name and
-power limit. Two versions are compared only within one run. Needs a
-card.
+decode steps; then it times the model's attention launch alone at the
+prefill's shape (``flash_attention_gqa`` on bf16 q (2, 2048, 25, 64)
+and k, v (2, 2048, 5, 64), the serving launch, as ``chip_smoke.py``
+phase 2c times it: CUDA events over 5 back-to-back calls, the median
+of 7, after a warm-up call). It prints one JSON line a turn: the root,
+the median of 3 prefills after the first, the median decode step after
+the first, each a host clock ending in a card sync, and the attention
+launch's ms, beside the card's name and power limit. Two versions are
+compared only within one run. Needs a card.
 """
 from __future__ import annotations
 
@@ -57,9 +61,26 @@ for t in range(STEPS):
     lg, cache = serve(params, cache, tok, 2048 + t)
     tok = lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
     sync(); dec.append((time.perf_counter() - t0) * 1e3)
+from repro_torch import kernels
+q = torch.randn((2, 2048, 25, 64), generator=gen, device=dev).bfloat16()
+k, v = (torch.randn((2, 2048, 5, 64), generator=gen, device=dev).bfloat16()
+        for _ in range(2))
+kernels.flash_attention_gqa(q, k, v)
+sync()
+attn = []
+for _ in range(7):
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        kernels.flash_attention_gqa(q, k, v)
+    stop.record()
+    stop.synchronize()
+    attn.append(start.elapsed_time(stop) / 5)
 print(json.dumps({"prefill_ms": statistics.median(pre[1:]),
                   "decode_ms": statistics.median(dec[1:]),
-                  "prefill_all": pre, "decode_first": dec[0]}))
+                  "prefill_all": pre, "decode_first": dec[0],
+                  "attention_ms": statistics.median(attn)}))
 """
 
 

@@ -6,8 +6,9 @@ Nothing is built when the package is imported: :func:`load` builds at
 first use, and :func:`build_all` starts one ``nvcc`` per source at once.
 
 Libraries go to ``build/repro_torch/<hash>/`` at the repository root
-(listed in ``.gitignore``), keyed by a hash of the source and the
-flags, so an edit always rebuilds and an unchanged source never does.
+(listed in ``.gitignore``), keyed by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edit always rebuilds and
+an unchanged source never does.
 
 Threads: the serving thread and the caller may touch a kernel first
 at the same time. One lock guards the loaded libraries, the build and
@@ -58,6 +59,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers too: an edit of one rebuilds every source
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_ROOT / key[:16] / f"lib{name}.so"
 

@@ -52,6 +52,14 @@
 //   through shared memory into the P.V product. All products are fp32
 //   FFMA, bf16 widened as it is staged.
 //
+// Both write, where the caller passes an lse buffer (the training
+// forward; serving passes null and the kernels do what they did
+// without it), each row's logsumexp of its scaled scores,
+// L_i = log sum_{j <= i} exp(q_i . k_j / sqrt(D)), in natural-log units
+// on both routes (the tc kernel's running max and sum are in log2
+// units and are converted), so csrc/flash_attention_bwd.cu rebuilds P
+// as exp(S / sqrt(D) - L) without a pass over the keys of its own.
+//
 // Both: kv tiles above the diagonal are never loaded and only tiles
 // that cross it are masked; the longest rows (most kv tiles) are
 // scheduled first; query heads of one kv group have neighbouring
@@ -66,11 +74,9 @@
 // operations. The tc kernel leaves the tensor cores idle while a
 // warpgroup does its softmax; two CTAs an SM at D = 64 let one CTA's
 // products overlap the other's softmax.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace simt {
 
@@ -79,9 +85,7 @@ constexpr int kBK = 64;        // keys per streamed block
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kLdP = kBK + 4;  // shared row stride of the probabilities
 
-struct Strides {
-  long long b, s, h;           // elements; D is contiguous
-};
+using Strides = tc::Strides;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -112,9 +116,9 @@ __device__ __forceinline__ void stage(const T* __restrict__ src,
 template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int s, int h,
-          int rep, int d, Strides qs, Strides ks, Strides vs, Strides os,
-          float scale) {
+          const T* __restrict__ v, T* __restrict__ out,
+          float* __restrict__ lse, int s, int h, int rep, int d, Strides qs,
+          Strides ks, Strides vs, Strides os, float scale) {
   constexpr int ld = kD + 4;
   constexpr int kCols = kD / 16;            // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -238,6 +242,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= s) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // the row's logsumexp of the scaled scores, for the backward
+    if (lse != nullptr && tx == 0)
+      lse[(long long)bh * s + row] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = tx + 16 * c;
@@ -252,9 +259,9 @@ constexpr size_t smem_bytes() {
 }
 
 template <typename T, int kD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int kv, int d, Strides qs, Strides ks, Strides vs,
-           Strides os, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int s, int h, int kv, int d, Strides qs,
+           Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -263,19 +270,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
   fa_kernel<T, kD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, h, h / kv, d, qs,
-      ks, vs, os, 1.0f / sqrtf((float)d));
+      static_cast<const T*>(v), static_cast<T*>(out), lse, s, h, h / kv, d,
+      qs, ks, vs, os, 1.0f / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int b,
-             int s, int h, int kv, int d, Strides qs, Strides ks, Strides vs,
-             Strides os, cudaStream_t stream) {
-  if (d <= 16) return launch<T, 16>(q, k, v, out, b, s, h, kv, d, qs, ks, vs, os, stream);
-  if (d <= 32) return launch<T, 32>(q, k, v, out, b, s, h, kv, d, qs, ks, vs, os, stream);
-  if (d <= 64) return launch<T, 64>(q, k, v, out, b, s, h, kv, d, qs, ks, vs, os, stream);
-  if (d <= 128) return launch<T, 128>(q, k, v, out, b, s, h, kv, d, qs, ks, vs, os, stream);
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int b, int s, int h, int kv, int d, Strides qs,
+             Strides ks, Strides vs, Strides os, cudaStream_t stream) {
+  if (d <= 16) return launch<T, 16>(q, k, v, out, lse, b, s, h, kv, d, qs, ks, vs, os, stream);
+  if (d <= 32) return launch<T, 32>(q, k, v, out, lse, b, s, h, kv, d, qs, ks, vs, os, stream);
+  if (d <= 64) return launch<T, 64>(q, k, v, out, lse, b, s, h, kv, d, qs, ks, vs, os, stream);
+  if (d <= 128) return launch<T, 128>(q, k, v, out, lse, b, s, h, kv, d, qs, ks, vs, os, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -288,137 +295,6 @@ constexpr int kRows = 128;     // query rows per CTA: two warpgroups of 64
 constexpr int kKeys = 64;      // keys per streamed tile
 constexpr int kStages = 3;     // K and V tiles in the ring
 constexpr int kThreads = 256;
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A head's rows as the tensor map reads them: dims (D, X, Y, B), X and
-// Y the sequence and head axes in increasing stride; seq names the one
-// that is the sequence (1 or 2). A box is 64 columns (128 bytes, one
-// swizzled panel) of `rows` rows of one head of one batch.
-struct Map {
-  CUtensorMap map;
-  int seq;
-};
-
-// the tensor-map copy of a box to shared memory, completion reported to
-// the mbarrier at bar; c0 the column, row the first row
-__device__ __forceinline__ void tma_load(uint32_t dst, const Map& m,
-                                         uint32_t bar, int c0, int row,
-                                         int head, int batch) {
-  const int c1 = m.seq == 1 ? row : head, c2 = m.seq == 1 ? head : row;
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&m.map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(batch), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-// Wait for the completion of the barrier's phase of this parity. A
-// bounded spin: a copy that never lands traps (a launch error) rather
-// than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1u << 24)) __trap();
-  }
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads of an accumulator above the wait
-__device__ __forceinline__ void pin(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 64, fp32) = a (64 x 16, shared, K-major) * b (16 x 64, shared,
-// K-major), + d when accumulate is non-zero
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, fp32) += a (64 x 16 bf16, registers) * b (16 x 64, shared,
-// MN-major: the 64 columns of a row are contiguous)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int kD>
 constexpr int smem_bytes() {
@@ -434,8 +310,9 @@ constexpr int smem_bytes() {
 template <int kD>
 __global__ void __launch_bounds__(kThreads, kD == 64 ? 2 : 1)
 fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
-             const __grid_constant__ Map mv, bf16* __restrict__ out, int s,
-             int h, int rep, simt::Strides os, float scale_log2) {
+             const __grid_constant__ Map mv, bf16* __restrict__ out,
+             float* __restrict__ lse, int s, int h, int rep, Strides os,
+             float scale_log2) {
   constexpr int kPanels = kD / 64;
   constexpr uint32_t kTile = kKeys * kD * 2;     // bytes of one K or V tile
   extern __shared__ uint8_t smem_raw[];
@@ -579,13 +456,7 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
       // P in bf16: the accumulator fragment of keys 16kk .. 16kk + 15 is
       // the A fragment of k-step kk
       uint32_t pa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
+      to_a_frags(sc, pa);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -610,6 +481,18 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   bf16* op = out + bi * os.b + hi * os.h;
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  // each row's logsumexp of the scaled scores, for the backward, in
+  // natural-log units as the FFMA kernel writes it: the running max and
+  // sum are in log2 units (ex2), so L = (m scale_log2 + log2 l) ln 2
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lp = lse + (long long)bh * s;
+    if (row_a < s)
+      lp[row_a] = fmaf(m_a, scale_log2, log2f(fmaxf(l_a, 1e-30f))) *
+                  0.6931471805599453f;
+    if (row_b < s)
+      lp[row_b] = fmaf(m_b, scale_log2, log2f(fmaxf(l_b, 1e-30f))) *
+                  0.6931471805599453f;
+  }
 #pragma unroll
   for (int pn = 0; pn < kPanels; ++pn)
 #pragma unroll
@@ -628,64 +511,10 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
     }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so the library
-// needs no link to libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A map of a (b, s, heads, d) bf16 tensor with (batch, sequence, head)
-// element strides st, D contiguous, read in boxes of 64 columns by
-// `rows` rows, 128-byte swizzled. Returns false where
-// cuTensorMapEncodeTiled refuses it.
-bool make_map(Map* m, const void* base, int b, int s, int heads, int d,
-              simt::Strides st, int rows) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  // the middle dims in increasing stride; a dim of one element is never
-  // stepped, so it takes the packed stride
-  const bool seq_first = st.s <= st.h;
-  m->seq = seq_first ? 1 : 2;
-  const long long inner = seq_first ? st.s : st.h;
-  const long long outer = seq_first ? st.h : st.s;
-  const int n_inner = seq_first ? s : heads, n_outer = seq_first ? heads : s;
-  const cuuint64_t e = 2;                        // bytes of a bf16
-  const cuuint64_t s1 = (cuuint64_t)inner * e;
-  const cuuint64_t s2 = n_outer > 1 ? (cuuint64_t)outer * e : s1 * n_inner;
-  const cuuint64_t s3 = b > 1 ? (cuuint64_t)st.b * e : s2 * n_outer;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n_inner,
-                              (cuuint64_t)n_outer, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {s1, s2, s3};
-  const cuuint32_t box[4] = {64, seq_first ? (cuuint32_t)rows : 1u,
-                             seq_first ? 1u : (cuuint32_t)rows, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(&m->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kD>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int h, int kv, simt::Strides qs, simt::Strides ks,
-           simt::Strides vs, simt::Strides os, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int s, int h, int kv, Strides qs, Strides ks,
+           Strides vs, Strides os, cudaStream_t stream) {
   Map mq, mk, mv;
   if (!make_map(&mq, q, b, s, h, kD, qs, kRows) ||
       !make_map(&mk, k, b, s, kv, kD, ks, kKeys) ||
@@ -697,7 +526,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(b * h, (s + kRows - 1) / kRows);
   fa_tc_kernel<kD><<<grid, kThreads, bytes, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), s, h, h / kv, os,
+      mq, mk, mv, static_cast<bf16*>(out), lse, s, h, h / kv, os,
       1.4426950408889634f / sqrtf((float)(kD)));
   return (int)cudaGetLastError();
 }
@@ -709,9 +538,12 @@ extern "C" {
 // q (b, s, h, d), k and v (b, s, kv, d) and out (b, s, h, d) through
 // (batch, sequence, head) element strides, D contiguous; all fp32
 // (dtype 0) or all bf16 (dtype 1); h a multiple of kv, 1 <= d <= 128.
-// The FFMA kernel. Returns cudaGetLastError() after the launch.
+// lse: null, or fp32 (b, h, s) contiguous, where each row's logsumexp
+// of its scaled scores goes (the training forward's; serving passes
+// null). The FFMA kernel. Returns cudaGetLastError() after the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int b, int s, int h, int kv, int d,
+                           void* out, void* lse, int b, int s, int h, int kv,
+                           int d,
                            long long q_sb, long long q_ss, long long q_sh,
                            long long k_sb, long long k_ss, long long k_sh,
                            long long v_sb, long long v_ss, long long v_sh,
@@ -724,11 +556,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return simt::dispatch<float>(q, k, v, out, b, s, h, kv, d, qs, ks, vs,
-                                 os, st);
+    return simt::dispatch<float>(q, k, v, out, static_cast<float*>(lse), b,
+                                 s, h, kv, d, qs, ks, vs, os, st);
   if (dtype == 1)
-    return simt::dispatch<__nv_bfloat16>(q, k, v, out, b, s, h, kv, d, qs,
-                                         ks, vs, os, st);
+    return simt::dispatch<__nv_bfloat16>(q, k, v, out,
+                                         static_cast<float*>(lse), b, s, h,
+                                         kv, d, qs, ks, vs, os, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -736,7 +569,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // or 128, every base and stride a multiple of 16 bytes (the wrapper
 // checks). Returns cudaGetLastError() after the launch.
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
-                              void* out, int b, int s, int h, int kv, int d,
+                              void* out, void* lse, int b, int s, int h,
+                              int kv, int d,
                               long long q_sb, long long q_ss, long long q_sh,
                               long long k_sb, long long k_ss, long long k_sh,
                               long long v_sb, long long v_ss, long long v_sh,
@@ -744,13 +578,15 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               void* stream) {
   if (b < 1 || s < 1 || kv < 1 || h % kv != 0)
     return (int)cudaErrorInvalidValue;
-  const simt::Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+  const tc::Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lf = static_cast<float*>(lse);
   if (d == 64)
-    return tc::launch<64>(q, k, v, out, b, s, h, kv, qs, ks, vs, os, st);
+    return tc::launch<64>(q, k, v, out, lf, b, s, h, kv, qs, ks, vs, os, st);
   if (d == 128)
-    return tc::launch<128>(q, k, v, out, b, s, h, kv, qs, ks, vs, os, st);
+    return tc::launch<128>(q, k, v, out, lf, b, s, h, kv, qs, ks, vs, os,
+                           st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,65 +18,462 @@
 //     dC   = (dS o L) B              dB = (dS o L)^T C
 //     dcum_i = sum_j (dS o M)_ij - sum_k (dS o M)_ki
 //
-// dB and dC sum over the heads of a group; at hymba-1.5b one group holds
-// all 25 heads, and a block a (cell, group) would give 32 blocks for 132
-// SMs. So two kernels:
-//   1. ssd_bwd_cell, a block a cell: walks the causal triangle in 32 x 32
-//      tiles, column tile by column tile, and for each over the row tiles
-//      on or below it. A column tile's dx, dB and column sums sit in
-//      shared memory until its walk ends; the whole cell's dC and row
-//      sums sit there until the cell ends. It writes dx and dcum, and its
-//      head's dC and dB to fp32 scratch (outer, heads, q, n).
+// dB and dC sum over the heads of a group (at hymba-1.5b one group holds
+// all 25 heads). Two kernels:
+//   1. ssd_bwd_cell, two blocks a cell (Q <= 128, the configs' chunk),
+//      256 threads each, in the forward kernel's pattern (csrc/ssd_intra.cu):
+//      register tiles of 8 x 8 fp32 accumulators a thread, so that 16
+//      floats a lane from shared memory feed 64 FFMAs, and a cp.async
+//      ring of three stages, two in flight while one is computed. Both
+//      stage the cell's C, B and cum first.
+//      - the dS block (blockIdx.y = 0) holds the whole Q x Q dS = dy x^T
+//        in registers, rows ty + 16 k and columns tx + 16 m of thread
+//        (ty, tx), and streams 16-column slices of dy and x; a pair of
+//        16-row groups wholly above the diagonal (m > k) is never formed,
+//        a case compiled away. Then, in the same tiles, G = C B^T, L,
+//        W = dS o L (to shared memory, over the ring) and dS o M, whose
+//        row sums meet by shuffles and column sums through shared
+//        memory: dcum. Last dC = W B and dB = W^T C, a row of each a
+//        thread pair (row r's dC walks r + 1 columns, its dB Q - r rows:
+//        every thread the same work), into this head's partials.
+//      - the dx block (blockIdx.y = 1) is the forward turned over: it
+//        owns rows j of dx = M^T dy and streams 32-row i-blocks of dy;
+//        the scores M_ij of an i-block go to shared memory, rows j that
+//        lie wholly after it take no part (a case compiled for each
+//        i-block), and dx_j += sum_i M_ij dy_i in 8 x 8 tiles.
+//      dS blocks come first in the grid, so the last wave holds the
+//      dx blocks, which take less time.
 //   2. ssd_bwd_reduce, a thread an element of dC and dB: sums the
-//      group's heads in order.
+//      group's heads' partials in order.
 // Every output element is summed by one thread in a fixed order: no
 // atomics, and two calls give the same bits. All fp32 FFMA, as in the
-// forward. Above the diagonal and past q, L is selected to 0, never
+// forward (TF32 misses the 1e-4 bound, and wgmma's tf32 operands must
+// be K-major, which dx = M^T dy, dB = W^T C and the column sums are
+// not). Above the diagonal and past Q, L is selected to 0, never
 // multiplied (exp of a positive number may be inf there).
 //
 // Bound on the card: at hymba-1.5b's training step (b 2, s 2048, Q 128,
 // N 16, P 128, 25 heads: 800 cells) the causal halves of dS (Q x Q x P),
 // dx (Q x Q x P), M, dC and dB (Q x Q x N each) are 4.0e9 flops (0.060 ms
 // at the fp32 FFMA peak) against 159 MB of C, B, x, cum and dy in and
-// dC, dB, dx, dcum out (0.047 ms at 3.35 TB/s): about balanced. This
-// first version forms each product one output element a thread from
-// shared memory (two loads an FFMA), so shared memory, not the FFMA
-// units, bounds it.
+// dC, dB, dx, dcum out (0.047 ms at 3.35 TB/s): about balanced. The
+// register tiles form 36 of dS's 64 16 x 16 pairs and 20 of dx's 32
+// (16 x 32) pairs, 1.1x to 1.25x the causal half; 1,600 blocks of 96 KB
+// at two an SM.
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kJ = 32;          // rows and columns of a tile
-constexpr int kThreads = 256;
+constexpr int kQ = 128;         // rows of a cell the kernel takes at most
+constexpr int kThreads = 256;   // 16 x 16
+constexpr int kStages = 3;      // ring stages
+constexpr int kPC = 16;         // columns of dy and x a dS stage holds
+constexpr int kLdC = kPC + 4;   // their row stride
+constexpr int kIB = 32;         // rows of dy a dx stage holds
+constexpr int kLdS = kIB + 4;   // the dx block's scores row stride
+constexpr int kLdW = kQ + 1;    // W's row stride: odd, so a column walk
+                                // and a row walk both hit distinct banks
+// the dS block's ring, which W takes over once dS is formed
+constexpr int kRingW = kStages * 2 * kQ * kLdC > kQ * kLdW
+                           ? kStages * 2 * kQ * kLdC
+                           : kQ * kLdW;
 
 struct Shape {
   int heads, groups, rep, q, n, p;
 };
 
-// floats of shared memory ssd_bwd_cell takes
-size_t cell_floats(int q, int n, int p) {
-  return (size_t)q * n + 2 * q                    // dC, row sums, col sums
-         + 2 * kJ * (p + 1) + 2 * kJ * (n + 1)    // x, dy, B, C tiles
-         + 2 * kJ                                 // cum of both
-         + 3 * kJ * (kJ + 1)                      // W, M, dS o M
-         + (size_t)kJ * p + (size_t)kJ * n + kJ;  // dx, dB, col sums
+__device__ __forceinline__ uint32_t saddr(const float* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 (or 4) bytes from src to shared dst; bytes 0 writes zeros
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   saddr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   saddr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [r0, r0 + kJ) of a (rows, width) slice at row stride rs into a
-// kJ x (width + 1) tile; zero past q
-__device__ __forceinline__ void load(float* tile, const float* base, int r0,
-                                     int q, int width, long long rs) {
-  for (int e = threadIdx.x; e < kJ * width; e += kThreads) {
-    const int r = e / width, c = e % width;
-    tile[r * (width + 1) + c] =
-        r0 + r < q ? base[(long long)(r0 + r) * rs + c] : 0.f;
+// rows [row0, row0 + rows) x columns [col0, col0 + width) of src (row
+// stride rs, the last axis contiguous) into dst (row stride ld), zero
+// outside rows < q and columns < w; width a multiple of 4
+template <bool kVec>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
+                                      long long rs, int row0, int rows,
+                                      int q, int col0, int width, int w) {
+  const int t = threadIdx.x;
+  if (kVec) {
+    const int w4 = width / 4;
+    for (int e = t; e < rows * w4; e += kThreads) {
+      const int r = e / w4, c = 4 * (e - r * w4);
+      const bool ok = row0 + r < q && col0 + c < w;
+      cp16(dst + r * ld + c,
+           ok ? src + (long long)(row0 + r) * rs + col0 + c : src,
+           ok ? 16 : 0);
+    }
+  } else {
+    for (int e = t; e < rows * width; e += kThreads) {
+      const int r = e / width, c = e - r * width;
+      const bool ok = row0 + r < q && col0 + c < w;
+      cp4(dst + r * ld + c,
+          ok ? src + (long long)(row0 + r) * rs + col0 + c : src,
+          ok ? 4 : 0);
+    }
+  }
+}
+
+__host__ __device__ inline int n_ld(int n) {
+  const int n4 = (n + 3) & ~3;
+  return (n4 / 4) % 2 == 0 ? n4 + 4 : n4;    // an odd number of float4s
+}
+
+// floats of shared memory: C, B and cum of the cell, then the larger of
+// the two blocks' own regions; kPS the columns of dx a dx block owns
+__host__ __device__ inline size_t smem_floats(int n, int kPS) {
+  const size_t common = 2 * (size_t)kQ * n_ld(n) + kQ;
+  const size_t ds_side = kRingW + kQ + 16 * kQ;
+  const size_t dx_side = (size_t)kQ * kLdS + (size_t)kStages * kIB * kPS;
+  return common + (ds_side > dx_side ? ds_side : dx_side);
+}
+
+// pointers and sizes of one cell
+struct Cell {
+  const float *x, *dy;           // row 0 of the cell's x and dy
+  long long xhs;                 // their row stride
+  int q, n, p, n4, ldn;
+  const float* csm;              // the cell's C, B and cum in shared memory
+  const float* bsm;
+  const float* cumsm;
+};
+
+// ---------------------------------------------------------------------------
+// the dS block: dcum, and this head's dC and dB partials
+// ---------------------------------------------------------------------------
+template <bool kVec>
+__device__ __forceinline__ void ds_block(const Cell& cl, float* region,
+                                         float* dcum_row, long long dcum_rs,
+                                         float* pch, float* pbh) {
+  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+  const int q = cl.q;
+  float* ring = region;             // kStages x (dy, x) slices; then W
+  float* wsm = region;
+  float* rs = region + kRingW;      // dS o M row sums [kQ]
+  float* csp = rs + kQ;             // column sums of each ty [16][kQ]
+  const int nch = (cl.p + kPC - 1) / kPC;
+  auto load_slice = [&](int c) {
+    float* st = ring + (c % kStages) * 2 * kQ * kLdC;
+    stage<kVec>(st, kLdC, cl.dy, cl.xhs, 0, kQ, q, c * kPC, kPC, cl.p);
+    stage<kVec>(st + kQ * kLdC, kLdC, cl.x, cl.xhs, 0, kQ, q, c * kPC, kPC,
+                cl.p);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nch) load_slice(s);
+    cp_commit();                    // C, B (and cum) ride with the first
+  }
+
+  // dS of rows ty + 16 k, columns tx + 16 m; m > k is above the diagonal
+  float acc[8][8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int m = 0; m <= k; ++m) acc[k][m] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    if (c + kStages - 1 < nch) load_slice(c + kStages - 1);
+    cp_commit();
+    cp_wait<kStages - 1>();         // slice c has landed
+    __syncthreads();
+    const float* ys = ring + (c % kStages) * 2 * kQ * kLdC;
+    const float* xs = ys + kQ * kLdC;
+#pragma unroll
+    for (int pp = 0; pp < kPC; pp += 4) {
+      float4 b[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+        b[m] = *reinterpret_cast<const float4*>(&xs[(tx + 16 * m) * kLdC + pp]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(&ys[(ty + 16 * k) * kLdC + pp]);
+#pragma unroll
+        for (int m = 0; m <= k; ++m) {
+          float v = acc[k][m];
+          v = fmaf(a.x, b[m].x, v);
+          v = fmaf(a.y, b[m].y, v);
+          v = fmaf(a.z, b[m].z, v);
+          acc[k][m] = fmaf(a.w, b[m].w, v);
+        }
+      }
+    }
+    __syncthreads();                // the stage is free
+  }
+
+  // G = C B^T, L, W = dS o L and dS o M in the same tiles; W over the
+  // ring, which every thread is done with
+  float csum[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) csum[m] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = ty + 16 * k;
+    float g[8];
+#pragma unroll
+    for (int m = 0; m <= k; ++m) g[m] = 0.f;
+    for (int nn = 0; nn < cl.n4; nn += 4) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(&cl.csm[i * cl.ldn + nn]);
+#pragma unroll
+      for (int m = 0; m <= k; ++m) {
+        const float4 bb = *reinterpret_cast<const float4*>(
+            &cl.bsm[(tx + 16 * m) * cl.ldn + nn]);
+        float v = g[m];
+        v = fmaf(a.x, bb.x, v);
+        v = fmaf(a.y, bb.y, v);
+        v = fmaf(a.z, bb.z, v);
+        g[m] = fmaf(a.w, bb.w, v);
+      }
+    }
+    const float ci = cl.cumsm[i];
+    float rsum = 0.f;
+#pragma unroll
+    for (int m = 0; m <= k; ++m) {
+      const int j = tx + 16 * m;
+      // select, never multiply: above the diagonal exp may be inf
+      const float l = (j <= i && i < q) ? expf(ci - cl.cumsm[j]) : 0.f;
+      const float w = acc[k][m] * l;
+      const float z = w * g[m];
+      wsm[i * kLdW + j] = w;
+      rsum += z;
+      csum[m] += z;
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)   // the 16 tx lanes of a row
+      rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+    if (tx == 0) rs[i] = rsum;
+  }
+#pragma unroll
+  for (int m = 0; m < 8; ++m) csp[ty * kQ + tx + 16 * m] = csum[m];
+  __syncthreads();                  // W, the row sums, the column sums
+  if (t < q) {
+    float cs = 0.f;
+    for (int y = 0; y < 16; ++y) cs += csp[y * kQ + t];
+    dcum_row[(long long)t * dcum_rs] = rs[t] - cs;
+  }
+
+  // dC_r = sum_{j <= r} W_rj B_j and dB_r = sum_{i >= r} W_ir C_i, a
+  // thread pair a row r, eight columns of N a thread each pass
+  const int r = t / 2, half = t % 2;
+  if (r >= q) return;
+  for (int n0 = 0; n0 < cl.n4; n0 += 16) {
+    const int c0 = n0 + 8 * half;
+    const bool has0 = c0 < cl.n4, has1 = c0 + 4 < cl.n4;
+    float4 dc[2], db[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      dc[u] = db[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j <= r; ++j) {
+      const float w = wsm[r * kLdW + j];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (!(u == 0 ? has0 : has1)) continue;
+        const float4 bb =
+            *reinterpret_cast<const float4*>(&cl.bsm[j * cl.ldn + c0 + 4 * u]);
+        dc[u].x = fmaf(w, bb.x, dc[u].x);
+        dc[u].y = fmaf(w, bb.y, dc[u].y);
+        dc[u].z = fmaf(w, bb.z, dc[u].z);
+        dc[u].w = fmaf(w, bb.w, dc[u].w);
+      }
+    }
+    for (int i = r; i < q; ++i) {
+      const float w = wsm[i * kLdW + r];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (!(u == 0 ? has0 : has1)) continue;
+        const float4 cc =
+            *reinterpret_cast<const float4*>(&cl.csm[i * cl.ldn + c0 + 4 * u]);
+        db[u].x = fmaf(w, cc.x, db[u].x);
+        db[u].y = fmaf(w, cc.y, db[u].y);
+        db[u].z = fmaf(w, cc.z, db[u].z);
+        db[u].w = fmaf(w, cc.w, db[u].w);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float dcv[4] = {dc[u].x, dc[u].y, dc[u].z, dc[u].w};
+      const float dbv[4] = {db[u].x, db[u].y, db[u].z, db[u].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 4 * u + e;
+        if (col < cl.n) {
+          pch[(long long)r * cl.n + col] = dcv[e];
+          pbh[(long long)r * cl.n + col] = dbv[e];
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the dx block: dx = M^T dy, the forward kernel turned over
+// ---------------------------------------------------------------------------
+template <int kPS, bool kVec>
+__device__ __forceinline__ void dx_block(const Cell& cl, float* region,
+                                         float* dxp) {
+  constexpr int kC4 = kPS / 64;     // float4 columns a thread keeps
+  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+  const int q = cl.q;
+  float* ssm = region;              // M of the i-block, [j][i] [kQ][kLdS]
+  float* ring = ssm + kQ * kLdS;    // kStages x kIB rows of dy
+  const int nib = (q + kIB - 1) / kIB;
+  auto load_ib = [&](int ib) {
+    stage<kVec>(ring + (ib % kStages) * kIB * kPS, kPS, cl.dy, cl.xhs,
+                ib * kIB, kIB, q, 0, kPS, cl.p);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nib) load_ib(s);
+    cp_commit();                    // C, B (and cum) ride with the first
+  }
+
+  // rows j = ty + 16 k of dx, columns 4 tx .. 4 tx + 3 (+ 64)
+  float acc[8][4 * kC4];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int o = 0; o < 4 * kC4; ++o) acc[k][o] = 0.f;
+
+  for (int ib = 0; ib < nib; ++ib) {
+    if (ib + kStages - 1 < nib) load_ib(ib + kStages - 1);
+    cp_commit();
+    cp_wait<kStages - 1>();         // i-block ib has landed
+    __syncthreads();
+    const float* ys = ring + (ib % kStages) * kIB * kPS;
+    const int i0 = ib * kIB;
+
+    // row groups k < kEnd take part: those with a row j <= i0 + 31; each
+    // case is compiled on its own, so the loops carry no branch
+    auto rows_to = [&](auto kendc) {
+      constexpr int kEnd = decltype(kendc)::value;
+      // M_ij of rows j = ty + 16 k and columns i0 + tx, i0 + tx + 16
+      float sc[kEnd][2];
+#pragma unroll
+      for (int k = 0; k < kEnd; ++k) sc[k][0] = sc[k][1] = 0.f;
+      for (int nn = 0; nn < cl.n4; nn += 4) {
+        const float4 c0 = *reinterpret_cast<const float4*>(
+            &cl.csm[(i0 + tx) * cl.ldn + nn]);
+        const float4 c1 = *reinterpret_cast<const float4*>(
+            &cl.csm[(i0 + tx + 16) * cl.ldn + nn]);
+#pragma unroll
+        for (int k = 0; k < kEnd; ++k) {
+          const float4 a = *reinterpret_cast<const float4*>(
+              &cl.bsm[(ty + 16 * k) * cl.ldn + nn]);
+          float s0 = sc[k][0], s1 = sc[k][1];
+          s0 = fmaf(a.x, c0.x, s0);
+          s0 = fmaf(a.y, c0.y, s0);
+          s0 = fmaf(a.z, c0.z, s0);
+          s0 = fmaf(a.w, c0.w, s0);
+          s1 = fmaf(a.x, c1.x, s1);
+          s1 = fmaf(a.y, c1.y, s1);
+          s1 = fmaf(a.z, c1.z, s1);
+          s1 = fmaf(a.w, c1.w, s1);
+          sc[k][0] = s0;
+          sc[k][1] = s1;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kEnd; ++k) {
+        const int j = ty + 16 * k;
+#pragma unroll
+        for (int mm = 0; mm < 2; ++mm) {
+          const int li = tx + 16 * mm, i = i0 + li;
+          // select, never multiply: below the diagonal exp may be inf
+          ssm[j * kLdS + li] = (i >= j && i < q)
+              ? sc[k][mm] * expf(cl.cumsm[i] - cl.cumsm[j]) : 0.f;
+        }
+      }
+      __syncthreads();              // the scores block complete
+
+      // dx_j += sum_i M_ij dy_i, two i at a time
+#pragma unroll 1
+      for (int ii = 0; ii < kIB; ii += 2) {
+        float2 s2[kEnd];
+#pragma unroll
+        for (int k = 0; k < kEnd; ++k)
+          s2[k] = *reinterpret_cast<const float2*>(
+              &ssm[(ty + 16 * k) * kLdS + ii]);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float4 yv[kC4];
+#pragma unroll
+          for (int h = 0; h < kC4; ++h)
+            yv[h] = *reinterpret_cast<const float4*>(
+                &ys[(ii + u) * kPS + 64 * h + 4 * tx]);
+#pragma unroll
+          for (int k = 0; k < kEnd; ++k) {
+            const float sv = u == 0 ? s2[k].x : s2[k].y;
+#pragma unroll
+            for (int h = 0; h < kC4; ++h) {
+              acc[k][4 * h + 0] = fmaf(sv, yv[h].x, acc[k][4 * h + 0]);
+              acc[k][4 * h + 1] = fmaf(sv, yv[h].y, acc[k][4 * h + 1]);
+              acc[k][4 * h + 2] = fmaf(sv, yv[h].z, acc[k][4 * h + 2]);
+              acc[k][4 * h + 3] = fmaf(sv, yv[h].w, acc[k][4 * h + 3]);
+            }
+          }
+        }
+      }
+    };
+    switch (ib) {
+      case 0: rows_to(std::integral_constant<int, 2>{}); break;
+      case 1: rows_to(std::integral_constant<int, 4>{}); break;
+      case 2: rows_to(std::integral_constant<int, 6>{}); break;
+      default: rows_to(std::integral_constant<int, 8>{}); break;
+    }
+    __syncthreads();                // the stage and the scores are free
+  }
+
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int j = ty + 16 * k;
+#pragma unroll
+    for (int h = 0; h < kC4; ++h) {
+      const int col = 64 * h + 4 * tx;
+      if (j >= q || col >= cl.p) continue;
+      float* dst = dxp + (long long)j * cl.xhs + col;
+      const float* a = &acc[k][4 * h];
+      if (kVec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+      } else {
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+          if (col + o < cl.p) dst[o] = a[o];
+      }
+    }
   }
 }
 
 // C, B (outer, q, groups, n); x, dy, dx (outer, q, heads, p); cum, dcum
-// (outer, q, heads); pc, pb (outer, heads, q, n): all contiguous, fp32
-__global__ void __launch_bounds__(kThreads)
+// (outer, q, heads); pc, pb (outer, heads, q, n): all contiguous, fp32.
+// Grid (cells, 2): blockIdx.y 0 the dS block, 1 the dx block.
+template <int kPS, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
     ssd_bwd_cell(const float* __restrict__ C, const float* __restrict__ B,
                  const float* __restrict__ x, const float* __restrict__ cum,
                  const float* __restrict__ dy, float* __restrict__ dx,
@@ -84,135 +481,34 @@ __global__ void __launch_bounds__(kThreads)
                  float* __restrict__ pb, Shape sh) {
   extern __shared__ __align__(16) float smem[];
   const int q = sh.q, n = sh.n, p = sh.p;
-  float* dc_acc = smem;                       // (q, n)
-  float* rsum = dc_acc + (size_t)q * n;       // (q,)
-  float* csum = rsum + q;                     // (q,)
-  float* xt = csum + q;                       // x_j   kJ x (p + 1)
-  float* yt = xt + kJ * (p + 1);              // dy_i  kJ x (p + 1)
-  float* bt = yt + kJ * (p + 1);              // B_j   kJ x (n + 1)
-  float* ct = bt + kJ * (n + 1);              // C_i   kJ x (n + 1)
-  float* uj = ct + kJ * (n + 1);              // cum_j
-  float* ui = uj + kJ;                        // cum_i
-  float* wt = ui + kJ;                        // dS o L     kJ x (kJ + 1)
-  float* mt = wt + kJ * (kJ + 1);             // M
-  float* zt = mt + kJ * (kJ + 1);             // dS o M
-  float* dx_acc = zt + kJ * (kJ + 1);         // (kJ, p)
-  float* db_acc = dx_acc + kJ * p;            // (kJ, n)
-  float* cs_acc = db_acc + kJ * n;            // (kJ,)
+  const int n4 = (n + 3) & ~3, ldn = n_ld(n);
+  float* csm = smem;                          // [kQ][ldn]
+  float* bsm = csm + kQ * ldn;                // [kQ][ldn]
+  float* cumsm = bsm + kQ * ldn;              // [kQ]
+  float* region = cumsm + kQ;
 
   const int cell = blockIdx.x;
   const int outer = cell / sh.heads, hd = cell % sh.heads, g = hd / sh.rep;
   const long long cgs = (long long)sh.groups * n;     // row stride of C, B
   const long long xhs = (long long)sh.heads * p;      // of x, dy, dx
-  const float* cb = C + (long long)outer * q * cgs + (long long)g * n;
-  const float* bb = B + (long long)outer * q * cgs + (long long)g * n;
+  const long long co = (long long)outer * q * cgs + (long long)g * n;
   const long long xo = (long long)outer * q * xhs + (long long)hd * p;
-  const float* ub = cum + (long long)outer * q * sh.heads + hd;
-  const int tid = threadIdx.x, nb = (q + kJ - 1) / kJ;
+  const float* up = cum + (long long)outer * q * sh.heads + hd;
 
-  for (int e = tid; e < q * n; e += kThreads) dc_acc[e] = 0.f;
-  for (int e = tid; e < q; e += kThreads) rsum[e] = 0.f;
+  // the cell's C, B and cum; the copies commit with the ring's first stage
+  stage<kVec>(csm, ldn, C + co, cgs, 0, kQ, q, 0, n4, n);
+  stage<kVec>(bsm, ldn, B + co, cgs, 0, kQ, q, 0, n4, n);
+  for (int r = threadIdx.x; r < kQ; r += kThreads)
+    cumsm[r] = r < q ? up[(long long)r * sh.heads] : 0.f;
 
-  for (int jb = 0; jb < nb; ++jb) {
-    const int j0 = jb * kJ;
-    __syncthreads();
-    load(xt, x + xo, j0, q, p, xhs);
-    load(bt, bb, j0, q, n, cgs);
-    for (int e = tid; e < kJ; e += kThreads)
-      uj[e] = j0 + e < q ? ub[(long long)(j0 + e) * sh.heads] : 0.f;
-    for (int e = tid; e < kJ * p; e += kThreads) dx_acc[e] = 0.f;
-    for (int e = tid; e < kJ * n; e += kThreads) db_acc[e] = 0.f;
-    for (int e = tid; e < kJ; e += kThreads) cs_acc[e] = 0.f;
-    for (int ib = jb; ib < nb; ++ib) {
-      const int i0 = ib * kJ;
-      __syncthreads();
-      load(yt, dy + xo, i0, q, p, xhs);
-      load(ct, cb, i0, q, n, cgs);
-      for (int e = tid; e < kJ; e += kThreads)
-        ui[e] = i0 + e < q ? ub[(long long)(i0 + e) * sh.heads] : 0.f;
-      __syncthreads();
-      // the tile's W = dS o L, M = G o L and dS o M; row r is i0 + r,
-      // column c is j0 + c
-      for (int e = tid; e < kJ * kJ; e += kThreads) {
-        const int r = e / kJ, c = e % kJ;
-        const int i = i0 + r, j = j0 + c;
-        float w = 0.f, m = 0.f, z = 0.f;
-        if (i < q && j <= i) {
-          float gsc = 0.f, ds = 0.f;
-          for (int k = 0; k < n; ++k)
-            gsc = fmaf(ct[r * (n + 1) + k], bt[c * (n + 1) + k], gsc);
-          for (int k = 0; k < p; ++k)
-            ds = fmaf(yt[r * (p + 1) + k], xt[c * (p + 1) + k], ds);
-          const float l = expf(ui[r] - uj[c]);
-          w = ds * l;
-          m = gsc * l;
-          z = ds * m;
-        }
-        wt[r * (kJ + 1) + c] = w;
-        mt[r * (kJ + 1) + c] = m;
-        zt[r * (kJ + 1) + c] = z;
-      }
-      __syncthreads();
-      // dx_j += M^T dy_i
-      for (int e = tid; e < kJ * p; e += kThreads) {
-        const int c = e / p, k = e % p;
-        float acc = dx_acc[e];
-        for (int r = 0; r < kJ; ++r)
-          acc = fmaf(mt[r * (kJ + 1) + c], yt[r * (p + 1) + k], acc);
-        dx_acc[e] = acc;
-      }
-      // dB_j += W^T C_i
-      for (int e = tid; e < kJ * n; e += kThreads) {
-        const int c = e / n, k = e % n;
-        float acc = db_acc[e];
-        for (int r = 0; r < kJ; ++r)
-          acc = fmaf(wt[r * (kJ + 1) + c], ct[r * (n + 1) + k], acc);
-        db_acc[e] = acc;
-      }
-      // dC_i += W B_j
-      for (int e = tid; e < kJ * n; e += kThreads) {
-        const int r = e / n, k = e % n;
-        if (i0 + r >= q) continue;
-        float acc = dc_acc[(i0 + r) * n + k];
-        for (int c = 0; c < kJ; ++c)
-          acc = fmaf(wt[r * (kJ + 1) + c], bt[c * (n + 1) + k], acc);
-        dc_acc[(i0 + r) * n + k] = acc;
-      }
-      // row and column sums of dS o M
-      for (int e = tid; e < 2 * kJ; e += kThreads) {
-        if (e < kJ) {
-          if (i0 + e >= q) continue;
-          float acc = rsum[i0 + e];
-          for (int c = 0; c < kJ; ++c) acc += zt[e * (kJ + 1) + c];
-          rsum[i0 + e] = acc;
-        } else {
-          const int c = e - kJ;
-          float acc = cs_acc[c];
-          for (int r = 0; r < kJ; ++r) acc += zt[r * (kJ + 1) + c];
-          cs_acc[c] = acc;
-        }
-      }
-    }
-    __syncthreads();
-    // the column tile is done: dx, this head's dB, the column sums
-    for (int e = tid; e < kJ * p; e += kThreads) {
-      const int c = e / p, k = e % p;
-      if (j0 + c < q) dx[xo + (long long)(j0 + c) * xhs + k] = dx_acc[e];
-    }
-    float* pbh = pb + ((long long)outer * sh.heads + hd) * q * n;
-    for (int e = tid; e < kJ * n; e += kThreads) {
-      const int c = e / n;
-      if (j0 + c < q) pbh[(long long)j0 * n + e] = db_acc[e];
-    }
-    for (int e = tid; e < kJ; e += kThreads)
-      if (j0 + e < q) csum[j0 + e] = cs_acc[e];
+  const Cell cl{x + xo, dy + xo, xhs, q, n, p, n4, ldn, csm, bsm, cumsm};
+  if (blockIdx.y == 0) {
+    const long long part = ((long long)outer * sh.heads + hd) * q * n;
+    ds_block<kVec>(cl, region, dcum + (long long)outer * q * sh.heads + hd,
+                   sh.heads, pc + part, pb + part);
+  } else {
+    dx_block<kPS, kVec>(cl, region, dx + xo);
   }
-  __syncthreads();
-  float* pch = pc + ((long long)outer * sh.heads + hd) * q * n;
-  for (int e = tid; e < q * n; e += kThreads) pch[e] = dc_acc[e];
-  float* du = dcum + (long long)outer * q * sh.heads + hd;
-  for (int e = tid; e < q; e += kThreads)
-    du[(long long)e * sh.heads] = rsum[e] - csum[e];
 }
 
 // dC and dB (outer, q, groups, n): each element the sum, over the rep
@@ -238,39 +534,66 @@ __global__ void ssd_bwd_reduce(const float* __restrict__ pc,
   dB[e] = sb;
 }
 
+template <int kPS, bool kVec>
+int launch_cell(const void* C, const void* B, const void* x,
+                const void* cum, const void* dy, void* dx, void* dcum,
+                void* pc, void* pb, int cells, const Shape& sh,
+                cudaStream_t st) {
+  const size_t bytes = sizeof(float) * smem_floats(sh.n, kPS);
+  if (bytes > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_cell<kPS, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_cell<kPS, kVec><<<dim3(cells, 2), kThreads, bytes, st>>>(
+      static_cast<const float*>(C), static_cast<const float*>(B),
+      static_cast<const float*>(x), static_cast<const float*>(cum),
+      static_cast<const float*>(dy), static_cast<float*>(dx),
+      static_cast<float*>(dcum), static_cast<float*>(pc),
+      static_cast<float*>(pb), sh);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // C, B (outer, q, groups, n); x, dy, dx (outer, q, heads, p); cum, dcum
 // (outer, q, heads); dC, dB like C; pc, pb (outer, heads, q, n) scratch.
-// All contiguous fp32; heads a multiple of groups; n, p <= 128. Returns
-// cudaErrorInvalidValue for a shape it cannot take (or one whose cell
-// does not fit in shared memory), else cudaGetLastError() after the two
-// launches.
+// All contiguous fp32; heads a multiple of groups; q <= 128; n, p <=
+// 128. Returns cudaErrorInvalidValue for a shape it cannot take, else
+// cudaGetLastError() after the two launches.
 int ssd_intra_bwd_launch(const void* C, const void* B, const void* x,
                          const void* cum, const void* dy, void* dC, void* dB,
                          void* dx, void* dcum, void* pc, void* pb, int outer,
                          int heads, int groups, int q, int n, int p,
                          void* stream) {
-  if (outer < 1 || groups < 1 || heads % groups != 0 || q < 1 || n < 1 ||
-      n > 128 || p < 1 || p > 128)
+  if (outer < 1 || groups < 1 || heads % groups != 0 || q < 1 || q > kQ ||
+      n < 1 || n > 128 || p < 1 || p > 128)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(float) * cell_floats(q, n, p);
-  if (bytes > 232448) return (int)cudaErrorInvalidValue;
   const Shape sh{heads, groups, heads / groups, q, n, p};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_cell, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  ssd_bwd_cell<<<outer * heads, kThreads, bytes, st>>>(
-      static_cast<const float*>(C), static_cast<const float*>(B),
-      static_cast<const float*>(x), static_cast<const float*>(cum),
-      static_cast<const float*>(dy), static_cast<float*>(dx),
-      static_cast<float*>(dcum), static_cast<float*>(pc),
-      static_cast<float*>(pb), sh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int cells = outer * heads;
+  // 16-byte copies and stores where every row starts on 16 bytes
+  const bool vec = n % 4 == 0 && p % 4 == 0 && aligned16(C) &&
+                   aligned16(B) && aligned16(x) && aligned16(dy) &&
+                   aligned16(dx);
+  int err;
+  if (p > 64)
+    err = vec ? launch_cell<128, true>(C, B, x, cum, dy, dx, dcum, pc, pb,
+                                       cells, sh, st)
+              : launch_cell<128, false>(C, B, x, cum, dy, dx, dcum, pc, pb,
+                                        cells, sh, st);
+  else
+    err = vec ? launch_cell<64, true>(C, B, x, cum, dy, dx, dcum, pc, pb,
+                                      cells, sh, st)
+              : launch_cell<64, false>(C, B, x, cum, dy, dx, dcum, pc, pb,
+                                       cells, sh, st);
+  if (err != 0) return err;
   const long long total = (long long)outer * q * groups * n;
   const int blocks = (int)((total + 255) / 256);
   ssd_bwd_reduce<<<blocks, 256, 0, st>>>(

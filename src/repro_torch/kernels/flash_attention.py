@@ -22,14 +22,17 @@ tensor each takes its plain version instead.
 
 Training: :func:`flash_attention_gqa` on CUDA tensors that need a
 gradient goes through :class:`FlashAttentionGQA`, an autograd Function
-whose forward is the same launch and whose backward is
-:func:`flash_attention_gqa_bwd`, the hand-written kernel of
-``csrc/flash_attention_bwd.cu`` (counted on
-``flash_attention_gqa_bwd.launches``); beside it,
+whose forward is the same launch with each row's logsumexp L written
+beside the output (:func:`flash_attention_gqa_with_lse`) and whose
+backward is :func:`flash_attention_gqa_bwd`, the hand-written kernels
+of ``csrc/flash_attention_bwd.cu``, which take L rather than recompute
+it. The backward picks its kernels by :func:`route_for` as the forward
+does, and counts on ``flash_attention_gqa_bwd.launches`` and on
+``.launches_tc`` or ``.launches_ffma``; beside it,
 :func:`flash_attention_gqa_bwd_plain` writes the gradient formulas out
 in plain torch. Under ``no_grad`` the launch is the serving one, with
-no Function around it. On a CPU tensor autograd differentiates the
-plain forward.
+no Function around it and no L. On a CPU tensor autograd
+differentiates the plain forward.
 """
 from __future__ import annotations
 
@@ -53,6 +56,16 @@ TC_HEAD_DIMS = (64, 128)         # the head dims the tensor-core kernel takes
 # rounding there can hide under 3e-2 of each element; it cannot hide
 # here (tests/test_torch_lm_kernels.py plants such faults)
 ROW_REL_TOL = 1e-2
+# the same check for the backward: no row of dq (a query's) or of dk or
+# dv (a key's) may lie further than this from the plain version, relative
+# to the larger of the row's norm and BWD_ROW_FLOOR of the largest row's.
+# Under the causal mask late keys' and late queries' gradients come out
+# small, so a dropped tile or ring stage there hides under 3e-2 of the
+# largest element, but not here (tests/test_torch_lm_kernels.py plants
+# such faults). The floor keeps a row whose exact gradient is 0 (query
+# 0's dq: its one key gives dS = 0) from dividing rounding by nothing.
+BWD_ROW_REL_TOL = 2e-2
+BWD_ROW_FLOOR = 1e-3
 
 
 def route_for(dtype, head_dim: int) -> str:
@@ -82,14 +95,16 @@ def check_tc_operands(**tensors) -> None:
                     f"bytes")
 
 
-def row_rel_err(got, want) -> float:
-    """The largest ``|got_i - want_i| / |want_i|`` over the query rows
-    i of two attention outputs (2-norms over the head dim, in fp32)."""
+def row_rel_err(got, want, floor: float = 0.0) -> float:
+    """The largest ``|got_i - want_i| / max(|want_i|, floor * max_j
+    |want_j|)`` over the rows i of two attention outputs or gradients
+    (2-norms over the head dim, in fp32)."""
     if want.numel() == 0:
         return 0.0
     g, w = got.float(), want.float()
-    return float(((g - w).norm(dim=-1)
-                  / w.norm(dim=-1).clamp_min(1e-30)).max())
+    norms = w.norm(dim=-1)
+    return float(((g - w).norm(dim=-1) / torch.maximum(
+        norms, floor * norms.max()).clamp_min(1e-30)).max())
 
 
 def flash_attention_plain(q, k, v, *, block_q: int = 256,
@@ -107,6 +122,26 @@ def flash_attention_gqa_plain(q, k, v):
     kh = k.transpose(1, 2).repeat_interleave(rep, dim=1)
     vh = v.transpose(1, 2).repeat_interleave(rep, dim=1)
     return flash_attention_ref(q.transpose(1, 2), kh, vh).transpose(1, 2)
+
+
+def _scores_plain(q, k):
+    """fp32 (B, H, S, S) scores ``q_i . k_j / sqrt(D)`` of the model's
+    layout, kv heads repeated, -inf above the diagonal."""
+    s, h, d = q.shape[1:]
+    rep = h // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    return (qf @ kf.transpose(-1, -2) / math.sqrt(d)).masked_fill(
+        ~causal, -math.inf)
+
+
+def flash_attention_gqa_lse_plain(q, k, v):
+    """Plain version of :func:`flash_attention_gqa_with_lse`: the
+    output of :func:`flash_attention_gqa_plain` and each row's
+    logsumexp of its scaled causal scores, fp32 (B, H, S)."""
+    return flash_attention_gqa_plain(q, k, v), torch.logsumexp(
+        _scores_plain(q, k), dim=-1)
 
 
 def _check(q, k, v, kv_axis):
@@ -131,9 +166,10 @@ def _check(q, k, v, kv_axis):
                          f"multiple of {kv} kv heads")
 
 
-def _launch(q, k, v, out, b, s, h, kv, axes, route):
+def _launch(q, k, v, out, b, s, h, kv, axes, route, lse=None):
     """One launch on ``route``. ``axes`` = (batch, seq, head) axis of
-    every tensor."""
+    every tensor; ``lse``, where given, an fp32 (B, H, S) tensor the
+    kernel writes each row's logsumexp into."""
     ab, as_, ah = axes
     strides = []
     for t in (q, k, v, out):
@@ -146,13 +182,13 @@ def _launch(q, k, v, out, b, s, h, kv, axes, route):
     else:
         symbol, extra = "flash_attention_launch", [DTYPES[q.dtype]]
     fn = _build.entry(NAME, symbol,
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
                       [ctypes.c_longlong] * 12 +
                       [ctypes.c_int] * len(extra) + [ctypes.c_void_p])
     with _build.on_device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, h, kv, q.shape[-1], *strides, *extra,
-                _build.stream_ptr(q.device))
+                None if lse is None else lse.data_ptr(), b, s, h, kv,
+                q.shape[-1], *strides, *extra, _build.stream_ptr(q.device))
     _build.check(NAME, rc)
     _build.count_launch(flash_attention)
     if route == "tc":
@@ -221,28 +257,46 @@ def flash_attention_gqa(q, k, v):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionGQA.apply(q, k, v, False)
-    return _gqa_forward(q, k, v)
+    return _gqa_forward(q, k, v)[0]
 
 
-def _gqa_forward(q, k, v):
-    """The model's forward launch on CUDA tensors."""
+def flash_attention_gqa_with_lse(q, k, v):
+    """The model's launch with L: ``(out, lse)``, the output of
+    :func:`flash_attention_gqa` and each row's logsumexp of its scaled
+    causal scores, fp32 (B, H, S) in natural-log units on both kernels
+    (what :func:`flash_attention_gqa_bwd` takes). A CUDA tensor
+    launches the kernel :func:`route_for` picks (one launch, counted as
+    the serving one is); a CPU tensor takes
+    :func:`flash_attention_gqa_lse_plain`."""
+    if not q.is_cuda:
+        return flash_attention_gqa_lse_plain(q, k, v)
+    return _gqa_forward(q, k, v, with_lse=True)
+
+
+def _gqa_forward(q, k, v, with_lse=False):
+    """The model's forward launch on CUDA tensors: ``(out, lse)``, lse
+    None unless ``with_lse``."""
     _check(q, k, v, kv_axis=2)
     b, s, h, d = q.shape
     if k.shape[:2] != (b, s):
         raise ValueError(f"flash_attention_gqa: k {tuple(k.shape)} does "
                          f"not match q {tuple(q.shape)} in (B, S)")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
-    return _launch(q, k, v, out, b, s, h, k.shape[2], axes=(0, 1, 2),
-                   route=route_for(q.dtype, d))
+        return out, lse
+    _launch(q, k, v, out, b, s, h, k.shape[2], axes=(0, 1, 2),
+            route=route_for(q.dtype, d), lse=lse)
+    return out, lse
 
 
-def flash_attention_gqa_bwd_plain(q, k, v, o, do):
+def flash_attention_gqa_bwd_plain(q, k, v, o, do, lse=None):
     """Plain version of :func:`flash_attention_gqa_bwd`: the gradient
-    formulas written out in fp32 (P recomputed from q and k, D from o
-    and dO), dK and dV summed over each kv head's query heads; grads in
-    the inputs' dtypes."""
+    formulas written out in fp32, P = exp(scores - L) from the given L
+    (the softmax of the scores where ``lse`` is None), D from o and dO,
+    dK and dV summed over each kv head's query heads; grads in the
+    inputs' dtypes."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     rep = h // kv
@@ -250,9 +304,9 @@ def flash_attention_gqa_bwd_plain(q, k, v, o, do):
     qf, of, gf = (t.float().transpose(1, 2) for t in (q, o, do))
     kf, vf = (t.float().transpose(1, 2).repeat_interleave(rep, dim=1)
               for t in (k, v))
-    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-    sc = (qf @ kf.transpose(-1, -2) * scale).masked_fill(~causal, -math.inf)
-    p = torch.softmax(sc, dim=-1)                        # (B, H, S, S)
+    sc = _scores_plain(q, k)
+    p = torch.softmax(sc, dim=-1) if lse is None else \
+        torch.exp(sc - lse.float()[..., None])           # (B, H, S, S)
     dv = p.transpose(-1, -2) @ gf
     dp = gf @ vf.transpose(-1, -2)
     delta = (gf * of).sum(-1, keepdim=True)
@@ -267,18 +321,39 @@ def flash_attention_gqa_bwd_plain(q, k, v, o, do):
             group(dv).to(v.dtype))
 
 
-_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_TILE = 64                   # rows of the backward's tiles
 
 
-def flash_attention_gqa_bwd(q, k, v, o, do):
+def flash_attention_gqa_bwd(q, k, v, o, do, lse):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention_gqa` at
-    (q, k, v), whose output was ``o``, for the output gradient ``do``
-    (all (B, S, H or KV, D), one dtype, fp32 or bf16), in the inputs'
-    dtypes. A CUDA tensor launches ``csrc/flash_attention_bwd.cu``
-    (three kernels, no atomics: two calls give the same bits) or
-    raises; a CPU tensor takes :func:`flash_attention_gqa_bwd_plain`."""
+    (q, k, v), whose output was ``o`` and whose rows' logsumexp was
+    ``lse`` (fp32 (B, H, S), from :func:`flash_attention_gqa_with_lse`),
+    for the output gradient ``do`` (all (B, S, H or KV, D), one dtype,
+    fp32 or bf16), in the inputs' dtypes. A CUDA tensor launches
+    ``csrc/flash_attention_bwd.cu`` on the route :func:`route_for`
+    picks (no atomics: two calls give the same bits) or raises; a CPU
+    tensor takes :func:`flash_attention_gqa_bwd_plain`."""
     if not q.is_cuda:
-        return flash_attention_gqa_bwd_plain(q, k, v, o, do)
+        return flash_attention_gqa_bwd_plain(q, k, v, o, do, lse)
+    return _bwd_launch(q, k, v, o, do, lse, route_for(q.dtype, q.shape[-1]))
+
+
+def launch_gqa_bwd(q, k, v, o, do, lse, route: str):
+    """:func:`flash_attention_gqa_bwd` on CUDA tensors on the named
+    kernels, ``"tc"`` or ``"ffma"``, whichever :func:`route_for` would
+    pick: to time one route against the other on the same inputs. The
+    wrappers never call it."""
+    if route not in ("tc", "ffma"):
+        raise ValueError(f"flash_attention_bwd: no route {route!r}")
+    if route == "tc" and route_for(q.dtype, q.shape[-1]) != "tc":
+        raise ValueError(f"flash_attention_bwd: the tensor-core kernels "
+                         f"take bf16 at head dims {TC_HEAD_DIMS}, not "
+                         f"{q.dtype} at {q.shape[-1]}")
+    return _bwd_launch(q, k, v, o, do, lse, route)
+
+
+def _bwd_launch(q, k, v, o, do, lse, route):
     _check(q, k, v, kv_axis=2)
     b, s, h, d = q.shape
     kv = k.shape[2]
@@ -290,43 +365,63 @@ def flash_attention_gqa_bwd(q, k, v, o, do):
             o.device != q.device or do.device != q.device:
         raise TypeError("flash_attention_gqa_bwd: o and do must share q's "
                         "dtype and device")
-    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    if lse is None or tuple(lse.shape) != (b, h, s) or \
+            lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_attention_gqa_bwd: lse must be the "
+                         f"forward's fp32 ({b}, {h}, {s}) on q's device")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    tc = route == "tc"
+    if tc:
+        check_tc_operands(q=q, k=k, v=v, do=do)
+    s_pad = -(-s // _BWD_TILE) * _BWD_TILE
+    lpad = torch.empty((b, h, s_pad), dtype=torch.float32, device=q.device)
+    dpad = torch.empty_like(lpad)
+    # the tc route's per-head fp32 partials of dK and dV
+    dkp, dvp = (torch.empty((b, h, s, d), dtype=torch.float32,
+                            device=q.device) if tc else None
+                for _ in range(2))
     fn = _build.entry(BWD_NAME, "flash_attention_bwd_launch", _BWD_ARGS)
     with _build.on_device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), b, s, h, kv, d,
-                DTYPES[q.dtype], _build.stream_ptr(q.device))
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), lpad.data_ptr(), dpad.data_ptr(),
+                dkp.data_ptr() if tc else None,
+                dvp.data_ptr() if tc else None, b, s, h, kv, d,
+                DTYPES[q.dtype], int(tc), _build.stream_ptr(q.device))
     _build.check(BWD_NAME, rc)
     _build.count_launch(flash_attention_gqa_bwd)
+    _build.count_launch(flash_attention_gqa_bwd,
+                        "launches_tc" if tc else "launches_ffma")
     return dq, dk, dv
 
 
 class FlashAttentionGQA(torch.autograd.Function):
     """The model's attention with a gradient: forward the launch of
-    :func:`flash_attention_gqa`, backward :func:`flash_attention_gqa_bwd`
-    (q, k, v and the output saved). ``plain=True`` takes the plain
-    versions of both instead (:func:`flash_attention_gqa_plain_vjp`)."""
+    :func:`flash_attention_gqa_with_lse`, backward
+    :func:`flash_attention_gqa_bwd` (q, k, v, the output and L saved;
+    under remat the recomputed forward writes and saves L again).
+    ``plain=True`` takes the plain versions of both instead
+    (:func:`flash_attention_gqa_plain_vjp`), with no L."""
 
     @staticmethod
     def forward(ctx, q, k, v, plain):
-        out = flash_attention_gqa_plain(q, k, v) if plain else \
-            _gqa_forward(q, k, v)
+        if plain:
+            out, lse = flash_attention_gqa_plain(q, k, v), None
+        else:
+            out, lse = _gqa_forward(q, k, v, with_lse=True)
         ctx.plain = plain
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         bwd = flash_attention_gqa_bwd_plain if ctx.plain else \
             flash_attention_gqa_bwd
-        return (*bwd(q, k, v, o, do.contiguous()), None)
+        return (*bwd(q, k, v, o, do.contiguous(), lse), None)
 
 
 def flash_attention_gqa_plain_vjp(q, k, v):
@@ -340,3 +435,5 @@ flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_ffma = 0
 flash_attention_gqa_bwd.launches = 0
+flash_attention_gqa_bwd.launches_tc = 0
+flash_attention_gqa_bwd.launches_ffma = 0

@@ -38,6 +38,7 @@ NAME = "ssd_intra"
 BWD_NAME = "ssd_intra_bwd"
 MAX_N = 128
 MAX_P = 128
+MAX_Q_BWD = 128                  # the backward kernel's cells (a chunk)
 
 
 def ssd_intra_plain(c, b, x, cum):
@@ -226,9 +227,11 @@ def ssd_intra_chunks_bwd(C, B, x, cum, dy):
     """Gradients ``(dC, dB, dx, dcum)`` of :func:`ssd_intra_chunks` at
     (C, B, x, cum) for the output gradient ``dy`` (b, nc, Q, H, P), all
     fp32 and shaped as the inputs. A CUDA tensor launches
-    ``csrc/ssd_intra_bwd.cu`` (a block a cell, then a fixed-order sum of
-    each group's heads: no atomics, two calls give the same bits) or
-    raises; a CPU tensor takes :func:`ssd_intra_chunks_bwd_plain`."""
+    ``csrc/ssd_intra_bwd.cu`` (two blocks a cell, one for dC, dB and
+    dcum, one for dx, then a fixed-order sum of each group's heads: no
+    atomics, two calls give the same bits; Q up to ``MAX_Q_BWD``, the
+    configs' chunk) or raises; a CPU tensor takes
+    :func:`ssd_intra_chunks_bwd_plain`."""
     if not x.is_cuda:
         return ssd_intra_chunks_bwd_plain(C, B, x, cum, dy)
     bsz, nc, q, h, p = x.shape
@@ -242,6 +245,7 @@ def ssd_intra_chunks_bwd(C, B, x, cum, dy):
                          f"{tuple(B.shape)}, {tuple(x.shape)}, "
                          f"{tuple(dy.shape)}, {tuple(cum.shape)}")
     _check((C, B, x, cum, dy), ("C", "B", "x", "cum", "dy"), n, p, q)
+    _check_q_bwd(q)
     C, B, x, cum, dy = (t.contiguous() for t in (C, B, x, cum, dy))
     dC, dB, dx, dcum = (torch.empty_like(t) for t in (C, B, x, cum))
     if x.numel() == 0:
@@ -260,14 +264,24 @@ def ssd_intra_chunks_bwd(C, B, x, cum, dy):
     return dC, dB, dx, dcum
 
 
+def _check_q_bwd(q: int) -> None:
+    if q > MAX_Q_BWD:
+        raise ValueError(f"ssd_intra_chunks_bwd: chunks of Q={q} rows; the "
+                         f"kernel holds a cell's Q x Q in one block, "
+                         f"Q <= {MAX_Q_BWD}")
+
+
 class SSDIntraChunks(torch.autograd.Function):
     """The model's intra-chunk term with a gradient: forward the launch
     of :func:`ssd_intra_chunks`, backward :func:`ssd_intra_chunks_bwd`
     (the four inputs saved). ``plain=True`` takes the plain versions of
-    both instead (:func:`ssd_intra_chunks_plain_vjp`)."""
+    both instead (:func:`ssd_intra_chunks_plain_vjp`). A chunk the
+    backward kernel cannot take is refused before the forward runs."""
 
     @staticmethod
     def forward(ctx, C, B, x, cum, plain):
+        if not plain:
+            _check_q_bwd(x.shape[2])
         ctx.plain = plain
         ctx.save_for_backward(C, B, x, cum)
         if plain:

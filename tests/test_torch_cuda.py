@@ -1018,14 +1018,23 @@ def test_sharded_stream_in_a_gloo_world_on_the_card():
 
 # the model's attention launch (b, s, h, kv, d): GQA_CASES (ragged S,
 # grouped heads, hymba's 25/5 heads of 64, a head dim of 128), a head
-# dim of 100, and one query head a kv head
-GQA_BWD_CASES = GQA_CASES + [(1, 65, 2, 2, 100), (2, 64, 3, 3, 32)]
+# dim of 100, one query head a kv head, and the tensor-core backward's
+# head dims 64 and 128 (in bf16) at S of three rows, one 64-row tile,
+# one past it, two tiles and two past, and 16 tiles, with groups of 1
+# and of 5 query heads (hymba-1.5b's)
+GQA_BWD_CASES = GQA_CASES + [(1, 65, 2, 2, 100), (2, 64, 3, 3, 32),
+                             (2, 3, 5, 1, 64), (1, 64, 5, 1, 64),
+                             (2, 65, 2, 2, 64), (1, 130, 5, 1, 128),
+                             (2, 130, 3, 3, 128), (1, 1024, 10, 2, 64),
+                             (1, 1024, 2, 2, 128)]
 # ssd_intra_chunks (bsz, nc, q, h, g, n, p): the reduced configs' cell,
 # two groups, hymba-1.5b's cell (25 heads, one group), mamba2-780m's
-# (N 128, P 64), and a Q that is not a multiple of the 32-row tiles
+# (N 128, P 64), a Q that is not a multiple of the 32-row tiles, and
+# hymba-1.5b's cells at 500 cells, 1,000 blocks: more than one wave of
+# the card's 264 slots (two blocks an SM)
 SSD_BWD_CASES = [(2, 3, 8, 4, 1, 8, 32), (1, 2, 16, 4, 2, 16, 16),
                  (2, 2, 128, 25, 1, 16, 128), (1, 2, 128, 4, 1, 128, 64),
-                 (1, 3, 100, 6, 3, 16, 128)]
+                 (1, 3, 100, 6, 3, 16, 128), (2, 10, 128, 25, 1, 16, 128)]
 
 
 def _scaled_err(got, want):
@@ -1042,6 +1051,11 @@ def _gqa_grad_inputs(b, s, h, kv, d, dtype, seed):
     return q, k, v, do
 
 
+def _bwd_counts():
+    f = fla.flash_attention_gqa_bwd
+    return {"all": f.launches, "tc": f.launches_tc, "ffma": f.launches_ffma}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)],
@@ -1051,18 +1065,28 @@ def test_flash_attention_gqa_bwd_kernel_matches_plain(b, s, h, kv, d, dtype,
                                                       tol):
     _need_card()
     q, k, v, do = _gqa_grad_inputs(b, s, h, kv, d, dtype, s * h + d)
-    o = kernels.flash_attention_gqa(q, k, v)
-    before = fla.flash_attention_gqa_bwd.launches
-    got = fla.flash_attention_gqa_bwd(q, k, v, o, do)
-    again = fla.flash_attention_gqa_bwd(q, k, v, o, do)
+    o, lse = fla.flash_attention_gqa_with_lse(q, k, v)
+    before = _bwd_counts()
+    got = fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
+    again = fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
     torch.cuda.synchronize()
-    assert fla.flash_attention_gqa_bwd.launches == before + 2
+    route = fla.route_for(dtype, d)
+    assert _bwd_counts() == {key: n + 2 * (key in ("all", route))
+                             for key, n in before.items()}
     want = fla.flash_attention_gqa_bwd_plain(q, k, v, o, do)
-    for name, g, w, a, x in zip(("dq", "dk", "dv"), got, want, again,
-                                (q, k, v)):
+    # the tensor-core route's inputs through the FFMA route forced
+    ffma = fla.launch_gqa_bwd(q, k, v, o, do, lse, "ffma") \
+        if route == "tc" else got
+    for name, g, w, a, f, x in zip(("dq", "dk", "dv"), got, want, again,
+                                   ffma, (q, k, v)):
         assert g.shape == x.shape and g.dtype == dtype, name
         assert bool(torch.isfinite(g).all()), name
         assert _scaled_err(g, w) <= tol, (name, _scaled_err(g, w))
+        assert _scaled_err(f, w) <= tol, (name, _scaled_err(f, w))
+        # every query's and key's row, small late ones too
+        for t in (g, f):
+            rows = fla.row_rel_err(t, w, fla.BWD_ROW_FLOOR)
+            assert rows <= fla.BWD_ROW_REL_TOL, (name, rows)
         assert torch.equal(g, a), name
 
 
@@ -1070,8 +1094,8 @@ def test_flash_attention_gqa_bwd_kernel_matches_plain(b, s, h, kv, d, dtype,
 def test_flash_attention_gqa_bwd_matches_finite_differences():
     _need_card()
     q, k, v, do = _gqa_grad_inputs(1, 11, 4, 2, 8, torch.float32, 3)
-    o = kernels.flash_attention_gqa(q, k, v)
-    grads = fla.flash_attention_gqa_bwd(q, k, v, o, do)
+    o, lse = fla.flash_attention_gqa_with_lse(q, k, v)
+    grads = fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
     rng = np.random.default_rng(4)
     eps = 1e-2
     for which, g in enumerate(grads):
@@ -1090,24 +1114,56 @@ def test_flash_attention_gqa_bwd_matches_finite_differences():
 @pytest.mark.cuda
 def test_flash_attention_function_launches_the_backward_kernel():
     """With a gradient asked of q, the model's launch goes through the
-    Function: one forward launch, one backward launch, grads the
-    kernel's; under no_grad it is the serving launch alone."""
+    Function: one forward launch (writing L), one backward launch on the
+    tensor cores (bf16 at d 64), grads the kernel's given the forward's
+    L; under no_grad it is the serving launch alone."""
     _need_card()
     q, k, v, do = _gqa_grad_inputs(2, 70, 4, 2, 64, torch.bfloat16, 9)
-    fwd, bwd = kernels.flash_attention.launches, \
-        fla.flash_attention_gqa_bwd.launches
+    fwd, bwd = kernels.flash_attention.launches, _bwd_counts()
     qg = q.clone().requires_grad_(True)
     out = kernels.flash_attention_gqa(qg, k, v)
     (dq,) = torch.autograd.grad(out, qg, do)
     torch.cuda.synchronize()
     assert kernels.flash_attention.launches == fwd + 1
-    assert fla.flash_attention_gqa_bwd.launches == bwd + 1
-    assert torch.equal(dq, fla.flash_attention_gqa_bwd(q, k, v, out.detach(),
-                                                       do)[0])
+    assert _bwd_counts() == dict(bwd, all=bwd["all"] + 1,
+                                 tc=bwd["tc"] + 1)
+    o, lse = fla.flash_attention_gqa_with_lse(q, k, v)
+    assert torch.equal(o, out.detach())
+    assert torch.equal(dq, fla.flash_attention_gqa_bwd(q, k, v, o, do,
+                                                       lse)[0])
     with torch.no_grad():
         kernels.flash_attention_gqa(qg, k, v)
-    assert kernels.flash_attention.launches == fwd + 2
-    assert fla.flash_attention_gqa_bwd.launches == bwd + 2
+    assert kernels.flash_attention.launches == fwd + 3
+    assert fla.flash_attention_gqa_bwd.launches == bwd["all"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 32),
+                                     (torch.float32, 64)],
+                         ids=["bf16-64-tc", "bf16-128-tc", "bf16-32-ffma",
+                              "f32-64-ffma"])
+def test_flash_attention_forward_writes_the_plain_lse(dtype, d):
+    """Both forward kernels write each row's logsumexp in natural-log
+    units, the plain version's L within 1e-3 (bf16 inputs: the
+    tensor-core kernel's exponentials are ex2.approx) or 1e-4 (fp32:
+    the scores summed in another order),
+    and the same output as the serving launch, bit for bit."""
+    _need_card()
+    q, k, v, _ = _gqa_grad_inputs(2, 130, 4, 2, d, dtype, d)
+    route = fla.route_for(dtype, d)
+    counts = (kernels.flash_attention.launches_tc,
+              kernels.flash_attention.launches_ffma)
+    o, lse = fla.flash_attention_gqa_with_lse(q, k, v)
+    assert (kernels.flash_attention.launches_tc,
+            kernels.flash_attention.launches_ffma) == (
+        counts[0] + (route == "tc"), counts[1] + (route == "ffma"))
+    want_o, want = fla.flash_attention_gqa_lse_plain(q, k, v)
+    assert lse.shape == (2, 4, 130) and lse.dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert float((lse - want).abs().max()) <= tol
+    assert torch.equal(o, kernels.flash_attention_gqa(q, k, v))
 
 
 def _ssd_grad_inputs(bsz, nc, q, h, g, n, p, seed):

@@ -209,3 +209,74 @@ def test_flash_attention_row_check_catches_planted_faults(d, fault):
         # a rounding this coarse stays under 3e-2 of every element
         np.testing.assert_allclose(_np(got), _np(want), rtol=3e-2,
                                    atol=3e-2)
+
+
+def _tc_bwd_like(q, k, v, o, do, fault=None):
+    """In plain torch, what the tensor-core backward computes from bf16
+    q, o, dO (B, S, H, D) and k, v (B, S, KV, D): fp32 scores, P from
+    the row's L, P rounded to bf16 for dV, dS = P o (dP - D) rounded to
+    bf16 for dK and dQ, grads rounded to bf16. ``fault`` plants a
+    defect: ``key_tile`` never writes dK and dV of the last 64 keys;
+    ``last_stage`` drops the last query tile from every key's walk;
+    ``dq_first_tile`` drops key tile 0 from the walks of the last quarter
+    of the query rows; ``mask`` lets each query see one key past it."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    scale = 1.0 / math.sqrt(d)
+    qf, of, gf = (t.float().transpose(1, 2) for t in (q, o, do))
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+              for t in (k, v))
+    raw = qf @ kf.transpose(-1, -2) * scale
+    causal = torch.ones(s, s, dtype=torch.bool).tril()
+    lse = torch.logsumexp(raw.masked_fill(~causal, -math.inf), -1, True)
+    seen = torch.ones(s, s, dtype=torch.bool).tril(
+        1 if fault == "mask" else 0)
+    p = torch.exp(raw.masked_fill(~seen, -math.inf) - lse)
+    ds = p * (gf @ vf.transpose(-1, -2) - (gf * of).sum(-1, keepdim=True))
+    # what the dK/dV walks and the dQ walks see
+    pk, dsk, dsq = p.clone(), ds.clone(), ds.clone()
+    if fault == "last_stage":
+        pk[..., s - 64:, :] = 0
+        dsk[..., s - 64:, :] = 0
+    if fault == "dq_first_tile":
+        dsq[..., s - s // 4:, :64] = 0
+    dv = pk.to(torch.bfloat16).float().transpose(-1, -2) @ gf
+    dk = dsk.to(torch.bfloat16).float().transpose(-1, -2) @ qf * scale
+    dq = dsq.to(torch.bfloat16).float() @ kf * scale
+
+    def group(t):                        # (B, H, S, D) -> (B, S, KV, D)
+        return t.reshape(b, kv, rep, s, d).sum(2).transpose(1, 2)
+
+    dq, dk, dv = dq.transpose(1, 2), group(dk), group(dv)
+    if fault == "key_tile":
+        dk[:, s - 64:] = 0
+        dv[:, s - 64:] = 0
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("fault", [None, "key_tile", "last_stage",
+                                   "dq_first_tile", "mask"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_row_check_catches_planted_faults(d, fault):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in attn_inputs(1, 2048, 2, 1, d, d))
+    do = torch.from_numpy(np.random.default_rng(d + 1).standard_normal(
+        q.shape).astype(np.float32)).to(torch.bfloat16)
+    o = fla.flash_attention_gqa_plain(q, k, v)
+    want = fla.flash_attention_gqa_bwd_plain(q, k, v, o, do)
+    got = _tc_bwd_like(q, k, v, o, do, fault)
+    errs = [fla.row_rel_err(g, w, fla.BWD_ROW_FLOOR)
+            for g, w in zip(got, want)]
+    scaled = [float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max()) for g, w in zip(got, want)]
+    if fault is None:
+        # P and dS rounded to bf16 pass both checks
+        assert max(scaled) <= 3e-2
+        assert max(errs) <= fla.BWD_ROW_REL_TOL / 2
+    else:
+        assert max(errs) > 2 * fla.BWD_ROW_REL_TOL
+    if fault == "key_tile":
+        # the late keys' dV is small: zeroed, it stays under 3e-2 of the
+        # largest element
+        assert scaled[2] <= 3e-2 < errs[2]

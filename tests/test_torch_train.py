@@ -329,6 +329,22 @@ def test_ssd_intra_bwd_plain_matches_autograd_and_jax(bsz, nc, q, h, g, n, p):
         assert _scaled(gr, w) <= 1e-5
 
 
+def test_ssd_function_refuses_a_chunk_before_its_forward():
+    """The kernels' route refuses a chunk the backward kernel cannot
+    take before the forward launches anything; the plain route takes
+    any chunk."""
+    q = ssd.MAX_Q_BWD + 1
+    C, B = (torch.randn(1, 1, q, 1, 4, requires_grad=True) for _ in range(2))
+    x = torch.randn(1, 1, q, 2, 8, requires_grad=True)
+    cum = torch.cumsum(-torch.rand(1, 1, q, 2), dim=2).requires_grad_(True)
+    before = ssd.ssd_intra.launches
+    with pytest.raises(ValueError, match=f"Q={q} rows"):
+        ssd.SSDIntraChunks.apply(C, B, x, cum, False)
+    assert ssd.ssd_intra.launches == before
+    y = ssd.ssd_intra_chunks_plain_vjp(C, B, x, cum)
+    assert y.shape == x.shape
+
+
 # -- the resilient training loop (tests/test_fault_tolerance.py's four) ------
 
 @pytest.fixture(scope="module")
