@@ -36,9 +36,12 @@ the order they run:
    the norms), argmin ids equal but at fp32 ties, which are counted;
    in every case (and in 4b and 4c) each kernel bit for bit
    (``torch.equal``) against the port's first kernel on the same inputs
-   (``pairwise_sq_dists_simple``, ``filtered_assign_simple``), the
-   variant each launch took logged (every ``filtered_assign`` case
-   takes the new kernel, which refuses what it cannot take); ties on
+   (``pairwise_sq_dists_simple``, ``filtered_assign_simple``) where the
+   first kernel takes the shape, the variant each launch took logged
+   (every ``filtered_assign`` case takes the new kernel); at D = 256
+   and 700, too wide for whole rows in shared memory, at tiles 256x128
+   and 64x16 (N 65,536, K 1024, half the blocks live), the kernel walks
+   D in slices of 32, each case timed beside its bound; ties on
    the card at those tiles (a duplicate centroid in a later live block
    loses to the lower index; with the lower one's block dead the
    duplicate wins and the dead one never enters); the uci-highk cases
@@ -149,7 +152,13 @@ the order they run:
    the model's attention launch at hymba-1.5b's prefill (B = 2,
    S = 2048, 25/5 heads of 64, bf16), at a ragged S and in fp32, the
    model's SSD launch at hymba-1.5b's prefill and mamba2-780m's cell
-   (Q = 128, N = 128, P = 64), also with decays that overflow above the
+   (Q = 128, N = 128, P = 64), MLA's attention launch at minicpm3-4b's
+   prefill (40 heads, KV = H, q.k 96, v zero-padded from 64; FFMA),
+   every row held to ``ROW_REL_TOL`` and timed beside SDPA on the
+   unpadded v, its bound counting v's and o's own width; qwen2-7b's
+   launch at its prefill (phase 23: B = 2, S = 2048, 28/4 heads of 128,
+   bf16, tensor cores; rows held to ``ROW_REL_TOL``, timed); SSD also
+   with decays that overflow above the
    diagonal, and both cells at Q = 100; the SSD kernel keeps at least 16
    warps resident an SM at both cells' widths (the CUDA occupancy
    calculator); the path's shapes timed by CUDA events, as every
@@ -227,7 +236,12 @@ the order they run:
    at head dims 64 and 128 takes the tensor-core backward, the rest the
    FFMA one (each case checks which route's counter moved); SSD at
    hymba-1.5b's training cells, at Q = 100 and at mamba2-780m's widths
-   (N = 128, P = 64): each gradient within 1e-4 (fp32) of the plain
+   (N = 128, P = 64), and at chunks of Q = 256 and a ragged 200 at both
+   cells' widths (the wide route: 128 x 128 tiles, partials added in a
+   fixed order; each timed); MLA's backward at minicpm3-4b's training
+   shape (v padded from 64 to 96, SDPA's autograd on the unpadded v as
+   the library call, the bound counting v, o, dO and dv at 64): each
+   gradient within 1e-4 (fp32) of the plain
    version's largest |value|, in bf16 within 3e-2 or 1.5 times the
    distance of autograd through ``scaled_dot_product_attention`` from
    the plain version, whichever is larger, and every attention row (dq's
@@ -266,15 +280,34 @@ the order they run:
    bit for bit the directly fed epoch; ``cluster_kv_cache`` over phase
    10's layer-0 KV cache (S = 2048, 5 kv heads of 64, K = 64): counts
    summing to S a head, centroids within 1e-4 of the same call on the
-   CPU from the same seeds.
+   CPU from the same seeds;
+21. minicpm3-4b serving (MLA) at full width and depth (62 layers,
+   d_model 2560, 40 heads, q.k 96, v 64, 4.26e9 bf16 parameters) as
+   phase 10 serves hymba-1.5b: 62 attention launches a prefill, all on
+   FFMA; bf16 and fp32 checks against the plain route, the decode
+   continuation; the latent cache's bytes beside a GQA cache's of 40
+   heads of 96;
+22. minicpm3-4b training at full width cut to 31 of its 62 layers (22
+   bytes a parameter: full depth needs about 94 GB) as phase 18 trains
+   hymba-1.5b, 3 steps (the first step's state waits on the host while
+   the step runs again from the same state: three do not fit);
+23. qwen2-7b serving at full width and depth (28 layers, 28/4 heads of
+   128, 7.62e9 bf16 parameters) as phase 10 (its bf16 and fp32
+   checks), on the tensor-core attention, then the same 32 decode steps
+   again from the same prompts
+   with ``kv_cache_dtype="int8"`` (its prefill's logits the native
+   prefill's bits), fed the native run's tokens: each step's logits
+   within 5e-2 of the native's max abs (the reference's bound); decode
+   ms a step and the cache's bytes of each.
 
-Phases 11-17 run after phase 7, before 2c; 2d, then 18-20, after 10.
+Phases 11-17 run after phase 7, before 2c; 2d, then 18-23, after 10.
 The last lines are a ``kernels`` JSON line (each kernel's ``launches``
 is the sum of its ``launches_by_path``: the k-means kernels' on the
 main fit and predict, phase 13's ``kernel`` backend, phase 14's stream,
 phase 15's resilient stream, phase 16's sharded fit and phase 17's
-sharded stream, each summed over its ranks; the LM kernels' on phase
-10's serving path and phase 18's training steps), the card's name
+sharded stream, each summed over its ranks; the LM kernels' on the
+serving paths of phases 10, 21 and 23 and the training steps of phases
+18 and 22), the card's name
 and power limit from ``nvidia-smi``, and ``{"ok": true, "device":
 {...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
@@ -326,10 +359,21 @@ SERVE = dict(arch="hymba-1.5b", batch=2, prompt=2048, steps=32)
 # LM training at hymba-1.5b's full width: phase 18 at full depth, phase
 # 19 cut to 2 layers and 512 tokens (checkpoints of about 2 GB)
 TRAIN = dict(arch="hymba-1.5b", batch=2, seq=2048, steps=4)
+# phase 21: MLA serving, minicpm3-4b at full width and depth; phase 22:
+# its training at full width, cut to 31 of its 62 layers (full depth
+# needs about 94 GB at 22 bytes a parameter)
+MLA_SERVE = dict(arch="minicpm3-4b", batch=2, prompt=2048, steps=32)
+MLA_TRAIN = dict(arch="minicpm3-4b", layers=31, batch=2, seq=2048, steps=3)
+# phase 23: qwen2-7b serving at full width and depth, natively and with
+# the int8 KV cache from the same prefill
+INT8_SERVE = dict(arch="qwen2-7b", batch=2, prompt=2048, steps=32)
 RESILIENT_TRAIN = dict(layers=2, seq=512, steps=8, ckpt_every=4,
                        fail_at=6)
 # phase 20: the k-means clusters of phase 10's layer-0 KV cache
 KV_CLUSTERS = 64
+# phase 2b: filtered_assign at a D too wide for whole rows in shared
+# memory (N points, K centroids, the share of blocks live)
+FA_WIDE = dict(n=1 << 16, k=1024, density=0.5)
 # device peaks by card name: (bytes/s, fp32 FLOP/s without tensor
 # cores, dense bf16 tensor-core FLOP/s), from NVIDIA's data sheets; SXM
 # figures unless the name says otherwise
@@ -564,7 +608,11 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
         return (kernels.flash_attention.launches_tc,
                 kernels.flash_attention.launches_ffma)
 
-    def attn_case(label, q, k, v, entry_point=False, timed=False):
+    def attn_case(label, q, k, v, entry_point=False, timed=False,
+                  library_v=None):
+        """``library_v``: the unpadded values of an MLA launch (v zero-
+        padded to q.k's width); SDPA takes them as the library call, and
+        every row is held to ``ROW_REL_TOL`` whatever the route."""
         route = fla.route_for(q.dtype, q.shape[-1])
         before = routes()
         if entry_point:
@@ -589,7 +637,7 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
         entry = dict(case=label, q=list(q.shape), kv=list(k.shape),
                      dtype=str(q.dtype), route=route, max_abs_err=err,
                      tol=tol)
-        if route == "tc":
+        if route == "tc" or library_v is not None:
             # and row by row, where 3e-2 of an element can hide a fault
             rows = fla.row_rel_err(got, want)
             check(rows <= fla.ROW_REL_TOL,
@@ -601,14 +649,20 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
         if timed:
             b, s, h, d = q.shape
             kvh = k.shape[2]
-            nbytes = q.element_size() * (2 * b * s * h * d + 2 * b * s * kvh * d)
-            # QK^T and P.V over the causal half: s(s+1)/2 pairs a head
-            flops = 4.0 * d * b * h * s * (s + 1) / 2
+            # v and o at v's own width: MLA's zero padding is no work the
+            # function needs
+            dv = d if library_v is None else library_v.shape[-1]
+            nbytes = q.element_size() * (b * s * (h + kvh) * (d + dv))
+            # QK^T (d long) and P.V (dv long) over the causal half:
+            # s(s+1)/2 pairs a head
+            flops = 2.0 * (d + dv) * b * h * s * (s + 1) / 2
             peak = fp32 if q.dtype == torch.float32 else bf16
             bound_ms, by = roof(nbytes, flops, bw, peak)
-            lib = sdpa_gqa(q, k, v)
+            lib_v = v if library_v is None else library_v
+            lib = sdpa_gqa(q, k, lib_v)
             entry["library_vs_plain_max_abs"] = float(
-                (lib.float() - want.float()).abs().max())
+                (lib.float() - want[..., :lib_v.shape[-1]].float()).abs()
+                .max())
             del lib
 
             def new():
@@ -647,7 +701,7 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
                     lambda: fla.flash_attention_gqa_plain(q, k, v), reps=3,
                     inner=1),
                 bound_ms=bound_ms, bound_by=by,
-                library_ms=median_ms(lambda: sdpa_gqa(q, k, v)))
+                library_ms=median_ms(lambda: sdpa_gqa(q, k, lib_v)))
         del want
         log(f"flash_attention {label}: {json.dumps(entry)}")
         return entry
@@ -718,6 +772,25 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
     attn_case("ragged S=1000 fp32, 28/4 heads of 128",
               randn(1, 1000, 28, 128), randn(1, 1000, 4, 128),
               randn(1, 1000, 4, 128))
+    # MLA's launch at minicpm3-4b's prefill: KV = H, q.k of nope + rope,
+    # v zero-padded from v_dim to that width (the FFMA route)
+    mla = get_config(MLA_SERVE["arch"])
+    hm, dm = mla.n_heads, mla.mla.nope_dim + mla.mla.rope_dim
+    vm = randn(b, s, hm, mla.mla.v_dim, dtype=bf)
+    mla_entry = attn_case(
+        f"{mla.name} MLA prefill B={b} S={s} (v {mla.mla.v_dim} padded to "
+        f"{dm})", randn(b, s, hm, dm, dtype=bf), randn(b, s, hm, dm, dtype=bf),
+        F.pad(vm, (0, dm - mla.mla.v_dim)), timed=True, library_v=vm)
+    del vm
+    # qwen2-7b's launch at its prefill (phase 23): bf16 at head dim 128,
+    # the tensor-core route
+    qw = get_config(INT8_SERVE["arch"])
+    qb, qs = INT8_SERVE["batch"], INT8_SERVE["prompt"]
+    qwen2_entry = attn_case(
+        f"{qw.name} prefill B={qb} S={qs}",
+        randn(qb, qs, qw.n_heads, qw.head_dim, dtype=bf),
+        *(randn(qb, qs, qw.n_kv_heads, qw.head_dim, dtype=bf)
+          for _ in range(2)), timed=True)
 
     m = cfg.ssm
     nc = s // m.chunk
@@ -749,29 +822,38 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
         log(f"ssd_intra N={nn_} P={pp_}: {warps} warps resident an SM")
         check(warps >= 16, f"ssd_intra N={nn_} P={pp_}: {warps} warps "
               f"resident an SM, fewer than 16")
-    return attn_main, ssd_main
+    return attn_main, ssd_main, dict(mla=mla_entry, qwen2=qwen2_entry)
 
 
-def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
-    """Phase 10: the LM serving path of ``cfg``: ``batch`` prompts of
-    ``prompt`` tokens, then ``steps`` greedy decode steps. Returns the
-    report, with the launches of the main path (prefill + decode), and
-    the first prompt's layer-0 keys and values (S, KV, Dh)."""
+def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps, expect,
+                int8=False):
+    """Phase 10 (and 21, 23): the LM serving path of ``cfg``: ``batch``
+    prompts of ``prompt`` tokens, then ``steps`` greedy decode steps,
+    held against the plain route in bf16 and, with the same weights, in
+    fp32. ``expect``: each kernel's launches on that path (counters not
+    named there must not move). ``int8``: then decode the same steps
+    again, from the same prefill, with ``kv_cache_dtype="int8"``, fed
+    the native run's tokens, each step's logits within 5e-2 of the
+    native's max abs. Returns the report, with the launches of the main
+    path (prefill + decode), and the decode cache."""
     import torch
 
     from repro_torch.models import init_params
     from repro_torch.train import make_prefill_step, make_serve_step
 
     b, s = batch, prompt
+    label = f"serve {cfg.name}"
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device=dev)
     sync()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    log(f"serve: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, ssm d_inner "
-        f"{cfg.ssm.d_inner}), {n_params} params, {n_bytes / 2**30:.3f} GiB "
-        f"in {cfg.dtype}, made in {time.perf_counter() - t0:.2f} s")
+    shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads"
+             + (f", ssm d_inner {cfg.ssm.d_inner}" if cfg.ssm else "")
+             + (f", MLA {cfg.mla}" if cfg.mla else ""))
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}"
+        f", {shape}), {n_params} params, {n_bytes / 2**30:.3f} GiB in "
+        f"{cfg.dtype}, made in {time.perf_counter() - t0:.2f} s")
     prefill = make_prefill_step(cfg)
     serve_step = make_serve_step(cfg)
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
@@ -790,39 +872,30 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
     del pcache
     tok = greedy(logits)
     first_tok = tok
-    step_ms = []
+    step_ms, fed, dec_logits = [], [], []
     for t in range(steps):
         sync()
         t1 = time.perf_counter()
+        fed.append(tok)
         dlogits, cache = serve_step(params, cache, tok, s + t)
         tok = greedy(dlogits)
         sync()
         step_ms.append((time.perf_counter() - t1) * 1e3)
-        if t == 0:
-            first_dec = dlogits
+        dec_logits.append(dlogits)
+    first_dec = dec_logits[0]
     path_s = time.perf_counter() - t0
     launches = read_launches(wrappers)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    log(f"serve: main path (prefill + {steps} decode steps) "
+    log(f"{label}: main path (prefill + {steps} decode steps) "
         f"{path_s:.3f} s; launches {launches}; peak memory "
         f"{peak_gib:.3f} GiB")
     check(tuple(logits.shape) == (b, 1, cfg.padded_vocab)
           and bool(torch.isfinite(logits).all())
           and bool(torch.isfinite(dlogits).all()),
-          "serve: non-finite or misshapen logits")
-    for nm in ("flash_attention", "ssd_intra"):
-        check(launches[nm] == cfg.n_layers,
-              f"serve: {nm} launched {launches[nm]} times on the main path, "
-              f"not once per layer ({cfg.n_layers})")
-    # bf16 at a head dim of 64: every attention launch on the tensor cores
-    check(launches["flash_attention.tc"] == cfg.n_layers
-          and launches["flash_attention.ffma"] == 0,
-          f"serve: attention ran {launches['flash_attention.tc']} times on "
-          f"the tensor cores and {launches['flash_attention.ffma']} on FFMA, "
-          f"not {cfg.n_layers} and 0")
+          f"{label}: non-finite or misshapen logits")
     for nm, cnt in launches.items():
-        if nm.split(".")[0] not in ("flash_attention", "ssd_intra"):
-            check(cnt == 0, f"serve: {nm} launched on the LM path")
+        check(cnt == expect.get(nm, 0), f"{label}: {nm} launched {cnt} "
+              f"times on the main path, not {expect.get(nm, 0)}")
 
     # prefill time: median of 3 after the main path's warm-up call
     pre_ms = []
@@ -833,7 +906,7 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
         sync()
         pre_ms.append((time.perf_counter() - t1) * 1e3)
         del _c
-    check(torch.equal(again, logits), "serve: a repeat prefill differs")
+    check(torch.equal(again, logits), f"{label}: a repeat prefill differs")
 
     def rel(a, b):
         return float((a - b).abs().max()) / float(b.abs().max())
@@ -863,18 +936,108 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
     cont_err = rel(first_dec, longer)
     del _c, longer
     bound = max(1.5 * floor, 3e-2)
-    log(f"serve bf16: kernel vs plain prefill logits {plain_err:.4g} of "
+    log(f"{label} bf16: kernel vs plain prefill logits {plain_err:.4g} of "
         f"scale; SDPA vs plain {floors['sdpa']:.4g}, float64 attention vs "
         f"plain {floors['float64']:.4g}; decode continuation "
         f"{cont_err:.4g}; bound {bound:.4g}")
-    check(plain_err <= bound, f"serve: bf16 kernel prefill is "
+    check(plain_err <= bound, f"{label}: bf16 kernel prefill is "
           f"{plain_err:.3g} of scale from the plain one, beyond {bound:.3g}")
-    check(cont_err <= bound, f"serve: bf16 decode continuation "
+    check(cont_err <= bound, f"{label}: bf16 decode continuation "
           f"{cont_err:.3g} of scale, beyond {bound:.3g}")
     del plain_logits
+    prefill_ms = statistics.median(pre_ms)
+    decode_ms = statistics.median(step_ms[1:])
+    rep = dict(arch=cfg.name, batch=b, prompt=s, steps=steps,
+               params=n_params, param_gib=n_bytes / 2**30,
+               launches=launches, main_path_s=path_s,
+               prefill_ms=pre_ms, prefill_ms_median=prefill_ms,
+               prefill_tokens_per_s=b * s / (prefill_ms / 1e3),
+               decode_step_ms=step_ms, decode_ms_per_step_median=decode_ms,
+               decode_tokens_per_s=b / (decode_ms / 1e3),
+               peak_gib=peak_gib, plain_logits_err=plain_err,
+               other_attention_logits_err=floors, bf16_bound=bound,
+               continuation_err=cont_err,
+               cache_bytes=sum(t.numel() * t.element_size()
+                               for t in cache.values()),
+               cache_positions=s + steps + 1)
+    if int8:
+        rep["int8"] = int8_decode(dev, cfg, params, tokens, logits, fed,
+                                  dec_logits, s, label)
+    del dec_logits
+    rep.update(fp32_check(dev, cfg, params, tokens, s, label))
+    log(f"{label}: prefill {prefill_ms:.2f} ms median of {pre_ms} "
+        f"({rep['prefill_tokens_per_s']:.4g} tokens/s); decode "
+        f"{decode_ms:.3f} ms per step median ({rep['decode_tokens_per_s']:.4g}"
+        f" tokens/s, first step {step_ms[0]:.2f} ms); cache "
+        f"{rep['cache_bytes']} bytes for {rep['cache_positions']} positions")
+    rep["trace"] = traced(lambda: prefill(params, {"tokens": tokens}),
+                          f"traced prefill ({cfg.name})")
+    rep["trace_decode"] = traced(
+        lambda: serve_step(params, cache, tok, s + steps),
+        f"traced decode step ({cfg.name})")
+    return rep, cache
 
-    # the same weights widened to fp32: kernel against plain prefill and
-    # the decode continuation, each within 1e-4 of scale
+
+def int8_decode(dev, cfg, params, tokens, logits, fed, dec_logits, s,
+                label):
+    """The int8 KV cache on the serving path: the prefill with
+    ``kv_cache_dtype="int8"`` (the native prefill's logits bit for bit,
+    its cache quantized), then the native run's decode steps again, fed
+    the tokens the native run fed, each step's logits within 5e-2 of the
+    native's max abs (the reference's bound)."""
+    import torch
+
+    from repro_torch.train import make_prefill_step, make_serve_step
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    lg8, pc8 = make_prefill_step(cfg8)(params, {"tokens": tokens})
+    check(torch.equal(lg8, logits), f"{label} int8: the prefill's logits "
+          f"differ from the native prefill's")
+    check(pc8["k"].dtype == torch.int8 and pc8["k_scale"].dtype ==
+          torch.float32, f"{label} int8: the prefill's cache is not int8")
+    cache8 = decode_cache(cfg8, pc8, s + len(fed) + 1, dev)
+    del pc8
+    serve8 = make_serve_step(cfg8)
+    step_ms, errs, agree = [], [], 0
+    for t, tok in enumerate(fed):
+        sync()
+        t1 = time.perf_counter()
+        lg, cache8 = serve8(params, cache8, tok, s + t)
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        want = dec_logits[t]
+        errs.append(float((lg - want).abs().max()) / float(want.abs().max()))
+        agree += int((lg.argmax(-1) == want.argmax(-1)).all())
+    nbytes = sum(t.numel() * t.element_size() for t in cache8.values())
+    # the native cache: k and v alone, in the compute dtype
+    native = (cache8["k"].numel() + cache8["v"].numel()) * \
+        torch.finfo(cfg.compute_dtype).bits // 8
+    rep = dict(decode_step_ms=step_ms,
+               decode_ms_per_step_median=statistics.median(step_ms[1:]),
+               logits_rel_err=errs, max_logits_rel_err=max(errs),
+               steps_same_argmax=agree, cache_bytes=nbytes,
+               native_cache_bytes=native, cache_ratio=nbytes / native)
+    log(f"{label} int8: decode {rep['decode_ms_per_step_median']:.3f} ms per "
+        f"step median; logits within {max(errs):.4g} of the native's scale "
+        f"(bound 5e-2), the same argmax at {agree} of {len(fed)} steps; "
+        f"cache {nbytes} bytes against {native} native "
+        f"({rep['cache_ratio']:.4f})")
+    check(max(errs) <= 5e-2, f"{label} int8: decode logits {max(errs):.3g} "
+          f"of the native's scale, beyond 5e-2")
+    return rep
+
+
+def fp32_check(dev, cfg, params, tokens, s, label):
+    """The same weights widened to fp32: kernel against plain prefill and
+    the decode continuation, each within 1e-4 of scale."""
+    import torch
+
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    def greedy(lg):
+        return lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = _widen(params)
     prefill32 = make_prefill_step(cfg32)
@@ -892,39 +1055,14 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps):
                                                             1)})
     del _c
     cont_err32 = rel(dec32, longer32)
-    log(f"serve fp32: kernel vs plain prefill logits {plain_err32:.4g} of "
+    log(f"{label} fp32: kernel vs plain prefill logits {plain_err32:.4g} of "
         f"scale; decode continuation {cont_err32:.4g}")
-    check(plain_err32 <= 1e-4, f"serve: fp32 kernel and plain prefill "
+    check(plain_err32 <= 1e-4, f"{label}: fp32 kernel and plain prefill "
           f"logits differ by {plain_err32:.3g} of scale > 1e-4")
-    check(cont_err32 <= 1e-4, f"serve: fp32 decode continuation "
+    check(cont_err32 <= 1e-4, f"{label}: fp32 decode continuation "
           f"{cont_err32:.3g} of scale > 1e-4")
-    del params32, lg32, plain32, dec32, longer32
-    prefill_ms = statistics.median(pre_ms)
-    decode_ms = statistics.median(step_ms[1:])
-    rep = dict(arch=cfg.name, batch=b, prompt=s, steps=steps,
-               params=n_params, param_gib=n_bytes / 2**30,
-               launches=launches, main_path_s=path_s,
-               prefill_ms=pre_ms, prefill_ms_median=prefill_ms,
-               prefill_tokens_per_s=b * s / (prefill_ms / 1e3),
-               decode_step_ms=step_ms, decode_ms_per_step_median=decode_ms,
-               decode_tokens_per_s=b / (decode_ms / 1e3),
-               peak_gib=peak_gib, plain_logits_err=plain_err,
-               other_attention_logits_err=floors, bf16_bound=bound,
-               continuation_err=cont_err,
-               plain_logits_err_fp32=plain_err32,
-               continuation_err_fp32=cont_err32)
-    log(f"serve: prefill {prefill_ms:.2f} ms median of {pre_ms} "
-        f"({rep['prefill_tokens_per_s']:.4g} tokens/s); decode "
-        f"{decode_ms:.3f} ms per step median ({rep['decode_tokens_per_s']:.4g}"
-        f" tokens/s, first step {step_ms[0]:.2f} ms)")
-    rep["trace"] = traced(lambda: prefill(params, {"tokens": tokens}),
-                          "traced prefill")
-    rep["trace_decode"] = traced(
-        lambda: serve_step(params, cache, tok, s + steps),
-        "traced decode step")
-    # phase 20's input: the first prompt's layer-0 keys and values
-    kv0 = tuple(cache[nm][0, 0, :s].clone() for nm in ("k", "v"))
-    return rep, kv0
+    return dict(plain_logits_err_fp32=plain_err32,
+                continuation_err_fp32=cont_err32)
 
 
 def decode_cache(cfg, pcache, max_len, dev):
@@ -933,10 +1071,10 @@ def decode_cache(cfg, pcache, max_len, dev):
     some = next(iter(pcache.values()))
     cache = init_cache(cfg, some.shape[1], max_len, device=dev)
     for k_, v_ in pcache.items():
-        if k_ in ("k", "v"):
-            cache[k_][:, :, :v_.shape[2]] = v_
-        else:
+        if k_ in ("ssm", "conv"):
             cache[k_].copy_(v_)
+        else:           # k, v, their scales, MLA's latents: (L, B, S, ...)
+            cache[k_][:, :, :v_.shape[2]] = v_
     return cache
 
 
@@ -986,9 +1124,15 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
     def route_counts():
         return {"tc": bwd.launches_tc, "ffma": bwd.launches_ffma}
 
-    def attn_case(label, b, s, h, kvh, d, dtype, timed=False):
+    def attn_case(label, b, s, h, kvh, d, dtype, timed=False, v_dim=None):
+        """``v_dim``: MLA's values, that wide and zero-padded to ``d`` (as
+        is their output gradient); SDPA's autograd takes them unpadded."""
         q, do = randn(b, s, h, d, dtype=dtype), randn(b, s, h, d, dtype=dtype)
         k, v = (randn(b, s, kvh, d, dtype=dtype) for _ in range(2))
+        vd = d if v_dim is None else v_dim
+        if vd < d:
+            v, do = (torch.nn.functional.pad(t[..., :vd], (0, d - vd))
+                     for t in (v, do))
         # the training forward: the output and each row's L
         o, lse = fla.flash_attention_gqa_with_lse(q, k, v)
         route = fla.route_for(dtype, d)
@@ -1014,12 +1158,17 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
         errs = {nm: rel_err(g, w) for nm, g, w in zip(names, got, want)}
         rows = row_errs(got, want)
         floor = lib_rows = None
+        def sdpa_leaves():
+            return [t.clone().requires_grad_(True)
+                    for t in (q, k, v[..., :vd])]
         if dtype == torch.float32:
             tol = 1e-4
         else:
             # another correct backward: autograd through SDPA
-            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-            lib = torch.autograd.grad(sdpa_gqa(*leaves), leaves, do)
+            leaves = sdpa_leaves()
+            lib = list(torch.autograd.grad(sdpa_gqa(*leaves), leaves,
+                                           do[..., :vd]))
+            lib[2] = torch.nn.functional.pad(lib[2], (0, d - vd))
             floor = max(rel_err(a, w) for a, w in zip(lib, want))
             lib_rows = row_errs(lib, want)
             tol = max(3e-2, 1.5 * floor)
@@ -1057,23 +1206,27 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
         del want
         if timed:
             es = q.element_size()
-            # q, o, dO in and dq out; k, v in and dk, dv out
-            nbytes = es * (4 * b * s * h * d + 4 * b * s * kvh * d)
-            # the five products a backward needs (S again, dV, dP, dQ,
-            # dK) over the causal half: 2.5x the forward's
-            flops = 5 * 2.0 * d * b * h * s * (s + 1) / 2
+            pairs = b * h * s * (s + 1) / 2     # the causal half
+            # q, dq, k, dk at q.k's width; o, dO, v, dv at v's own (MLA's
+            # zero padding is no work the function needs)
+            nbytes = es * 2 * b * s * (h + kvh) * (d + vd)
+            # the five products a backward needs: S again, dQ and dK (d
+            # long), dV and dP (vd long); 2.5x the forward's at vd = d
+            flops = 2.0 * (3 * d + 2 * vd) * pairs
             peak = fp32 if dtype == torch.float32 else bf16
             bound_ms, by = roof(nbytes, flops, bw, peak)
             # the tc route's seven products (S and dP twice), beside it
-            design_ms = roof(nbytes, flops * 7 / 5, bw, peak)[0]
-            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            design_ms = roof(nbytes, 2.0 * (4 * d + 3 * vd) * pairs, bw,
+                             peak)[0]
+            leaves = sdpa_leaves()
             out = sdpa_gqa(*leaves)
+            do_lib = do[..., :vd]
 
             def new():
                 return fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
 
             def library():
-                return torch.autograd.grad(out, leaves, do,
+                return torch.autograd.grad(out, leaves, do_lib,
                                            retain_graph=True)
             def old():
                 return fla.launch_gqa_bwd(q, k, v, o, do, lse, "ffma")
@@ -1164,6 +1317,13 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
     attn_case(f"ragged S={s + 1} bf16", 1, s + 1, h, kvh, d, bf)
     attn_case("ragged S=1000 fp32, 28/4 heads of 128", 1, 1000, 28, 4, 128,
               torch.float32)
+    # MLA's backward at minicpm3-4b's training shape (the FFMA route)
+    mla = get_config(MLA_SERVE["arch"])
+    mm = mla.mla
+    mla_entry = attn_case(
+        f"{mla.name} MLA training B={b} S={s} (v {mm.v_dim} padded to "
+        f"{mm.nope_dim + mm.rope_dim})", b, s, mla.n_heads, mla.n_heads,
+        mm.nope_dim + mm.rope_dim, bf, timed=True, v_dim=mm.v_dim)
     m = cfg.ssm
     ssd_main = ssd_case(f"{cfg.name} training B={b} S={s}", b, s // m.chunk,
                         m.chunk, m.n_heads, m.n_groups, m.d_state,
@@ -1173,7 +1333,15 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
     m2 = get_config("mamba2-780m").ssm
     ssd_case("mamba2-780m cells", b, 4, m2.chunk, m2.n_heads, m2.n_groups,
              m2.d_state, m2.head_dim)
-    return attn_main, ssd_main
+    # chunks over 128 rows (the wide route's 128 x 128 tiles) at both
+    # cells' widths: 256 and a ragged 200, over a sequence of s
+    wide = []
+    for q_ in (256, 200):
+        for nm, mc in ((cfg.name, m), ("mamba2-780m", m2)):
+            wide.append(ssd_case(
+                f"{nm} cells Q={q_} (wide route)", b, -(-s // q_), q_,
+                mc.n_heads, mc.n_groups, mc.d_state, mc.head_dim, timed=True))
+    return attn_main, ssd_main, dict(mla=mla_entry, ssd_wide=wide)
 
 
 # -- phase 18: LM training at full width and depth ---------------------------
@@ -1186,37 +1354,56 @@ def _tree_equal(a, b) -> bool:
 
 def torch_equal(x, y) -> bool:
     import torch
+    if x.device != y.device:            # a state held on the host
+        y = y.to(x.device)
     return x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
 
 
-def train_phase(dev, gen, wrappers, cfg, batch, seq, steps):
-    """Phase 18: ``cfg``'s training at full width and depth, ``steps``
-    steps of ``batch`` x ``seq`` tokens from ``TokenPipeline(seed=0)``.
-    Returns the report, with the main path's launches."""
+def _to_host(tree):
+    """A train state (or a tree of tensors) moved to the host."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to_host(f) for f in tree))
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def train_phase(dev, gen, wrappers, cfg, batch, seq, steps, want,
+                first_on_host=False):
+    """Phase 18 (and 22): ``cfg``'s training, ``steps`` steps of
+    ``batch`` x ``seq`` tokens from ``TokenPipeline(seed=0)``. ``want``:
+    each kernel's launches a step (counters not named there must not
+    move). ``first_on_host``: the first step's result waits on the host
+    while the step repeats, for a state of which three do not fit on the
+    card. Returns the report, with the main path's launches."""
     import torch
 
     from repro_torch.data import TokenPipeline
     from repro_torch.train import init_train_state, make_train_step
 
+    label = f"train {cfg.name}"
     t0 = time.perf_counter()
     state0 = init_train_state(cfg, gen, device=dev)
     sync()
     n_params = sum(t.numel() for t in _leaves(state0.params))
-    log(f"train: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model},"
-        f" remat {cfg.remat!r}), {n_params} params in {cfg.dtype} with fp32 "
-        f"moments, made in {time.perf_counter() - t0:.2f} s")
+    log(f"{label}: {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, remat {cfg.remat!r}), {n_params} params in "
+        f"{cfg.dtype} with fp32 moments, made in "
+        f"{time.perf_counter() - t0:.2f} s")
     pipe = TokenPipeline(cfg, batch=batch, seq=seq, seed=0)
     step = make_train_step(cfg)
     first = pipe.global_batch(0)
 
     # (b) the first step twice from one state: the same bits
     s1, m1 = step(state0, first)
+    if first_on_host:
+        s1 = _to_host(s1)
     s1b, m1b = step(state0, first)
     sync()
     same = _tree_equal(s1, s1b) and torch_equal(m1["loss"], m1b["loss"]) \
         and torch_equal(m1["grad_norm"], m1b["grad_norm"])
     del s1, s1b, m1b
-    check(same, "train: the same step from one state gave other bits")
+    check(same, f"{label}: the same step from one state gave other bits")
 
     # (a) the first step through the plain route, and through a second
     # correct route (SDPA's autograd for attention, the plain SSD)
@@ -1232,13 +1419,13 @@ def train_phase(dev, gen, wrappers, cfg, batch, seq, steps):
     floor = max(rel(ms_[k], mp[k]) for k in ("loss", "grad_norm"))
     bound = max(3e-2, 1.5 * floor)
     errs = {k: rel(m1[k], mp[k]) for k in ("loss", "grad_norm")}
-    log(f"train: first step, kernels {float(m1['loss']):.6f} loss "
+    log(f"{label}: first step, kernels {float(m1['loss']):.6f} loss "
         f"{float(m1['grad_norm']):.6f} grad_norm; plain route "
         f"{float(mp['loss']):.6f}, {float(mp['grad_norm']):.6f}; SDPA route "
         f"{float(ms_['loss']):.6f}, {float(ms_['grad_norm']):.6f}; kernels "
         f"vs plain {errs}, bound {bound:.4g}")
-    check(max(errs.values()) <= bound, f"train: the kernels' first step is "
-          f"{errs} from the plain route's, beyond {bound:.3g}")
+    check(max(errs.values()) <= bound, f"{label}: the kernels' first step "
+          f"is {errs} from the plain route's, beyond {bound:.3g}")
 
     # the main path: steps from state0, counts reset just before
     reset_launches(wrappers)
@@ -1259,20 +1446,13 @@ def train_phase(dev, gen, wrappers, cfg, batch, seq, steps):
     path_s = time.perf_counter() - t0
     launches = read_launches(wrappers)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    check(int(state.step) == steps, "train: the state's step counter")
+    check(int(state.step) == steps, f"{label}: the state's step counter")
     check(all(math.isfinite(x) for x in losses + norms),
-          f"train: non-finite loss or grad_norm {losses} {norms}")
+          f"{label}: non-finite loss or grad_norm {losses} {norms}")
     per_step = {nm: c / steps for nm, c in launches.items()}
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention.tc": 2 * cfg.n_layers,
-            "flash_attention.ffma": 0, "ssd_intra": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers,
-            # bf16 at head dim 64: the tensor-core backward alone
-            "flash_attention_bwd.tc": cfg.n_layers,
-            "ssd_intra_bwd": cfg.n_layers}
     for nm, cnt in per_step.items():
-        check(cnt == want.get(nm, 0), f"train: {nm} launched {cnt} times a "
-              f"step, not {want.get(nm, 0)}")
+        check(cnt == want.get(nm, 0), f"{label}: {nm} launched {cnt} times "
+              f"a step, not {want.get(nm, 0)}")
     med = statistics.median(step_ms[1:])
     rep = dict(arch=cfg.name, batch=batch, seq=seq, steps=steps,
                params=n_params, remat=cfg.remat, launches=launches,
@@ -1286,17 +1466,18 @@ def train_phase(dev, gen, wrappers, cfg, batch, seq, steps):
                                rel_err=errs, sdpa_rel_err=floor,
                                bound=bound),
                deterministic=same)
-    log(f"train: {steps} steps in {path_s:.3f} s, step ms {step_ms} (median "
+    log(f"{label}: {steps} steps in {path_s:.3f} s, step ms {step_ms} (median "
         f"of the last {steps - 1}: {med:.2f} ms, {rep['tokens_per_s']:.5g} "
         f"tokens/s); losses {losses}; peak memory {peak_gib:.3f} GiB; "
         f"launches a step {per_step}")
     # where a step's time goes: one more step, traced, after the path
     nxt = pipe.global_batch(steps)
-    rep["trace"] = tr = traced(lambda: step(state, nxt), "traced train step")
+    rep["trace"] = tr = traced(lambda: step(state, nxt),
+                               f"traced train step ({cfg.name})")
     bwd = {BWD_KERNEL.match(k_).group(1): v_ for k_, v_, _ in tr["port"]
            if BWD_KERNEL.match(k_)}
     tr["backward_ms"] = sum(bwd.values())
-    log(f"train: traced step busy {tr['busy_ms']:.1f} ms, of which the "
+    log(f"{label}: traced step busy {tr['busy_ms']:.1f} ms, of which the "
         f"backward kernels {tr['backward_ms']:.2f} ms: "
         + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in bwd.items()))
     return rep
@@ -3581,20 +3762,24 @@ def main() -> None:
     def fa_case(label, x, c, mask, tile_n, tile_k, x2=None, c2=None,
                 timed=False):
         """The kernel against its plain version and, bit for bit, against
-        the port's first kernel (``filtered_assign_simple``); the variant
-        the launch took is logged, and every case must take the new
+        the port's first kernel (``filtered_assign_simple``) where that
+        kernel takes the shape; the variant the launch took (and the
+        slice of D it walks) is logged, and every case must take the new
         kernel."""
         kw = dict(tile_n=tile_n, tile_k=tile_k, x2=x2, c2=c2)
         n_, d_ = x.shape
         k_ = c.shape[0]
-        points, stages = fa_mod.variant(d_, k_, tile_n, tile_k)
-        check(points > 0, f"{label}: no variant of the kernel takes "
-              f"tiles {tile_n}x{tile_k} at D = {d_}")
+        points, stages, d_slice = fa_mod.variant(d_, k_, tile_n, tile_k)
+        check(points > 0, f"{label}: no variant of the kernel takes tiles "
+              f"{tile_n}x{tile_k} at D = {d_}")
+        with_first = fa_mod.simple_takes(d_, tile_n, tile_k)
         got = kernels.filtered_assign(x, c, mask, **kw)
-        first = fa_mod.filtered_assign_simple(x, c, mask, **kw)
         want = fa_mod.filtered_assign_plain(x, c, mask, **kw)
+        if with_first:
+            first = fa_mod.filtered_assign_simple(x, c, mask, **kw)
         sync()
-        check(torch.equal(got[0], first[0]) and torch.equal(got[1], first[1]),
+        check(not with_first or (torch.equal(got[0], first[0])
+                                 and torch.equal(got[1], first[1])),
               f"{label}: (best, idx) differ from the first kernel's "
               f"(filtered_assign_simple) bits")
         fin = torch.isfinite(want[0])
@@ -3617,10 +3802,11 @@ def main() -> None:
         cols[-1] = k_ - (gk - 1) * tile_k
         pairs = int((mask.long() * rows[:, None] * cols[None, :]).sum())
         entry = dict(case=label, n=n_, d=d_, k=k_, tile_n=tile_n,
-                     tile_k=tile_k, variant=dict(points=points, stages=stages),
+                     tile_k=tile_k, variant=dict(points=points, stages=stages,
+                                                 d_slice=d_slice),
                      density=float(mask.float().mean()), live_pairs=pairs,
                      max_abs_err=err, atol=atol, argmin_tie_rows=ties,
-                     equals_first_kernel=True)
+                     equals_first_kernel=with_first or None)
         if timed:
             nbytes = 4 * (n_ * d_ + n_ + k_ * d_ + k_) + gn * gk + 8 * n_
             bound_ms, by = bound(nbytes, 2.0 * d_ * pairs)
@@ -3631,12 +3817,14 @@ def main() -> None:
             def old():
                 return fa_mod.filtered_assign_simple(x, c, mask, **kw)
             # in turns: the first kernel, the new one, the new, the first
-            turns = {"earlier": [cuda_ms(old)]}
+            # (where the first kernel takes the shape)
+            turns = {"earlier": [cuda_ms(old)]} if with_first else {}
             turns["new"] = [cuda_ms(new), cuda_ms(new)]
-            turns["earlier"].append(cuda_ms(old))
+            if with_first:
+                turns["earlier"].append(cuda_ms(old))
+                entry["earlier_ms"] = statistics.mean(turns["earlier"])
             entry.update(
-                ms=statistics.mean(turns["new"]),
-                earlier_ms=statistics.mean(turns["earlier"]), turns_ms=turns,
+                ms=statistics.mean(turns["new"]), turns_ms=turns,
                 plain_ms=cuda_ms(lambda: fa_mod.filtered_assign_plain(
                     x, c, mask, **kw), reps=3),
                 bound_ms=bound_ms, bound_by=by, library_ms=None)
@@ -3705,6 +3893,24 @@ def main() -> None:
             fa_case(f"uci-xlarge {tn}x{tk} density {dens}", points, centers,
                     rand_mask(n, k, tn, tk, dens), tn, tk)
     fa_ties()
+    # a D too wide for whole rows in shared memory: the kernel walks D in
+    # slices (the first kernel takes D = 256 at 64x16 only), timed
+    fa_wide = []
+    for d_w in (256, 700):
+        xw = torch.randn((FA_WIDE["n"], d_w), generator=gen, device=dev)
+        cw = torch.randn((FA_WIDE["k"], d_w), generator=gen, device=dev)
+        for tn, tk in ((256, 128), (64, 16)):
+            fa_wide.append(fa_case(
+                f"wide D={d_w} {tn}x{tk} density {FA_WIDE['density']}", xw,
+                cw, rand_mask(FA_WIDE["n"], FA_WIDE["k"], tn, tk,
+                              FA_WIDE["density"]), tn, tk, timed=True))
+        del xw, cw
+    check(all(e["variant"]["d_slice"] > 0 for e in fa_wide),
+          "filtered_assign: a wide D took whole rows, not slices")
+    check(any(e["equals_first_kernel"] for e in fa_wide),
+          "filtered_assign: no wide D case was held bit for bit against "
+          "the first kernel")
+    report["filtered_assign_wide_d"] = fa_wide
     # tiles of fewer points than a block of the new kernel owns
     for tn, tk in ((16, 128), (4, 8)):
         for dens in (0.35, 1.0):
@@ -4174,28 +4380,44 @@ def main() -> None:
     # -- 2c. the LM kernels against their plain versions -----------------
     from repro_torch.configs import get_config
     lm_cfg = get_config(SERVE["arch"])
-    attn_main, ssd_main = lm_kernel_phase(dev, gen, bw, fp32, bf16, lm_cfg,
-                                          SERVE["batch"], SERVE["prompt"])
+    attn_main, ssd_main, report["lm_kernels_more"] = lm_kernel_phase(
+        dev, gen, bw, fp32, bf16, lm_cfg, SERVE["batch"], SERVE["prompt"])
 
     # -- 2d. the backward kernels against their plain versions -----------
     t0 = time.perf_counter()
-    attn_bwd, ssd_bwd = lm_backward_phase(dev, gen, bw, fp32, bf16, lm_cfg,
-                                          TRAIN["batch"], TRAIN["seq"])
+    attn_bwd, ssd_bwd, report["lm_backward_more"] = lm_backward_phase(
+        dev, gen, bw, fp32, bf16, lm_cfg, TRAIN["batch"], TRAIN["seq"])
     log(f"phase 2d took {time.perf_counter() - t0:.1f} s")
 
     # -- 10. the LM serving path: hymba-1.5b at full width and depth -----
     del points
-    serve_rep, kv0 = serve_phase(
+    t0 = time.perf_counter()
+    nl = lm_cfg.n_layers
+    # bf16 at a head dim of 64: every attention launch on the tensor cores
+    serve_rep, cache = serve_phase(
         dev, torch.Generator(device=dev).manual_seed(0), wrappers, lm_cfg,
-        SERVE["batch"], SERVE["prompt"], SERVE["steps"])
+        SERVE["batch"], SERVE["prompt"], SERVE["steps"],
+        expect={"flash_attention": nl, "flash_attention.tc": nl,
+                "ssd_intra": nl})
     report["serve"] = serve_rep
+    # phase 20's input: the first prompt's layer-0 keys and values
+    kv0 = tuple(cache[nm][0, 0, :SERVE["prompt"]].clone()
+                for nm in ("k", "v"))
+    del cache
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     # -- 18. training at hymba-1.5b's full width and depth ---------------
     t0 = time.perf_counter()
     train_cfg = get_config(TRAIN["arch"])
+    nl = train_cfg.n_layers
     report["train"] = train_rep = train_phase(
         dev, torch.Generator(device=dev).manual_seed(1), wrappers, train_cfg,
-        TRAIN["batch"], TRAIN["seq"], TRAIN["steps"])
+        TRAIN["batch"], TRAIN["seq"], TRAIN["steps"],
+        # each layer's forward and its recomputation; bf16 at head dim
+        # 64: the tensor-core kernels alone, forward and backward
+        want={"flash_attention": 2 * nl, "flash_attention.tc": 2 * nl,
+              "ssd_intra": 2 * nl, "flash_attention_bwd": nl,
+              "flash_attention_bwd.tc": nl, "ssd_intra_bwd": nl})
     log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
 
     # -- 19. the resilient training loop ---------------------------------
@@ -4211,8 +4433,71 @@ def main() -> None:
         dev, pts_np, k, max(k // 10, 1), kv0, KV_CLUSTERS)
     del kv0
     log(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 21. MLA serving: minicpm3-4b at full width and depth ------------
+    t0 = time.perf_counter()
+    mla_cfg = get_config(MLA_SERVE["arch"])
+    nl = mla_cfg.n_layers
+    # q.k of 96: every attention launch on the FFMA kernel
+    mla_rep, cache = serve_phase(
+        dev, torch.Generator(device=dev).manual_seed(3), wrappers, mla_cfg,
+        MLA_SERVE["batch"], MLA_SERVE["prompt"], MLA_SERVE["steps"],
+        expect={"flash_attention": nl, "flash_attention.ffma": nl})
+    mm = mla_cfg.mla
+    # the latent cache beside a GQA cache of H heads of q.k's width
+    gqa_bytes = 2 * nl * MLA_SERVE["batch"] * mla_rep["cache_positions"] \
+        * mla_cfg.n_heads * (mm.nope_dim + mm.rope_dim) * 2
+    mla_rep["gqa_cache_bytes"] = gqa_bytes
+    log(f"serve {mla_cfg.name}: latent cache {mla_rep['cache_bytes']} "
+        f"bytes, a GQA "
+        f"cache of {mla_cfg.n_heads} heads of {mm.nope_dim + mm.rope_dim} "
+        f"{gqa_bytes} bytes ({mla_rep['cache_bytes'] / gqa_bytes:.4f})")
+    del cache
+    report["mla_serve"] = mla_rep
+    torch.cuda.empty_cache()
+    log(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 22. MLA training: minicpm3-4b at full width, 31 of 62 layers ----
+    t0 = time.perf_counter()
+    mla_train_cfg = dataclasses.replace(get_config(MLA_TRAIN["arch"]),
+                                        n_layers=MLA_TRAIN["layers"])
+    nl = mla_train_cfg.n_layers
+    log(f"train {mla_train_cfg.name}: cut to {nl} of "
+        f"{get_config(MLA_TRAIN['arch']).n_layers} layers (at 22 bytes a "
+        f"parameter full depth needs about 94 GB)")
+    report["mla_train"] = mla_train_rep = train_phase(
+        dev, torch.Generator(device=dev).manual_seed(4), wrappers,
+        mla_train_cfg, MLA_TRAIN["batch"], MLA_TRAIN["seq"],
+        MLA_TRAIN["steps"],
+        want={"flash_attention": 2 * nl, "flash_attention.ffma": 2 * nl,
+              "flash_attention_bwd": nl, "flash_attention_bwd.ffma": nl},
+        # three states of 31 layers (2.32e9 parameters) do not fit
+        first_on_host=True)
+    torch.cuda.empty_cache()
+    log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
+
+    # -- 23. qwen2-7b serving, native and with the int8 KV cache ---------
+    t0 = time.perf_counter()
+    q_cfg = get_config(INT8_SERVE["arch"])
+    nl = q_cfg.n_layers
+    # bf16 at a head dim of 128: the tensor-core kernel
+    int8_rep, cache = serve_phase(
+        dev, torch.Generator(device=dev).manual_seed(5), wrappers, q_cfg,
+        INT8_SERVE["batch"], INT8_SERVE["prompt"], INT8_SERVE["steps"],
+        expect={"flash_attention": nl, "flash_attention.tc": nl},
+        int8=True)
+    del cache
+    report["int8_serve"] = int8_rep
+    torch.cuda.empty_cache()
+    log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+
     lm_paths = {"lm_serve": serve_rep["launches"],       # phase 10
-                "train": train_rep["launches"]}          # phase 18
+                "train": train_rep["launches"],          # phase 18
+                "mla_serve": mla_rep["launches"],        # phase 21
+                "mla_train": mla_train_rep["launches"],  # phase 22
+                "qwen2_serve": int8_rep["launches"]}     # phase 23
+    train_paths = {"train": train_rep["launches"],
+                   "mla_train": mla_train_rep["launches"]}
 
     def row(nm, entry, source, replaces, by_path):
         """``by_path``: {path: that path's launch counts}; ``launches``
@@ -4265,12 +4550,10 @@ def main() -> None:
         # names the forward it differentiates
         row("flash_attention_bwd", attn_bwd,
             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "src/repro/kernels/flash_attention.py:77",
-            {"train": train_rep["launches"]}),
+            "src/repro/kernels/flash_attention.py:77", train_paths),
         row("ssd_intra_bwd", ssd_bwd,
             "src/repro_torch/kernels/csrc/ssd_intra_bwd.cu",
-            "src/repro/kernels/ssd_intra.py:44",
-            {"train": train_rep["launches"]}),
+            "src/repro/kernels/ssd_intra.py:44", train_paths),
     ]}
     report["kernels"] = line["kernels"]
     if args.out:

@@ -68,17 +68,24 @@ def lm_params_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
 
 
 def lm_cache_from_numpy(tree: dict, cfg: ArchConfig, device=None) -> dict:
-    """A prefill or decode cache of JAX's (``k``, ``v``, ``ssm``,
-    ``conv`` stacked on L), leaves as numpy arrays, -> the port's on
-    ``device`` (``None``: ``cuda``): ``ssm`` in float32, the others in
-    ``cfg``'s compute dtype."""
+    """A prefill or decode cache of JAX's (``k``, ``v``, ``k_scale``,
+    ``v_scale``, ``kvc``, ``kpe``, ``ssm``, ``conv`` stacked on L),
+    leaves as numpy arrays, -> the port's on ``device`` (``None``:
+    ``cuda``): int8 ``k``/``v`` (the int8 cache) kept int8, ``ssm`` and
+    the scales in float32, the others in ``cfg``'s compute dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
-    known = ("k", "v", "ssm", "conv")
+    known = ("k", "v", "k_scale", "v_scale", "kvc", "kpe", "ssm", "conv")
     if not set(tree) <= set(known):
         raise ValueError(f"unknown cache leaves {sorted(set(tree) - set(known))}")
-    return {k: _leaf(a, torch.float32 if k == "ssm" else cfg.compute_dtype,
-                     dev) for k, a in tree.items()}
+
+    def leaf(name, a):
+        if np.asarray(a).dtype == np.int8:
+            return torch.from_numpy(np.array(a, np.int8)).to(dev)
+        fp32 = name in ("ssm", "k_scale", "v_scale")
+        return _leaf(a, torch.float32 if fp32 else cfg.compute_dtype, dev)
+
+    return {k: leaf(k, a) for k, a in tree.items()}
 
 
 def train_state_from_numpy(state, cfg: ArchConfig, device=None):

@@ -63,10 +63,15 @@
 // of fewer points leaves the block's other rows zero, unused. The launch
 // picks (TP, stages) itself from (D, K, tile_n, tile_k) alone
 // (filtered_assign_variant): TP = 256 for tiles of 256 points or more,
-// else 64; three stages where they fit, else two. It refuses, before any
-// launch, a D too wide for two stages: D > 172 (the first kernel took
-// D up to 198 at 256 x 128 and 683 at 64 x 16; the paper suite's widest
-// D is 128).
+// else 64; three stages where they fit, else two. A D too wide for two
+// stages of whole rows (D > 172 at 256 x 128; the paper suite's widest D
+// is 128) takes fa_wide_kernel instead, the same lanes and tiles with D
+// walked in slices of kDS = 32 (the variant's slice): each ring stage
+// holds one slice of the point tile and of a chunk, the lane's 8 x 8
+// accumulators stay in registers across a chunk's slices, and the
+// running min is taken after its last slice. The point tile is staged
+// again for every chunk, so that route moves (TP + CS) x D floats a
+// chunk; it is there to be right at any D, not yet fast.
 // What still holds fa_kernel at 2.5x its bound at uci-xlarge (an H100
 // 80GB HBM3 at 700 W, scripts/block_skip_probe.py): its 8 x 8 loop
 // runs at three quarters of the FFMA rate independent FFMAs reach, and
@@ -76,7 +81,9 @@
 // Exactness: each (point, centroid) dot product is one fmaf chain over
 // d = 0, 1, ..., D - 1 from 0.0f, as in the first kernel (the zero
 // columns that round D up to 4 add fmaf(0, 0, acc) == acc: acc is
-// never -0), and both kernels form the distance with sq_dist. A lane
+// never -0; fa_wide_kernel runs the same chain slice after slice,
+// without a break), and both kernels form the distance with sq_dist. A
+// lane
 // sees its slots in ascending id order and keeps a running (min, id)
 // with a strict <, so it holds the least (value, id) of its slots; the
 // lanes' pairs then merge by the least (value, id), which is the
@@ -101,6 +108,7 @@ constexpr int kC = 8;              // chunk slots a lane keeps
 // (min, id) of every warp column's points: 2 x WC x TP = 2 x 4 x 64
 constexpr int kMergeFloats = 2 * kWarps * 64;
 constexpr int kSmemMax = 232448;   // the most shared memory one block has
+constexpr int kDS = 32;            // fa_wide_kernel's slice of D
 
 extern __shared__ __align__(16) float sm[];
 
@@ -142,6 +150,97 @@ __device__ __forceinline__ void cp_wait() {
 // ints live in the float array as their bits
 __device__ __forceinline__ int ldi(int i) { return __float_as_int(sm[i]); }
 __device__ __forceinline__ void sti(int i, int v) { sm[i] = __int_as_float(v); }
+
+// Both kernels below share a tile's live-block list, its positions and
+// the merge of the lanes' (min, id) pairs.
+
+// the live blocks of a mask row of gk entries, in ascending order, as
+// ints at lb, and their count at lb + gk; run by one warp
+__device__ __forceinline__ void list_live_blocks(const unsigned char* mrow,
+                                                 int gk, int lb, int lane) {
+  int count = 0;
+  for (int b0 = 0; b0 < gk; b0 += 32) {
+    const bool lv = b0 + lane < gk && mrow[b0 + lane] != 0;
+    const unsigned bits = __ballot_sync(kAll, lv);
+    if (lv) sti(lb + count + __popc(bits & ((1u << lane) - 1u)), b0 + lane);
+    count += __popc(bits);
+  }
+  if (lane == 0) sti(lb + gk, count);
+}
+
+// positions: the live blocks' columns back to back; the ragged last
+// block, if live, is the list's last, and its columns past k are left
+// out
+__device__ __forceinline__ int live_positions(int lb, int nlive, int gk,
+                                              int k, int tile_k) {
+  return nlive * tile_k -
+         (ldi(lb + nlive - 1) == gk - 1 ? gk * tile_k - k : 0);
+}
+
+// the centroid at position pos, or -1 past the positions
+__device__ __forceinline__ int position_column(int lb, int pos, int npos,
+                                               int tile_k) {
+  if (pos >= npos) return -1;
+  const int q = pos / tile_k;
+  return ldi(lb + q) * tile_k + (pos - q * tile_k);
+}
+
+// a tile with no live block: (inf, -1) for each of the block's rows
+__device__ __forceinline__ void store_no_live(float* best_out, int* idx_out,
+                                              size_t row0, int rows) {
+  for (int p = threadIdx.x; p < rows; p += kThreads) {
+    best_out[row0 + p] = CUDART_INF_F;
+    idx_out[row0 + p] = -1;
+  }
+}
+
+// the least (value, id) of each of the block's points: over a lane row's
+// 4 lanes, then over the warp columns through shared memory at merge (an
+// id of -1 comes only with inf, and loses to no pair)
+template <int WR>
+__device__ __forceinline__ void merge_store(float (&m)[kR], int (&a)[kR],
+                                            int merge, int lane, int wc,
+                                            int lrow, int rows, size_t row0,
+                                            float* best_out, int* idx_out) {
+  constexpr int WC = kWarps / WR;
+  constexpr int TP = 64 * WR;
+  constexpr int RP = 8 * WR;
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float om = __shfl_xor_sync(kAll, m[i], o);
+      const int oa = __shfl_xor_sync(kAll, a[i], o);
+      if (om < m[i] || (om == m[i] && oa < a[i])) {
+        m[i] = om;
+        a[i] = oa;
+      }
+    }
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int p = lrow + RP * i;
+      sm[merge + wc * TP + p] = m[i];
+      sti(merge + (WC + wc) * TP + p, a[i]);
+    }
+  }
+  __syncthreads();
+  for (int p = threadIdx.x; p < rows; p += kThreads) {
+    float bm = sm[merge + p];
+    int ba = ldi(merge + WC * TP + p);
+    for (int w = 1; w < WC; ++w) {
+      const float om = sm[merge + w * TP + p];
+      const int oa = ldi(merge + (WC + w) * TP + p);
+      if (om < bm || (om == bm && oa < ba)) {
+        bm = om;
+        ba = oa;
+      }
+    }
+    best_out[row0 + p] = bm;
+    idx_out[row0 + p] = ba;
+  }
+}
 
 // fa_kernel's shared memory, in floats: the point tile [TP][ld]; the
 // ring of `stages` chunks, each [CS][ld] centroid rows, CS norms and CS
@@ -201,31 +300,14 @@ fa_kernel(const float* __restrict__ x, const float* __restrict__ x2,
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
 
   // the tile's live blocks, in ascending order
-  if (warp == 0) {
-    const unsigned char* mrow = mask + (size_t)tile * gk;
-    int count = 0;
-    for (int b0 = 0; b0 < gk; b0 += 32) {
-      const bool lv = b0 + lane < gk && mrow[b0 + lane] != 0;
-      const unsigned bits = __ballot_sync(kAll, lv);
-      if (lv) sti(l.lb + count + __popc(bits & ((1u << lane) - 1u)), b0 + lane);
-      count += __popc(bits);
-    }
-    if (lane == 0) sti(l.lb + gk, count);
-  }
+  if (warp == 0) list_live_blocks(mask + (size_t)tile * gk, gk, l.lb, lane);
   __syncthreads();
   const int nlive = ldi(l.lb + gk);
   if (nlive == 0) {                     // the points are never loaded
-    for (int p = t; p < rows; p += kThreads) {
-      best_out[row0 + p] = CUDART_INF_F;
-      idx_out[row0 + p] = -1;
-    }
+    store_no_live(best_out, idx_out, row0, rows);
     return;
   }
-  // positions: the live blocks' columns back to back; the ragged last
-  // block, if live, is the list's last, and its columns past k are left
-  // out
-  const int npos = nlive * tile_k -
-                   (ldi(l.lb + nlive - 1) == gk - 1 ? gk * tile_k - k : 0);
+  const int npos = live_positions(l.lb, nlive, gk, k, tile_k);
   const int nch = (npos + CS - 1) / CS;
   const int dp = (d + 3) & ~3, u4 = dp / 4;
 
@@ -252,12 +334,7 @@ fa_kernel(const float* __restrict__ x, const float* __restrict__ x2,
     const int base = l.ring + (ch % stages) * l.stage;
     const int part = t % TPS;
     for (int f = t / TPS; f < CS; f += kThreads / TPS) {
-    const int pos = ch * CS + f;
-    int col = -1;
-    if (pos < npos) {
-      const int q = pos / tile_k;
-      col = ldi(l.lb + q) * tile_k + (pos - q * tile_k);
-    }
+    const int col = position_column(l.lb, ch * CS + f, npos, tile_k);
     const bool ok = col >= 0;
     const float* src = c + (size_t)(ok ? col : 0) * d;
     const uint32_t dst = sbase + 4u * (base + f * l.ld);
@@ -362,44 +439,212 @@ fa_kernel(const float* __restrict__ x, const float* __restrict__ x2,
     }
   }
   cp_wait<0>();
+  merge_store<WR>(m, a, l.merge, lane, wc, lrow, rows, row0, best_out,
+                  idx_out);
+}
 
-  // the least (value, id): over a lane row's 4 lanes, then over the warp
-  // columns (an id of -1 comes only with inf, and loses to no pair)
+// fa_wide_kernel's shared memory, in floats: the ring of `stages` steps,
+// each the point tile's slice [TP][ld] and a chunk's slice [CS][ld]
+// (ld = row_stride(kDS)), CS norms and CS ids; then the merge and the
+// live blocks, as in Layout.
+struct WideLayout {
+  int ld, cs, cb, c2, ids, stage, merge, lb, total;
+};
+
+__host__ __device__ inline WideLayout layout_wide(int points, int stages,
+                                                  int gk) {
+  WideLayout l;
+  l.ld = row_stride(kDS);
+  l.cs = kThreads * kR * kC / points;
+  l.cb = points * l.ld;                 // offsets inside a stage
+  l.c2 = l.cb + l.cs * l.ld;
+  l.ids = l.c2 + l.cs;
+  l.stage = l.ids + l.cs;
+  l.merge = stages * l.stage;
+  l.lb = l.merge + kMergeFloats;
+  l.total = l.lb + gk + 1;
+  return l;
+}
+
+// fa_kernel with D walked in slices of kDS: a step of the ring is one
+// slice of one chunk (step = chunk x nds + slice), which stages that
+// slice of the point tile and of the chunk's centroids. The lanes, the
+// live-block list, the ids, the tie rule and the merge are fa_kernel's.
+template <int WR>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+fa_wide_kernel(const float* __restrict__ x, const float* __restrict__ x2,
+               const float* __restrict__ c, const float* __restrict__ c2,
+               const unsigned char* __restrict__ mask,
+               float* __restrict__ best_out, int* __restrict__ idx_out,
+               int n, int k, int d, int gk, int tile_n, int tile_k,
+               int subs, int stages, bool vec) {
+  constexpr int WC = kWarps / WR;
+  constexpr int TP = 64 * WR;
+  constexpr int RP = 8 * WR;
+  constexpr int RC = 4 * WC;
+  constexpr int CS = RC * kC;
+  constexpr int TPS = CS < kThreads ? kThreads / CS : 1;
+  constexpr int S4 = kDS / 4;           // float4s of a full slice
+  const WideLayout l = layout_wide(TP, stages, gk);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int wc = warp % WC;
+  const int lrow = (warp / WC) * 8 + (lane >> 2);
+  const int lcol = wc * 4 + (lane & 3);
+  const int tile = blockIdx.x / subs;
+  const size_t tile0 = (size_t)tile * tile_n;
+  const size_t row0 = tile0 + (size_t)(blockIdx.x - tile * subs) * TP;
+  const size_t end = min(tile0 + (size_t)tile_n, (size_t)n);
+  if (row0 >= end) return;
+  const int rows = (int)min((size_t)TP, end - row0);
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
+
+  if (warp == 0) list_live_blocks(mask + (size_t)tile * gk, gk, l.lb, lane);
+  __syncthreads();
+  const int nlive = ldi(l.lb + gk);
+  if (nlive == 0) {
+    store_no_live(best_out, idx_out, row0, rows);
+    return;
+  }
+  const int npos = live_positions(l.lb, nlive, gk, k, tile_k);
+  const int nch = (npos + CS - 1) / CS;
+  const int dp = (d + 3) & ~3, u4 = dp / 4;
+  const int nds = (dp + kDS - 1) / kDS;
+  const int nsteps = nch * nds;
+
+  // step st into ring stage st % stages: the slice's columns [col0,
+  // col0 + kDS) of the point tile and of the chunk, zeros past the
+  // tile's rows, past d and in pad slots (c2 = inf, id -1)
+  auto stage = [&](int st) {
+    const int ch = st / nds, col0 = (st - ch * nds) * kDS;
+    const int base = (st % stages) * l.stage;
+    if (vec) {
+      for (int e = t; e < TP * S4; e += kThreads) {
+        const int p = e / S4, q = e - p * S4;
+        const bool ok = p < rows && col0 + 4 * q < d;
+        cp16cg(sbase + 4u * (base + p * l.ld + 4 * q),
+               ok ? x + (row0 + p) * d + col0 + 4 * q : x, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = t; e < TP * kDS; e += kThreads) {
+        const int p = e / kDS, col = e - p * kDS;
+        const bool ok = p < rows && col0 + col < d;
+        cp4(sbase + 4u * (base + p * l.ld + col),
+            ok ? x + (row0 + p) * d + col0 + col : x, ok ? 4 : 0);
+      }
+    }
+    const int part = t % TPS;
+    for (int f = t / TPS; f < CS; f += kThreads / TPS) {
+      const int col = position_column(l.lb, ch * CS + f, npos, tile_k);
+      const bool ok = col >= 0;
+      const float* src = c + (size_t)(ok ? col : 0) * d + col0;
+      const uint32_t dst = sbase + 4u * (base + l.cb + f * l.ld);
+      if (vec) {
+        for (int q = part; q < S4; q += TPS) {
+          const bool in = ok && col0 + 4 * q < d;
+          cp16ca(dst + 16u * q, in ? src + 4 * q : c, in ? 16 : 0);
+        }
+      } else {
+        for (int cc = part; cc < kDS; cc += TPS) {
+          const bool in = ok && col0 + cc < d;
+          cp4(dst + 4u * cc, in ? src + cc : c, in ? 4 : 0);
+        }
+      }
+      if (part == 0) {
+        sti(base + l.ids + f, col);
+        if (ok)
+          cp4(sbase + 4u * (base + l.c2 + f), c2 + col, 4);
+        else
+          sm[base + l.c2 + f] = CUDART_INF_F;
+      }
+    }
+  };
+
+  float xx[kR], m[kR];
+  int a[kR];
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
+    const int p = lrow + RP * i;
+    xx[i] = x2 != nullptr && p < rows ? x2[row0 + p] : 0.0f;
+    m[i] = CUDART_INF_F;
+    a[i] = -1;
+  }
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < nsteps) stage(s);
+    cp_commit();
+  }
+  const float4* sm4 = reinterpret_cast<const float4*>(sm);
+  const int ld4 = l.ld / 4;
+  float acc[kR][kC];
+  for (int st = 0; st < nsteps; ++st) {
+    if (stages == 3)
+      cp_wait<1>();
+    else
+      cp_wait<0>();
+    __syncthreads();                    // step st is in; st - 1 is done
+    if (st + stages - 1 < nsteps) stage(st + stages - 1);
+    cp_commit();
+    const int ch = st / nds, ds = st - ch * nds;
+    const int base = (st % stages) * l.stage;
+    const int xo = base / 4 + lrow * ld4;
+    const int co = (base + l.cb) / 4 + lcol * ld4;
+    const int q4 = min(S4, u4 - ds * S4);   // float4s of this slice
+    if (ch == 0 && x2 == nullptr) {     // the norms, slice after slice
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      const float om = __shfl_xor_sync(kAll, m[i], o);
-      const int oa = __shfl_xor_sync(kAll, a[i], o);
-      if (om < m[i] || (om == m[i] && oa < a[i])) {
-        m[i] = om;
-        a[i] = oa;
+      for (int i = 0; i < kR; ++i) {
+        float nrm = xx[i];
+        for (int q = 0; q < q4; ++q) {
+          const float4 v = sm4[xo + i * RP * ld4 + q];
+          nrm = fmaf(v.x, v.x, nrm);
+          nrm = fmaf(v.y, v.y, nrm);
+          nrm = fmaf(v.z, v.z, nrm);
+          nrm = fmaf(v.w, v.w, nrm);
+        }
+        xx[i] = nrm;
+      }
+    }
+    if (ds == 0) {
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int j = 0; j < kC; ++j) acc[i][j] = 0.0f;
+    }
+    // four d at a time, in d order, the chain carried across slices
+#pragma unroll 2
+    for (int q = 0; q < q4; ++q) {
+      float4 xv[kR];
+#pragma unroll
+      for (int i = 0; i < kR; ++i) xv[i] = sm4[xo + i * RP * ld4 + q];
+#pragma unroll
+      for (int j = 0; j < kC; ++j) {
+        const float4 cv = sm4[co + j * RC * ld4 + q];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          float v = acc[i][j];
+          v = fmaf(xv[i].x, cv.x, v);
+          v = fmaf(xv[i].y, cv.y, v);
+          v = fmaf(xv[i].z, cv.z, v);
+          acc[i][j] = fmaf(xv[i].w, cv.w, v);
+        }
+      }
+    }
+    if (ds == nds - 1) {                // the chunk's dot products are whole
+#pragma unroll
+      for (int j = 0; j < kC; ++j) {
+        const int f = lcol + RC * j;
+        const float cc2 = sm[base + l.c2 + f];
+        const int id = ldi(base + l.ids + f);
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          const float dd = sq_dist(xx[i], acc[i][j], cc2);
+          a[i] = dd < m[i] ? id : a[i];
+          m[i] = fminf(m[i], dd);
+        }
       }
     }
   }
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int p = lrow + RP * i;
-      sm[l.merge + wc * TP + p] = m[i];
-      sti(l.merge + (WC + wc) * TP + p, a[i]);
-    }
-  }
-  __syncthreads();
-  for (int p = t; p < rows; p += kThreads) {
-    float bm = sm[l.merge + p];
-    int ba = ldi(l.merge + WC * TP + p);
-    for (int w = 1; w < WC; ++w) {
-      const float om = sm[l.merge + w * TP + p];
-      const int oa = ldi(l.merge + (WC + w) * TP + p);
-      if (om < bm || (om == bm && oa < ba)) {
-        bm = om;
-        ba = oa;
-      }
-    }
-    best_out[row0 + p] = bm;
-    idx_out[row0 + p] = ba;
-  }
+  cp_wait<0>();
+  merge_store<WR>(m, a, l.merge, lane, wc, lrow, rows, row0, best_out,
+                  idx_out);
 }
 
 // The squared norm of every row of x (n, d): one fmaf chain over d
@@ -526,13 +771,24 @@ __global__ void fa_simple_kernel(const float* __restrict__ x,
   }
 }
 
+// The first kernel's centroids staged per shared-memory chunk: the
+// largest of 32, 16 and 8 not above tile_k.
+int simple_stage(int tile_k) {
+  return tile_k >= 32 ? 32 : tile_k >= 16 ? 16 : 8;
+}
+
+// The first kernel's shared memory in bytes: a chunk of S centroids and
+// the points transposed, [d][tile_n + 1].
+long long simple_smem(int d, int tile_n, int S) {
+  return 4LL * ((long long)d * (S + 4) + S + (long long)d * (tile_n + 1));
+}
+
 template <int S>
 int launch_simple(const float* x, const float* x2, const float* c,
                   const float* c2, const unsigned char* mask, float* best,
                   int* idx, int n, int k, int d, int tile_n, int tile_k,
                   cudaStream_t stream) {
-  const int smem =
-      (int)sizeof(float) * (d * (S + 4) + S + d * (tile_n + 1));
+  const int smem = (int)simple_smem(d, tile_n, S);
   cudaError_t e = cudaFuncSetAttribute(
       fa_simple_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -544,17 +800,32 @@ int launch_simple(const float* x, const float* x2, const float* c,
   return (int)cudaGetLastError();
 }
 
-// fa_kernel's variant at a shape: TP = 256 points a block for tiles of
-// 256 points or more, else 64; three chunks in flight where they fit in
-// one block's shared memory, else two. False where two do not fit.
+// The slice of D the launch walks at a shape: 0, whole rows (fa_kernel),
+// where two stages of whole rows fit in one block's shared memory, else
+// kDS (fa_wide_kernel).
+int d_slice(int d, int k, int tile_n, int tile_k) {
+  const int gk = (k + tile_k - 1) / tile_k;
+  const int tp = tile_n >= 256 ? 256 : 64;
+  return d <= 65536 && 4LL * layout(tp, 2, d, gk).total <= kSmemMax ? 0
+                                                                      : kDS;
+}
+
+// The launch's variant at a shape: TP = 256 points a block for tiles of
+// 256 points or more, else 64; three chunks (or slices of chunks) in
+// flight where they fit in one block's shared memory, else two. False
+// where two do not fit even in slices (a mask row of more blocks than
+// shared memory holds).
 bool variant_for(int d, int k, int tile_n, int tile_k, int* points,
                  int* stages) {
-  if (d < 1 || d > 65536 || k < 0 || tile_n < 1 || tile_k < 1) return false;
+  if (d < 1 || k < 0 || tile_n < 1 || tile_k < 1) return false;
   const int gk = (k + tile_k - 1) / tile_k;
   if (gk > kSmemMax / 4) return false;
   const int tp = tile_n >= 256 ? 256 : 64;
+  const bool sliced = d_slice(d, k, tile_n, tile_k) != 0;
   for (int s = 3; s >= 2; --s) {
-    if (4LL * layout(tp, s, d, gk).total <= kSmemMax) {
+    const long long floats = sliced ? layout_wide(tp, s, gk).total
+                                    : layout(tp, s, d, gk).total;
+    if (4LL * floats <= kSmemMax) {
       *points = tp;
       *stages = s;
       return true;
@@ -567,12 +838,14 @@ template <int WR>
 int launch_fa(const float* x, const float* x2, const float* c,
               const float* c2, const unsigned char* m, float* best, int* idx,
               int n, int k, int d, int tile_n, int tile_k, int stages,
-              cudaStream_t st) {
+              bool sliced, cudaStream_t st) {
   constexpr int TP = 64 * WR;
   const int gk = (k + tile_k - 1) / tile_k;
-  const int smem = 4 * layout(TP, stages, d, gk).total;
+  const int smem = 4 * (sliced ? layout_wide(TP, stages, gk).total
+                               : layout(TP, stages, d, gk).total);
+  auto* kern = sliced ? fa_wide_kernel<WR> : fa_kernel<WR>;
   cudaError_t e = cudaFuncSetAttribute(
-      fa_kernel<WR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const long long tiles = (n + (long long)tile_n - 1) / tile_n;
   const int subs = (tile_n + TP - 1) / TP;
@@ -581,7 +854,7 @@ int launch_fa(const float* x, const float* x2, const float* c,
   const bool vec = d % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(x) |
                      reinterpret_cast<uintptr_t>(c)) & 15) == 0;
-  fa_kernel<WR><<<(int)(tiles * subs), kThreads, smem, st>>>(
+  kern<<<(int)(tiles * subs), kThreads, smem, st>>>(
       x, x2, c, c2, m, best, idx, n, k, d, gk, tile_n, tile_k, subs, stages,
       vec);
   return (int)cudaGetLastError();
@@ -592,22 +865,35 @@ int launch_fa(const float* x, const float* x2, const float* c,
 extern "C" {
 
 // The variant filtered_assign_launch takes at (d, k, tile_n, tile_k):
-// writes the points a block owns (256 or 64) and the chunks in flight
-// (3 or 2) and returns 1, or writes zeros and returns 0 for a shape the
-// launch refuses.
+// writes the points a block owns (256 or 64), the chunks in flight (3 or
+// 2) and the columns of D walked at a time (0 for whole rows, fa_kernel;
+// kDS for fa_wide_kernel) and returns 1, or writes zeros and returns 0
+// for a shape the launch refuses.
 int filtered_assign_variant(int d, int k, int tile_n, int tile_k,
-                            int* points, int* stages) {
+                            int* points, int* stages, int* slice) {
   int p = 0, s = 0;
   const bool ok = variant_for(d, k, tile_n, tile_k, &p, &s);
   *points = p;
   *stages = s;
+  *slice = ok ? d_slice(d, k, tile_n, tile_k) : 0;
   return ok ? 1 : 0;
+}
+
+// 1 where filtered_assign_simple_launch takes (d, tile_n, tile_k): its
+// shared memory fits in one block's and tile_n is at most 1024 (one
+// thread a point); else 0.
+int filtered_assign_simple_takes(int d, int tile_n, int tile_k) {
+  return d >= 1 && tile_n >= 1 && tile_n <= 1024 && tile_k >= 1 &&
+                 simple_smem(d, tile_n, simple_stage(tile_k)) <= kSmemMax
+             ? 1
+             : 0;
 }
 
 // x (n, d) f32; x2 (n,) f32, or null for fa_kernel to form the norms
 // itself; c (k, d) f32; c2 (k,) f32; mask (ceil(n/tile_n),
 // ceil(k/tile_k)) u8. Outputs: best (n,) f32, idx (n,) i32. Launches
-// fa_kernel in filtered_assign_variant's variant. Returns
+// fa_kernel, or fa_wide_kernel where filtered_assign_variant's slice is
+// not 0, in that variant. Returns
 // cudaErrorInvalidValue, before any launch, for a shape with no
 // variant, else cudaGetLastError() after the launch.
 int filtered_assign_launch(const void* x, const void* x2, const void* c,
@@ -625,11 +911,12 @@ int filtered_assign_launch(const void* x, const void* x2, const void* c,
   auto* bf = static_cast<float*>(best);
   auto* ii = static_cast<int*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool sliced = d_slice(d, k, tile_n, tile_k) != 0;
   return points == 256
              ? launch_fa<4>(xf, x2f, cf, c2f, m, bf, ii, n, k, d, tile_n,
-                            tile_k, stages, s)
+                            tile_k, stages, sliced, s)
              : launch_fa<1>(xf, x2f, cf, c2f, m, bf, ii, n, k, d, tile_n,
-                            tile_k, stages, s);
+                            tile_k, stages, sliced, s);
 }
 
 // The first kernel, with the same arguments (x2 not null): the
@@ -639,8 +926,8 @@ int filtered_assign_simple_launch(const void* x, const void* x2,
                                   const void* mask, void* best, void* idx,
                                   int n, int k, int d, int tile_n,
                                   int tile_k, void* stream) {
-  if (x2 == nullptr || n < 1 || k < 0 || d < 1 || tile_n < 1 ||
-      tile_n > 1024 || tile_k < 1)
+  if (x2 == nullptr || n < 1 || k < 0 ||
+      !filtered_assign_simple_takes(d, tile_n, tile_k))
     return (int)cudaErrorInvalidValue;
   const auto* xf = static_cast<const float*>(x);
   const auto* x2f = static_cast<const float*>(x2);
@@ -650,12 +937,11 @@ int filtered_assign_simple_launch(const void* x, const void* x2,
   auto* bf = static_cast<float*>(best);
   auto* ii = static_cast<int*>(idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // centroids staged per shared-memory chunk: the largest of 32, 16
-  // and 8 not above tile_k
-  if (tile_k >= 32)
+  const int stage = simple_stage(tile_k);
+  if (stage == 32)
     return launch_simple<32>(xf, x2f, cf, c2f, m, bf, ii, n, k, d, tile_n,
                              tile_k, s);
-  if (tile_k >= 16)
+  if (stage == 16)
     return launch_simple<16>(xf, x2f, cf, c2f, m, bf, ii, n, k, d, tile_n,
                              tile_k, s);
   return launch_simple<8>(xf, x2f, cf, c2f, m, bf, ii, n, k, d, tile_n,

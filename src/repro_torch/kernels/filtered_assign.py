@@ -6,9 +6,10 @@ Replaces the Pallas kernel ``repro/kernels/filtered_assign.py``
 the ``repro.kernels`` entry point (``ops.filtered_assign_auto``).
 ``csrc/filtered_assign.cu`` holds the kernel and the note on its
 design, its tie rule and its bound. The launch picks its variant from
-the shape itself (:func:`variant` asks the library which) and refuses a
-shape it cannot take (``cudaErrorInvalidValue``, raised here as
-``RuntimeError``), so this module keeps no copy of the kernel's layout.
+the shape itself (:func:`variant` asks the library which) and refuses
+a shape it cannot take (``cudaErrorInvalidValue``, raised here as
+``RuntimeError``), so this module keeps no copy of the kernel's layout;
+nor of the first kernel's (:func:`simple_takes`).
 The port's first kernel stays in the same source as a yardstick,
 reached only through :func:`filtered_assign_simple`.
 """
@@ -33,17 +34,30 @@ def filtered_assign_plain(x, c, block_mask, *, tile_n: int = 256,
                                c2=c2)
 
 
-def variant(d: int, k: int, tile_n: int, tile_k: int) -> tuple[int, int]:
-    """``(points a block owns, centroid chunks in flight)`` of the kernel
-    at (D, K, tile_n, tile_k): (256 or 64, 3 or 2), or ``(0, 0)`` for a
-    shape the launch refuses (a D too wide for the shared memory). The
-    .cu's ``filtered_assign_variant``, which the launch itself uses: a
-    function of the shape alone, decided before anything is launched."""
-    points, stages = ctypes.c_int(0), ctypes.c_int(0)
+def variant(d: int, k: int, tile_n: int,
+            tile_k: int) -> tuple[int, int, int]:
+    """``(points a block owns, centroid chunks in flight, columns of D
+    walked at a time)`` of the kernel at (D, K, tile_n, tile_k): (256 or
+    64, 3 or 2, 0 or 32). A slice of 0 is whole rows (``fa_kernel``); 32
+    is a D too wide for two ring stages of whole rows (``fa_wide_kernel``,
+    the same products and tie rule, so the same bits). ``(0, 0, 0)`` is a
+    shape the launch refuses (a mask row of more blocks than shared memory
+    holds; every D is taken). The .cu's ``filtered_assign_variant``, which
+    the launch itself uses: a function of the shape alone, decided before
+    anything is launched."""
+    out = [ctypes.c_int(0) for _ in range(3)]
     _build.entry(NAME, "filtered_assign_variant",
-                 [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2)(
-        d, k, tile_n, tile_k, ctypes.byref(points), ctypes.byref(stages))
-    return points.value, stages.value
+                 [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3)(
+        d, k, tile_n, tile_k, *(ctypes.byref(v) for v in out))
+    return tuple(v.value for v in out)
+
+
+def simple_takes(d: int, tile_n: int, tile_k: int) -> bool:
+    """Whether the first kernel (:func:`filtered_assign_simple`) takes
+    (D, tile_n, tile_k): its shared memory fits in one block's. The .cu's
+    ``filtered_assign_simple_takes``, which its launch checks itself."""
+    return bool(_build.entry(NAME, "filtered_assign_simple_takes",
+                             [ctypes.c_int] * 3)(d, tile_n, tile_k))
 
 
 def _check(x, c, block_mask, tile_n, tile_k, x2, c2):

@@ -38,7 +38,7 @@ NAME = "ssd_intra"
 BWD_NAME = "ssd_intra_bwd"
 MAX_N = 128
 MAX_P = 128
-MAX_Q_BWD = 128                  # the backward kernel's cells (a chunk)
+Q_CELL = 128        # the rows of a chunk one backward cell block takes
 
 
 def ssd_intra_plain(c, b, x, cum):
@@ -229,8 +229,11 @@ def ssd_intra_chunks_bwd(C, B, x, cum, dy):
     fp32 and shaped as the inputs. A CUDA tensor launches
     ``csrc/ssd_intra_bwd.cu`` (two blocks a cell, one for dC, dB and
     dcum, one for dx, then a fixed-order sum of each group's heads: no
-    atomics, two calls give the same bits; Q up to ``MAX_Q_BWD``, the
-    configs' chunk) or raises; a CPU tensor takes
+    atomics, two calls give the same bits). A chunk of more than
+    ``Q_CELL`` rows takes the .cu's wide route: the cell's causal Q x Q
+    in tiles of ``Q_CELL`` on and below the diagonal, their partials in
+    a workspace added in a fixed order, the same bits twice as well. It
+    raises for a shape neither takes; a CPU tensor takes
     :func:`ssd_intra_chunks_bwd_plain`."""
     if not x.is_cuda:
         return ssd_intra_chunks_bwd_plain(C, B, x, cum, dy)
@@ -245,43 +248,44 @@ def ssd_intra_chunks_bwd(C, B, x, cum, dy):
                          f"{tuple(B.shape)}, {tuple(x.shape)}, "
                          f"{tuple(dy.shape)}, {tuple(cum.shape)}")
     _check((C, B, x, cum, dy), ("C", "B", "x", "cum", "dy"), n, p, q)
-    _check_q_bwd(q)
     C, B, x, cum, dy = (t.contiguous() for t in (C, B, x, cum, dy))
     dC, dB, dx, dcum = (torch.empty_like(t) for t in (C, B, x, cum))
     if x.numel() == 0:
         return dC.zero_(), dB.zero_(), dx, dcum
     outer = bsz * nc
-    pc = torch.empty((outer, h, q, n), dtype=torch.float32, device=x.device)
-    pb = torch.empty_like(pc)
-    fn = _build.entry(BWD_NAME, "ssd_intra_bwd_launch", _BWD_ARGS)
+    ptrs = [t.data_ptr() for t in (C, B, x, cum, dy, dC, dB, dx, dcum)]
+    if q <= Q_CELL:
+        pc = torch.empty((outer, h, q, n), dtype=torch.float32,
+                         device=x.device)
+        pb = torch.empty_like(pc)
+        fn = _build.entry(BWD_NAME, "ssd_intra_bwd_launch", _BWD_ARGS)
+        work = [pc.data_ptr(), pb.data_ptr()]
+    else:
+        floats = _build.entry(BWD_NAME, "ssd_intra_bwd_wide_floats",
+                              [ctypes.c_int] * 5, ctypes.c_longlong)
+        ws = torch.empty((floats(outer, h, q, n, p),), dtype=torch.float32,
+                         device=x.device)
+        fn = _build.entry(BWD_NAME, "ssd_intra_bwd_wide_launch",
+                          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 +
+                          [ctypes.c_void_p])
+        work = [ws.data_ptr()]
     with _build.on_device(x.device):
-        rc = fn(C.data_ptr(), B.data_ptr(), x.data_ptr(), cum.data_ptr(),
-                dy.data_ptr(), dC.data_ptr(), dB.data_ptr(), dx.data_ptr(),
-                dcum.data_ptr(), pc.data_ptr(), pb.data_ptr(), outer, h, g,
-                q, n, p, _build.stream_ptr(x.device))
+        rc = fn(*ptrs, *work, outer, h, g, q, n, p,
+                _build.stream_ptr(x.device))
     _build.check(BWD_NAME, rc)
     _build.count_launch(ssd_intra_chunks_bwd)
     return dC, dB, dx, dcum
-
-
-def _check_q_bwd(q: int) -> None:
-    if q > MAX_Q_BWD:
-        raise ValueError(f"ssd_intra_chunks_bwd: chunks of Q={q} rows; the "
-                         f"kernel holds a cell's Q x Q in one block, "
-                         f"Q <= {MAX_Q_BWD}")
 
 
 class SSDIntraChunks(torch.autograd.Function):
     """The model's intra-chunk term with a gradient: forward the launch
     of :func:`ssd_intra_chunks`, backward :func:`ssd_intra_chunks_bwd`
     (the four inputs saved). ``plain=True`` takes the plain versions of
-    both instead (:func:`ssd_intra_chunks_plain_vjp`). A chunk the
-    backward kernel cannot take is refused before the forward runs."""
+    both instead (:func:`ssd_intra_chunks_plain_vjp`). The backward
+    kernel takes any chunk."""
 
     @staticmethod
     def forward(ctx, C, B, x, cum, plain):
-        if not plain:
-            _check_q_bwd(x.shape[2])
         ctx.plain = plain
         ctx.save_for_backward(C, B, x, cum)
         if plain:

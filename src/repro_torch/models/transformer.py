@@ -7,9 +7,13 @@ carry across one to one (``repro_torch.convert``); the layers run in a
 Python loop over that axis, each leaf unbound once a pass (the
 gradient of ``unbind`` is one ``stack``, where a ``select`` per layer
 would build a zero tensor of the whole stack per layer). Every config
-without MLA or MoE is supported: dense, vlm (with ``vision_embeds``),
-audio, ssm and hybrid. MLA, MoE and the int8 KV cache raise
-``NotImplementedError``, each naming its ROADMAP.md item.
+without MoE is supported: dense (MLA among them), vlm (with
+``vision_embeds``), audio, ssm and hybrid. ``kv_cache_dtype="int8"``
+quantizes the GQA cache of dense, vlm and audio configs, as the
+reference does; MLA and ssm configs ignore it, as the reference does;
+a hybrid config with it raises (the reference's hybrid int8 cache is
+faulty, ROADMAP.md Queue 3 item 11). MoE raises
+``NotImplementedError`` naming its ROADMAP.md item.
 
 ``cfg.remat == "full"`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
@@ -24,7 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .attention import gqa_decode, gqa_train
+from .attention import (gqa_decode, gqa_train, mla_decode, mla_train,
+                        quantize_kv)
 from .layers import cross_entropy_chunked, rms_norm, swiglu
 from .mamba import mamba_mixer_decode, mamba_mixer_train
 
@@ -38,12 +43,26 @@ def check_supported(cfg: ArchConfig) -> None:
     def not_ported(what, item):
         return NotImplementedError(f"{cfg.name}: {what} is not ported yet "
                                    f"(ROADMAP.md, Queue 1 item 11.{item})")
-    if cfg.mla is not None:
-        raise not_ported("MLA attention", 2)
+    m = cfg.mla
+    if m is not None and m.v_dim > m.nope_dim + m.rope_dim:
+        # V is zero-padded to the q.k width for the attention kernel
+        raise NotImplementedError(f"{cfg.name}: MLA with v_dim {m.v_dim} "
+                                  f"wider than nope + rope")
     if cfg.family == "moe" or cfg.n_experts:
         raise not_ported("the MoE FFN", 3)
-    if cfg.kv_cache_dtype != "native":
-        raise not_ported(f"kv_cache_dtype={cfg.kv_cache_dtype!r}", 4)
+    if cfg.family == "hybrid" and _int8_cache(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: kv_cache_dtype='int8' on a hybrid config is "
+            f"refused: the reference's hybrid path prefills unquantized k "
+            f"and v into its int8 cache and reads it back unscaled at "
+            f"decode (ROADMAP.md, Queue 3 item 11)")
+
+
+def _int8_cache(cfg: ArchConfig) -> bool:
+    """Whether ``cfg``'s GQA cache is int8 (MLA and ssm configs ignore
+    ``kv_cache_dtype``, as the reference does)."""
+    return cfg.kv_cache_dtype == "int8" and cfg.mla is None and \
+        cfg.family != "ssm"
 
 
 def _layer_shapes(cfg: ArchConfig) -> dict:
@@ -232,6 +251,8 @@ def _layer_train(x, lp, cfg: ArchConfig, positions):
         mamba_out = mamba_mixer_train(h, lp["mamba"], cfg)
         x = x + 0.5 * (rms_norm(attn_out, lp["mix_na"]) +
                        rms_norm(mamba_out, lp["mix_nm"]))
+    elif cfg.mla is not None:
+        x = x + mla_train(h, lp["attn"], cfg, positions)
     else:
         x = x + gqa_train(h, lp["attn"], cfg, positions)
     return _ffn(x, lp, cfg)
@@ -288,9 +309,17 @@ def _layer_prefill(x, lp, cfg: ArchConfig, positions):
         x = x + 0.5 * (rms_norm(attn_out, lp["mix_na"]) +
                        rms_norm(mamba_out, lp["mix_nm"]))
         cache.update(k=k, v=v, ssm=st, conv=cv)
+    elif cfg.mla is not None:
+        out, kvc, kpe = mla_train(h, lp["attn"], cfg, positions,
+                                  return_kv=True)
+        x = x + out
+        cache.update(kvc=kvc, kpe=kpe)
     else:
         out, k, v = gqa_train(h, lp["attn"], cfg, positions, return_kv=True)
         x = x + out
+        if _int8_cache(cfg):
+            (k, k_scale), (v, v_scale) = quantize_kv(k), quantize_kv(v)
+            cache.update(k_scale=k_scale, v_scale=v_scale)
         cache.update(k=k, v=v)
     return _ffn(x, lp, cfg), cache
 
@@ -317,20 +346,33 @@ def prefill_forward(params, tokens, cfg: ArchConfig, vision_embeds=None):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device=None) -> dict:
     """Per-layer decode cache, stacked on L, zeros on ``device``
-    (``None``: ``cuda``). Attention archs: k, v (L, B, max_len, KV, Dh)
-    in the compute dtype; ssm archs: the (H, N, P) fp32 state and the
-    conv ring (W-1 inputs)."""
+    (``None``: ``cuda``). GQA archs: k, v (L, B, max_len, KV, Dh) in the
+    compute dtype, or int8 with fp32 ``k_scale``/``v_scale`` (L, B,
+    max_len, KV) where ``kv_cache_dtype="int8"``; MLA archs: the latents
+    kvc (L, B, max_len, kv_lora_rank) and kpe (L, B, max_len, rope) in
+    the compute dtype; ssm archs: the (H, N, P) fp32 state and the conv
+    ring (W-1 inputs)."""
     check_supported(cfg)
     dev = resolve_device(device)
     L = cfg.n_layers
     dt = cfg.compute_dtype
     cache: dict = {}
-    if cfg.family != "ssm":
+    if cfg.mla is not None:
+        m = cfg.mla
+        cache["kvc"] = torch.zeros((L, batch, max_len, m.kv_lora_rank),
+                                   dtype=dt, device=dev)
+        cache["kpe"] = torch.zeros((L, batch, max_len, m.rope_dim), dtype=dt,
+                                   device=dev)
+    elif cfg.family != "ssm":
         kv, dh = cfg.n_kv_heads, cfg.head_dim
-        cache["k"] = torch.zeros((L, batch, max_len, kv, dh), dtype=dt,
-                                 device=dev)
-        cache["v"] = torch.zeros((L, batch, max_len, kv, dh), dtype=dt,
-                                 device=dev)
+        kdt = torch.int8 if _int8_cache(cfg) else dt
+        for nm in ("k", "v"):
+            cache[nm] = torch.zeros((L, batch, max_len, kv, dh), dtype=kdt,
+                                    device=dev)
+        if _int8_cache(cfg):
+            for nm in ("k_scale", "v_scale"):
+                cache[nm] = torch.zeros((L, batch, max_len, kv),
+                                        dtype=torch.float32, device=dev)
     if cfg.family in ("ssm", "hybrid"):
         m = cfg.ssm
         cache["ssm"] = torch.zeros((L, batch, m.n_heads, m.d_state,
@@ -350,8 +392,12 @@ def _layer_decode(x, lp, cl, cfg: ArchConfig, pos: int):
             h, lp["mamba"], cfg, cl["ssm"], cl["conv"])
     if cfg.family == "ssm":
         x = x + mamba_out
+    elif cfg.mla is not None:
+        x = x + mla_decode(h, lp["attn"], cfg, cl["kvc"], cl["kpe"], pos)[0]
     else:
-        attn_out, _, _ = gqa_decode(h, lp["attn"], cfg, cl["k"], cl["v"], pos)
+        scales = (cl["k_scale"], cl["v_scale"]) if _int8_cache(cfg) else None
+        attn_out = gqa_decode(h, lp["attn"], cfg, cl["k"], cl["v"], pos,
+                              cache_scales=scales)[0]
         if cfg.family == "hybrid":
             x = x + 0.5 * (rms_norm(attn_out, lp["mix_na"]) +
                            rms_norm(mamba_out, lp["mix_nm"]))
@@ -363,8 +409,9 @@ def _layer_decode(x, lp, cl, cfg: ArchConfig, pos: int):
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     """One serving step: tokens (B, 1) at position ``pos`` -> (logits
     (B, 1, V) fp32, cache). The cache is updated **in place** (this
-    token's k and v written at ``pos``, the ssm state and conv ring
-    replaced) and returned; the reference returns a new one."""
+    token's k and v, their scales or its latents written at ``pos``, the
+    ssm state and conv ring replaced) and returned; the reference
+    returns a new one."""
     check_supported(cfg)
     pos = int(pos)
     x = F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)

@@ -535,10 +535,13 @@ VARIANT_SHAPES = [(32, 256, 256, 128), (32, 1024, 256, 128),
                   (16, 128, 256, 128), (48, 300, 64, 16), (7, 17, 64, 16),
                   (128, 128, 64, 16), (128, 1024, 256, 128), (33, 77, 32, 8),
                   (33, 77, 1024, 32), (33, 77, 16, 128), (33, 77, 4, 8),
-                  (700, 64, 256, 128), (5, 1760, 128, 1)]
-# the stages where three do not fit beside the point tile, and the shapes
-# whose D no variant takes; every other shape takes three
-VARIANT_STAGES = {(128, 128, 64, 16): 2, (700, 64, 256, 128): 0}
+                  (700, 64, 256, 128), (5, 1760, 128, 1),
+                  (256, 1024, 256, 128), (256, 256, 64, 16),
+                  (700, 256, 64, 16)]
+# the stages where three do not fit beside the point tile; every other
+# shape takes three, the wide D in slices of 32 columns
+VARIANT_STAGES = {(128, 128, 64, 16): 2}
+WIDE_D = 172        # above it at 256 x 128 rows stage in slices
 
 
 @pytest.mark.cuda
@@ -546,23 +549,58 @@ VARIANT_STAGES = {(128, 128, 64, 16): 2, (700, 64, 256, 128): 0}
 def test_filtered_assign_variant_is_a_function_of_the_shape(d, k, tile_n,
                                                            tile_k):
     """The launch's variant comes from the shape alone: 256 points a
-    block for tiles of 256 or more, else 64, the small tiles too; (0, 0),
-    and a launch refused before it starts, only where D is too wide."""
+    block for tiles of 256 or more, else 64, the small tiles too; a D
+    too wide for whole rows walks D in slices of 32 (the variant's third
+    item), and no D is refused."""
     _need_card()
-    points, stages = fa.variant(d, k, tile_n, tile_k)
-    assert (points, stages) == fa.variant(d, k, tile_n, tile_k)
+    points, stages, d_slice = fa.variant(d, k, tile_n, tile_k)
+    assert (points, stages, d_slice) == fa.variant(d, k, tile_n, tile_k)
     want = VARIANT_STAGES.get((d, k, tile_n, tile_k), 3)
     assert stages == want
-    if want == 0:
-        assert points == 0
-        mask = torch.ones((1, -(-k // tile_k)), dtype=torch.bool,
-                          device="cuda")
-        with pytest.raises(RuntimeError, match="invalid argument"):
-            kernels.filtered_assign(torch.zeros((tile_n, d), device="cuda"),
-                                    torch.zeros((k, d), device="cuda"),
-                                    mask, tile_n=tile_n, tile_k=tile_k)
-        return
     assert points == (256 if tile_n >= 256 else 64)
+    assert d_slice == (32 if d > WIDE_D else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,tile_n,tile_k", [
+    (256, 256, 128), (256, 64, 16), (700, 256, 128), (700, 64, 16),
+    (257, 64, 16)])
+def test_filtered_assign_wide_d_matches_first_kernel(d, tile_n, tile_k):
+    """A D too wide for whole rows in shared memory: the sliced kernel
+    launches (no refusal), bit for bit the first kernel where that kernel
+    takes the shape, the norms it forms slice by slice those the
+    wrapper's chain gives, and the plain version's minima (rtol 1e-5)
+    and ids but at ties."""
+    _need_card()
+    n, k = 3000, 300
+    assert fa.variant(d, k, tile_n, tile_k)[2] == 32
+    x, c, mask = (torch.from_numpy(a).cuda() for a in
+                  fa_inputs(n, d, k, tile_n, tile_k, 0.6, seed=d + tile_n))
+    kw = dict(tile_n=tile_n, tile_k=tile_k)
+    before = kernels.filtered_assign.launches
+    best, idx = kernels.filtered_assign(x, c, mask, **kw)
+    gbest, gidx = kernels.filtered_assign(x, c, mask, x2=fa._norms(x), **kw)
+    torch.cuda.synchronize()
+    assert kernels.filtered_assign.launches == before + 2
+    assert torch.equal(best, gbest) and torch.equal(idx, gidx)
+    # of these shapes the first kernel takes D 256 and 257 at 64 x 16
+    assert fa.simple_takes(d, tile_n, tile_k) == (tile_n == 64 and d < 700)
+    if fa.simple_takes(d, tile_n, tile_k):
+        fbest, fidx = fa.filtered_assign_simple(x, c, mask, **kw)
+        assert torch.equal(best, fbest) and torch.equal(idx, fidx)
+    wbest, widx = fa.filtered_assign_plain(x, c, mask, **kw)
+    fin = torch.isfinite(wbest)
+    assert torch.equal(torch.isfinite(best), fin)
+    assert torch.equal(idx == -1, ~fin)
+    atol = _norm_atol(x, c)
+    np.testing.assert_allclose(best[fin].cpu().numpy(),
+                               wbest[fin].cpu().numpy(), rtol=1e-5,
+                               atol=atol)
+    bad = (idx != widx).nonzero()[:, 0]
+    if len(bad):                  # only at ties of the two ids
+        dd = ((x[bad, None, :].double() - c[torch.stack(
+            [idx[bad], widx[bad]], 1).long()].double()) ** 2).sum(-1)
+        assert bool(((dd[:, 0] - dd[:, 1]).abs() <= 2 * atol).all())
 
 
 @pytest.mark.cuda
@@ -1034,7 +1072,11 @@ GQA_BWD_CASES = GQA_CASES + [(1, 65, 2, 2, 100), (2, 64, 3, 3, 32),
 # the card's 264 slots (two blocks an SM)
 SSD_BWD_CASES = [(2, 3, 8, 4, 1, 8, 32), (1, 2, 16, 4, 2, 16, 16),
                  (2, 2, 128, 25, 1, 16, 128), (1, 2, 128, 4, 1, 128, 64),
-                 (1, 3, 100, 6, 3, 16, 128), (2, 10, 128, 25, 1, 16, 128)]
+                 (1, 3, 100, 6, 3, 16, 128), (2, 10, 128, 25, 1, 16, 128),
+                 # chunks over 128 rows: the wide route's tiles, ragged
+                 # ones and ones whose rows are not on 16 bytes
+                 (1, 2, 256, 25, 1, 16, 128), (1, 2, 200, 6, 1, 128, 64),
+                 (1, 1, 300, 4, 2, 8, 16), (1, 1, 257, 3, 3, 5, 7)]
 
 
 def _scaled_err(got, want):

@@ -260,15 +260,16 @@ def test_filtered_assign_wrapper_keeps_no_copy_of_the_kernel_layout():
                                    (33, 77, 4, 8)])
 def test_filtered_assign_variant_asks_the_library(monkeypatch, shape):
     """``variant`` hands the library the shape and nothing else, and
-    returns the pair the library writes."""
+    returns the three values the library writes."""
     seen = []
 
     def entry(name, symbol, argtypes, restype=None):
         def fn(*args):
             seen.append((name, symbol, args[:4]))
             args[4]._obj.value, args[5]._obj.value = 64, 2
+            args[6]._obj.value = 32
             return 1
         return fn
     monkeypatch.setattr(_build, "entry", entry)
-    assert fa.variant(*shape) == (64, 2)
+    assert fa.variant(*shape) == (64, 2, 32)
     assert seen == [("filtered_assign", "filtered_assign_variant", shape)]

@@ -30,7 +30,7 @@ from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
 from repro_torch.models.mamba import ssd_chunked
 from repro_torch.train import make_prefill_step, make_serve_step
 
-ARCHS = ["qwen2-7b", "mamba2-780m", "hymba-1.5b"]
+ARCHS = ["qwen2-7b", "mamba2-780m", "hymba-1.5b", "minicpm3-4b"]
 SUPPORTED = ARCHS + ["phi4-mini-3.8b", "mistral-nemo-12b",
                      "musicgen-medium", "llava-next-mistral-7b"]
 
@@ -186,10 +186,10 @@ def test_prefill_matches_decode_continuation(arch):
     logits_pf, cache = tm.prefill_forward(params, toks[:, :s], cfg)
     full = tm.init_cache(cfg, b, s + 1, device="cpu")
     for k, v in cache.items():        # the prefill covers [0, s)
-        if k in ("k", "v"):
-            full[k][:, :, :s] = v
-        else:
+        if k in ("ssm", "conv"):
             full[k] = v
+        else:                         # k, v or MLA's latents kvc, kpe
+            full[k][:, :, :s] = v
     lg_dec, _ = tm.decode_step(params, full, toks[:, s:s + 1], s, cfg)
     h = tm.forward(params, toks, cfg)
     logits_train = h @ params["lm_head"]
@@ -220,19 +220,23 @@ def test_init_params_follows_the_reference_layout():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("minicpm3-4b", "11.2"), ("qwen3-moe-235b-a22b", "11.3"),
-    ("llama4-scout-17b-a16e", "11.3"), ("int8-kv", "11.4")])
+    ("qwen3-moe-235b-a22b", "Queue 1 item 11.3"),
+    ("llama4-scout-17b-a16e", "Queue 1 item 11.3"),
+    ("hybrid-int8", "Queue 3 item 11")])
 def test_unsupported_configs_raise(arch, item):
-    if arch == "int8-kv":
-        cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
+    """MoE is not ported yet; a hybrid config with the int8 cache is
+    refused, as the reference's path for it is faulty (it prefills
+    unquantized k and v into int8 and reads them back unscaled)."""
+    if arch == "hybrid-int8":
+        cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(),
                                   kv_cache_dtype="int8")
     else:
         cfg = get_config(arch).reduced()
     gen = torch.Generator().manual_seed(0)
     # each names its ROADMAP item
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+    with pytest.raises(NotImplementedError, match=f"{item}\\)"):
         tm.init_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+    with pytest.raises(NotImplementedError, match=f"{item}\\)"):
         tm.init_cache(cfg, 1, 4, device="cpu")
     # the shape tree is data and stays available
     assert tm.param_shapes(cfg)["layers"]["ln1"] == (cfg.n_layers,

@@ -52,7 +52,8 @@ from repro_torch.train import (init_train_state, loss_and_grads,
 fla = importlib.import_module("repro_torch.kernels.flash_attention")
 ssd = importlib.import_module("repro_torch.kernels.ssd_intra")
 
-ARCHS = ["qwen2-7b", "mamba2-780m", "hymba-1.5b"]     # dense, ssm, hybrid
+# dense, ssm, hybrid, MLA
+ARCHS = ["qwen2-7b", "mamba2-780m", "hymba-1.5b", "minicpm3-4b"]
 CPU = dict(device="cpu")
 
 
@@ -330,19 +331,38 @@ def test_ssd_intra_bwd_plain_matches_autograd_and_jax(bsz, nc, q, h, g, n, p):
 
 
 def test_ssd_function_refuses_a_chunk_before_its_forward():
-    """The kernels' route refuses a chunk the backward kernel cannot
-    take before the forward launches anything; the plain route takes
-    any chunk."""
-    q = ssd.MAX_Q_BWD + 1
-    C, B = (torch.randn(1, 1, q, 1, 4, requires_grad=True) for _ in range(2))
-    x = torch.randn(1, 1, q, 2, 8, requires_grad=True)
-    cum = torch.cumsum(-torch.rand(1, 1, q, 2), dim=2).requires_grad_(True)
-    before = ssd.ssd_intra.launches
-    with pytest.raises(ValueError, match=f"Q={q} rows"):
-        ssd.SSDIntraChunks.apply(C, B, x, cum, False)
-    assert ssd.ssd_intra.launches == before
-    y = ssd.ssd_intra_chunks_plain_vjp(C, B, x, cum)
+    """No chunk is refused any more: the backward kernel has a route for
+    chunks over ``Q_CELL`` rows (a tiled one, held on the card by the
+    ``cuda`` tests). Here the plain route of the autograd Function at a
+    ragged Q = 200 against ``jax.vjp`` of the reference's oracle, within
+    1e-5 of each gradient's scale."""
+    assert not hasattr(ssd, "MAX_Q_BWD")
+    q, h, g, n, p = 200, 4, 2, 8, 16
+    assert q > ssd.Q_CELL
+    rng = np.random.default_rng(q)
+    C, B = (rng.standard_normal((1, 1, q, g, n)).astype(np.float32)
+            for _ in range(2))
+    x, dy = (rng.standard_normal((1, 1, q, h, p)).astype(np.float32)
+             for _ in range(2))
+    cum = np.cumsum(-np.logaddexp(rng.standard_normal((1, 1, q, h)), 0.0)
+                    * 0.1, axis=2).astype(np.float32)
+    tin = [torch.from_numpy(a).requires_grad_(True) for a in (C, B, x, cum)]
+    y = ssd.ssd_intra_chunks_plain_vjp(*tin)
     assert y.shape == x.shape
+    got = torch.autograd.grad(y, tin, torch.from_numpy(dy))
+    rep = h // g
+
+    def ref(C_, B_, x_, cum_):    # the reference's oracle, one cell a head
+        cells = lambda t: t.transpose(0, 1, 3, 2, 4).reshape(  # noqa: E731
+            -1, q, t.shape[-1])
+        Ch, Bh = (jnp.repeat(t, rep, axis=3) for t in (C_, B_))
+        out = ssd_intra_ref(cells(Ch), cells(Bh), cells(x_),
+                            cum_.transpose(0, 1, 3, 2).reshape(-1, q))
+        return out.reshape(1, 1, h, q, p).transpose(0, 1, 3, 2, 4)
+
+    _, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in (C, B, x, cum)))
+    for gr, w in zip(got, vjp(jnp.asarray(dy))):
+        assert _scaled(gr, w) <= 1e-5
 
 
 # -- the resilient training loop (tests/test_fault_tolerance.py's four) ------
