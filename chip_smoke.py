@@ -153,9 +153,11 @@ the order they run:
    S = 2048, 25/5 heads of 64, bf16), at a ragged S and in fp32, the
    model's SSD launch at hymba-1.5b's prefill and mamba2-780m's cell
    (Q = 128, N = 128, P = 64), MLA's attention launch at minicpm3-4b's
-   prefill (40 heads, KV = H, q.k 96, v zero-padded from 64; FFMA),
-   every row held to ``ROW_REL_TOL`` and timed beside SDPA on the
-   unpadded v, its bound counting v's and o's own width; qwen2-7b's
+   prefill (40 heads, KV = H, q.k 96, v zero-padded from 64; tensor
+   cores), every row held to ``ROW_REL_TOL``, the padded columns of
+   the output exactly 0, timed in turns with the FFMA route and beside
+   SDPA on the unpadded v, its bound counting v's and o's own width;
+   qwen2-7b's
    launch at its prefill (phase 23: B = 2, S = 2048, 28/4 heads of 128,
    bf16, tensor cores; rows held to ``ROW_REL_TOL``, timed); SSD also
    with decays that overflow above the
@@ -165,7 +167,7 @@ the order they run:
    kernel (``ssd_intra`` also by its device time under
    ``torch.profiler``, ``device_ms``), beside the bound and, for
    attention, ``scaled_dot_product_attention``; attention in bf16 at
-   head dims 64 and 128 takes the tensor-core kernel, fp32 the FFMA one
+   head dims 64, 96 and 128 takes the tensor-core kernel, fp32 the FFMA one
    (each case checks which launch counter moved), the prefill's shape
    in both dtypes; the tensor-core kernel timed in turns against the
    FFMA kernel on the same bf16 inputs (FFMA, tensor cores, tensor
@@ -233,14 +235,15 @@ the order they run:
    heads of 64) in bf16 and fp32, at a ragged S in bf16 and at S = 1000
    in fp32 at a head dim of 128, each given the L its forward wrote
    (within 1e-3 in bf16, 1e-4 in fp32, of the plain logsumexp); bf16
-   at head dims 64 and 128 takes the tensor-core backward, the rest the
-   FFMA one (each case checks which route's counter moved); SSD at
+   at head dims 64, 96 and 128 takes the tensor-core backward, the rest
+   the FFMA one (each case checks which route's counter moved); SSD at
    hymba-1.5b's training cells, at Q = 100 and at mamba2-780m's widths
    (N = 128, P = 64), and at chunks of Q = 256 and a ragged 200 at both
    cells' widths (the wide route: 128 x 128 tiles, partials added in a
    fixed order; each timed); MLA's backward at minicpm3-4b's training
-   shape (v padded from 64 to 96, SDPA's autograd on the unpadded v as
-   the library call, the bound counting v, o, dO and dv at 64): each
+   shape (v padded from 64 to 96, on the tensor cores, dv's padded
+   columns exactly 0, SDPA's autograd on the unpadded v as the library
+   call, the bound counting v, o, dO and dv at 64): each
    gradient within 1e-4 (fp32) of the plain
    version's largest |value|, in bf16 within 3e-2 or 1.5 times the
    distance of autograd through ``scaled_dot_product_attention`` from
@@ -284,13 +287,16 @@ the order they run:
 21. minicpm3-4b serving (MLA) at full width and depth (62 layers,
    d_model 2560, 40 heads, q.k 96, v 64, 4.26e9 bf16 parameters) as
    phase 10 serves hymba-1.5b: 62 attention launches a prefill, all on
-   FFMA; bf16 and fp32 checks against the plain route, the decode
+   the tensor cores (q.k 96) and none on FFMA; bf16 and fp32 checks
+   against the plain route, the decode
    continuation; the latent cache's bytes beside a GQA cache's of 40
    heads of 96;
 22. minicpm3-4b training at full width cut to 31 of its 62 layers (22
    bytes a parameter: full depth needs about 94 GB) as phase 18 trains
    hymba-1.5b, 3 steps (the first step's state waits on the host while
-   the step runs again from the same state: three do not fit);
+   the step runs again from the same state: three do not fit): 186
+   forward and 93 backward attention launches, all on the tensor cores
+   and none on FFMA;
 23. qwen2-7b serving at full width and depth (28 layers, 28/4 heads of
    128, 7.62e9 bf16 parameters) as phase 10 (its bf16 and fp32
    checks), on the tensor-core attention, then the same 32 decode steps
@@ -637,6 +643,13 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
         entry = dict(case=label, q=list(q.shape), kv=list(k.shape),
                      dtype=str(q.dtype), route=route, max_abs_err=err,
                      tol=tol)
+        if library_v is not None:
+            # v's zero padding gives output columns of exactly 0
+            pad = got[..., library_v.shape[-1]:]
+            entry["padded_max_abs"] = float(pad.float().abs().max())
+            check(bool((pad == 0).all()), f"flash_attention {label}: the "
+                  f"padded output columns are not 0 (max abs "
+                  f"{entry['padded_max_abs']:.3g})")
         if route == "tc" or library_v is not None:
             # and row by row, where 3e-2 of an element can hide a fault
             rows = fla.row_rel_err(got, want)
@@ -773,7 +786,7 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
               randn(1, 1000, 28, 128), randn(1, 1000, 4, 128),
               randn(1, 1000, 4, 128))
     # MLA's launch at minicpm3-4b's prefill: KV = H, q.k of nope + rope,
-    # v zero-padded from v_dim to that width (the FFMA route)
+    # v zero-padded from v_dim to that width (the tensor cores at 96)
     mla = get_config(MLA_SERVE["arch"])
     hm, dm = mla.n_heads, mla.mla.nope_dim + mla.mla.rope_dim
     vm = randn(b, s, hm, mla.mla.v_dim, dtype=bf)
@@ -1174,6 +1187,11 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
             tol = max(3e-2, 1.5 * floor)
             del lib, leaves
         check(same, f"flash_attention_bwd {label}: two calls differ")
+        if vd < d:
+            # dO's zero padding gives dv columns of exactly 0
+            check(bool((got[2][..., vd:] == 0).all()),
+                  f"flash_attention_bwd {label}: dv's padded columns are "
+                  f"not 0")
         check(all(bool(torch.isfinite(g).all()) and g.shape == w.shape
                   and g.dtype == dtype for g, w in zip(got, want)),
               f"flash_attention_bwd {label}: non-finite or misshapen grads")
@@ -1317,7 +1335,7 @@ def lm_backward_phase(dev, gen, bw, fp32, bf16, cfg, batch, seq):
     attn_case(f"ragged S={s + 1} bf16", 1, s + 1, h, kvh, d, bf)
     attn_case("ragged S=1000 fp32, 28/4 heads of 128", 1, 1000, 28, 4, 128,
               torch.float32)
-    # MLA's backward at minicpm3-4b's training shape (the FFMA route)
+    # MLA's backward at minicpm3-4b's training shape (the tensor cores)
     mla = get_config(MLA_SERVE["arch"])
     mm = mla.mla
     mla_entry = attn_case(
@@ -4438,11 +4456,12 @@ def main() -> None:
     t0 = time.perf_counter()
     mla_cfg = get_config(MLA_SERVE["arch"])
     nl = mla_cfg.n_layers
-    # q.k of 96: every attention launch on the FFMA kernel
+    # bf16 at q.k 96: every attention launch on the tensor cores, none
+    # on FFMA (a counter not named must not move)
     mla_rep, cache = serve_phase(
         dev, torch.Generator(device=dev).manual_seed(3), wrappers, mla_cfg,
         MLA_SERVE["batch"], MLA_SERVE["prompt"], MLA_SERVE["steps"],
-        expect={"flash_attention": nl, "flash_attention.ffma": nl})
+        expect={"flash_attention": nl, "flash_attention.tc": nl})
     mm = mla_cfg.mla
     # the latent cache beside a GQA cache of H heads of q.k's width
     gqa_bytes = 2 * nl * MLA_SERVE["batch"] * mla_rep["cache_positions"] \
@@ -4469,8 +4488,10 @@ def main() -> None:
         dev, torch.Generator(device=dev).manual_seed(4), wrappers,
         mla_train_cfg, MLA_TRAIN["batch"], MLA_TRAIN["seq"],
         MLA_TRAIN["steps"],
-        want={"flash_attention": 2 * nl, "flash_attention.ffma": 2 * nl,
-              "flash_attention_bwd": nl, "flash_attention_bwd.ffma": nl},
+        # bf16 at q.k 96: the tensor-core kernels alone, forward and
+        # backward
+        want={"flash_attention": 2 * nl, "flash_attention.tc": 2 * nl,
+              "flash_attention_bwd": nl, "flash_attention_bwd.tc": nl},
         # three states of 31 layers (2.32e9 parameters) do not fit
         first_on_host=True)
     torch.cuda.empty_cache()

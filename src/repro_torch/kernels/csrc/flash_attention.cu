@@ -16,30 +16,34 @@
 // Two kernels; the wrapper picks one by dtype and head dim alone
 // (kernels/flash_attention.py, route_for):
 //
-// tc::fa_tc_kernel, bf16 with D = 64 or 128: the tensor cores. One CTA
-//   per (b*h, 128 query rows), two warpgroups of 64 rows each. Q, K and
-//   V stay bf16 in shared memory in the 128-byte swizzled layout that
-//   wgmma descriptors read (64-column panels of 128-byte rows, 16-byte
-//   chunk c of row r at c ^ (r % 8)). One thread asks the tensor memory
-//   accelerator (TMA) for each tile through tensor maps built on the
-//   host over the tensors' own strides (cuTensorMapEncodeTiled, reached
-//   through the runtime); rows past S arrive as zeros, and each copy
-//   reports to an mbarrier, so the copies take no instruction slots
-//   from the softmax (copies made by every thread did not overlap it).
-//   64-key tiles of K and V fill a three-stage ring: tiles j + 1 and
-//   j + 2 are in flight while tile j is computed, and one block barrier
-//   a tile frees the stage tile j + 2 takes. S = Q K^T is wgmma
-//   m64n64k16 with both operands in shared memory (K-major) and fp32
+// tc::fa_tc_kernel, bf16 with D = 64, 96 or 128: the tensor cores. One
+//   CTA per (b*h, 128 query rows), two warpgroups of 64 rows each. Q, K
+//   and V stay bf16 in shared memory in the swizzled layout that wgmma
+//   descriptors read (tc_common.cuh, Panels): at D 64 and 128 64-column
+//   panels of 128-byte rows, 16-byte chunk c of row r at c ^ (r % 8); at
+//   D 96 (MLA's q.k) three 32-column panels of 64-byte rows, chunk c of
+//   row r at c ^ (r / 2 % 4), so no column is padding. One thread asks
+//   the tensor memory accelerator (TMA) for each tile through tensor
+//   maps built on the host over the tensors' own strides
+//   (cuTensorMapEncodeTiled, reached through the runtime), a box a
+//   panel; rows past S arrive as zeros, and each copy reports to an
+//   mbarrier, so the copies take no instruction slots from the softmax
+//   (copies made by every thread did not overlap it). 64-key tiles of K
+//   and V fill a three-stage ring: tiles j + 1 and j + 2 are in flight
+//   while tile j is computed, and one block barrier a tile frees the
+//   stage tile j + 2 takes. S = Q K^T is wgmma m64n64k16, D / 16
+//   k-steps, with both operands in shared memory (K-major) and fp32
 //   accumulators in registers. The online softmax works on the
 //   accumulator fragments (a thread holds two rows, a row lives in a
 //   quad, so row max and sum take two shuffles), in the log2 domain
 //   with ex2. P is rounded to bf16 in registers, where the accumulator
 //   layout of S is already the A-operand layout of the next wgmma (as
 //   in FlashAttention-3), and O += P V is wgmma with A from registers
-//   and V read MN-major (transposed B) from shared memory, one m64n64
-//   product per 64-column panel of D. Rounding P to bf16 is the one
-//   rounding the reference does not take (it widens p and v to fp32);
-//   SDPA takes the same one.
+//   and V read MN-major (transposed B) from shared memory: one m64n64
+//   product per 64-column panel of D, or at D 96 one m64n96 product
+//   across the three 32-column panels (48 accumulators a thread).
+//   Rounding P to bf16 is the one rounding the reference does not take
+//   (it widens p and v to fp32); SDPA takes the same one.
 //
 // simt::fa_kernel, fp32 (the strict parity route: the tensor cores have
 //   no IEEE fp32 mode) and bf16 at other head dims: one CTA of 256
@@ -72,8 +76,9 @@
 // 0.027 ms on the bf16 tensor cores and 0.40 ms in fp32 FFMA, against
 // 31.5 MB of q, k, v and out (0.009 ms): the work is bound by
 // operations. The tc kernel leaves the tensor cores idle while a
-// warpgroup does its softmax; two CTAs an SM at D = 64 let one CTA's
-// products overlap the other's softmax.
+// warpgroup does its softmax; two CTAs an SM at D = 64 and 96 (98 KB of
+// shared memory each at 96) let one CTA's products overlap the other's
+// softmax; D = 128 takes one.
 #include <math.h>
 
 #include "tc_common.cuh"
@@ -308,16 +313,16 @@ constexpr int smem_bytes() {
 // register 4j + i of a 64-column block is column 8j + 2(t % 4) + i % 2
 // of row r_a (i < 2) or r_a + 8 (i >= 2).
 template <int kD>
-__global__ void __launch_bounds__(kThreads, kD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, kD <= 96 ? 2 : 1)
 fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
              const __grid_constant__ Map mv, bf16* __restrict__ out,
              float* __restrict__ lse, int s, int h, int rep, Strides os,
              float scale_log2) {
-  constexpr int kPanels = kD / 64;
+  using P = Panels<kD>;
   constexpr uint32_t kTile = kKeys * kD * 2;     // bytes of one K or V tile
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_sm = base;                    // kPanels x [kRows][128 B]
+  const uint32_t q_sm = base;                    // panels of [kRows][kRow]
   const uint32_t k_sm = q_sm + kRows * kD * 2;   // kStages x kTile
   const uint32_t v_sm = k_sm + kStages * kTile;  // kStages x kTile
   const uint32_t bars = v_sm + kStages * kTile;  // kStages tiles, then Q
@@ -331,17 +336,19 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   const int last = min(q0 + kRows, s) - 1;       // the CTA's last key
   const int tiles = last / kKeys + 1;
 
-  // one thread asks for each copy; rows past s arrive as zeros
+  // one thread asks for each copy, a box a panel; rows past s arrive as
+  // zeros, and the boxes cover the tile exactly, so the bytes expected
+  // are the tile's
   auto load_kv = [&](int j) {
     const uint32_t stage = (j % kStages) * kTile;
     const uint32_t bar = bars + 8 * (j % kStages);
     mbar_expect(bar, 2 * kTile);
 #pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn) {
-      tma_load(k_sm + stage + pn * kKeys * 128, mk, bar, 64 * pn, j * kKeys,
-               kvh, bi);
-      tma_load(v_sm + stage + pn * kKeys * 128, mv, bar, 64 * pn, j * kKeys,
-               kvh, bi);
+    for (int pn = 0; pn < P::kCount; ++pn) {
+      tma_load(k_sm + stage + pn * kKeys * P::kRow, mk, bar, P::kCols * pn,
+               j * kKeys, kvh, bi);
+      tma_load(v_sm + stage + pn * kKeys * P::kRow, mv, bar, P::kCols * pn,
+               j * kKeys, kvh, bi);
     }
   };
   const uint32_t q_bar = bars + 8 * kStages;
@@ -353,8 +360,9 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   if (tid == 0) {
     mbar_expect(q_bar, kRows * kD * 2);
 #pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn)
-      tma_load(q_sm + pn * kRows * 128, mq, q_bar, 64 * pn, q0, hi, bi);
+    for (int pn = 0; pn < P::kCount; ++pn)
+      tma_load(q_sm + pn * kRows * P::kRow, mq, q_bar, P::kCols * pn, q0, hi,
+               bi);
     for (int j = 0; j < kStages - 1 && j < tiles; ++j) load_kv(j);
   }
 
@@ -362,13 +370,12 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   const int wg_last = r0 < s ? min(r0 + 63, s - 1) : -1;
   const int row_a = r0 + 16 * warp + lane / 4, row_b = row_a + 8;
   const int col_t = 2 * (lane % 4);
-  const uint32_t q_wg = q_sm + 64 * wg * 128;
+  const uint32_t q_wg = q_sm + 64 * wg * P::kRow;
 
-  float o[kPanels][32];
+  // the output's accumulators: register 4j + i is column 8j + col_t + i % 2
+  float o[kD / 2];
 #pragma unroll
-  for (int pn = 0; pn < kPanels; ++pn)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[pn][i] = 0.0f;
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.0f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
   mbar_wait(q_bar, 0);
 
@@ -388,13 +395,9 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
       for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;   // 16 columns a step
-        const uint64_t da =
-            sdesc(q_wg + (kk / 4) * kRows * 128 + off, 16, 1024);
-        const uint64_t db = sdesc(kt + (kk / 4) * kKeys * 128 + off, 16, 1024);
-        wgmma_ss(sc, da, db, kk > 0);
-      }
+      for (int kk = 0; kk < kD / 16; ++kk)      // 16 columns a step
+        wgmma_ss(sc, kdesc<kD>(q_wg, kRows, kk), kdesc<kD>(kt, kKeys, kk),
+                 kk > 0);
       wg_commit();
       wg_wait_all();
       pin(sc);
@@ -444,14 +447,7 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
       l_a = l_a * al_a + rs_a;
       l_b = l_b * al_b + rs_b;
 #pragma unroll
-      for (int pn = 0; pn < kPanels; ++pn)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          o[pn][4 * jj] *= al_a;
-          o[pn][4 * jj + 1] *= al_a;
-          o[pn][4 * jj + 2] *= al_b;
-          o[pn][4 * jj + 3] *= al_b;
-        }
+      for (int i = 0; i < kD / 2; ++i) o[i] *= i % 4 < 2 ? al_a : al_b;
 
       // P in bf16: the accumulator fragment of keys 16kk .. 16kk + 15 is
       // the A fragment of k-step kk
@@ -459,17 +455,11 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
       to_a_frags(sc, pa);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int pn = 0; pn < kPanels; ++pn)
-          // 16 keys (rows of V) a step, 128 bytes a row; 8-row groups
-          // 1024 bytes apart in both directions
-          wgmma_rs(o[pn], pa[kk],
-                   sdesc(vt + pn * kKeys * 128 + kk * 16 * 128, 1024, 1024));
+      for (int kk = 0; kk < 4; ++kk)     // 16 keys (rows of V) a step
+        wgmma_rs_rows<kD>(o, pa[kk], vt, kKeys, kk);
       wg_commit();
       wg_wait_all();
-#pragma unroll
-      for (int pn = 0; pn < kPanels; ++pn) pin(o[pn]);
+      pin(o);
     }
   }
 
@@ -494,21 +484,16 @@ fa_tc_kernel(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
                   0.6931471805599453f;
   }
 #pragma unroll
-  for (int pn = 0; pn < kPanels; ++pn)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = 64 * pn + 8 * jj + col_t;
-      if (row_a < s)
-        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row_a * os.s +
-                                           col) =
-            __floats2bfloat162_rn(o[pn][4 * jj] * inv_a,
-                                  o[pn][4 * jj + 1] * inv_a);
-      if (row_b < s)
-        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row_b * os.s +
-                                           col) =
-            __floats2bfloat162_rn(o[pn][4 * jj + 2] * inv_b,
-                                  o[pn][4 * jj + 3] * inv_b);
-    }
+  for (int jj = 0; jj < kD / 8; ++jj) {
+    const int col = 8 * jj + col_t;
+    if (row_a < s)
+      *reinterpret_cast<__nv_bfloat162*>(op + (long long)row_a * os.s + col) =
+          __floats2bfloat162_rn(o[4 * jj] * inv_a, o[4 * jj + 1] * inv_a);
+    if (row_b < s)
+      *reinterpret_cast<__nv_bfloat162*>(op + (long long)row_b * os.s + col) =
+          __floats2bfloat162_rn(o[4 * jj + 2] * inv_b,
+                                o[4 * jj + 3] * inv_b);
+  }
 }
 
 template <int kD>
@@ -516,15 +501,16 @@ int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int b, int s, int h, int kv, Strides qs, Strides ks,
            Strides vs, Strides os, cudaStream_t stream) {
   Map mq, mk, mv;
-  if (!make_map(&mq, q, b, s, h, kD, qs, kRows) ||
-      !make_map(&mk, k, b, s, kv, kD, ks, kKeys) ||
-      !make_map(&mv, v, b, s, kv, kD, vs, kKeys))
+  if (!make_map<kD>(&mq, q, b, s, h, qs, kRows) ||
+      !make_map<kD>(&mk, k, b, s, kv, ks, kKeys) ||
+      !make_map<kD>(&mv, v, b, s, kv, vs, kKeys))
     return (int)cudaErrorInvalidValue;
   constexpr int bytes = smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(b * h, (s + kRows - 1) / kRows);
+  // the scale of the head dim itself, 1 / sqrt(kD), not of a panel's
   fa_tc_kernel<kD><<<grid, kThreads, bytes, stream>>>(
       mq, mk, mv, static_cast<bf16*>(out), lse, s, h, h / kv, os,
       1.4426950408889634f / sqrtf((float)(kD)));
@@ -565,9 +551,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel: as flash_attention_launch, bf16 only, d = 64
-// or 128, every base and stride a multiple of 16 bytes (the wrapper
-// checks). Returns cudaGetLastError() after the launch.
+// The tensor-core kernel: as flash_attention_launch, bf16 only, d = 64,
+// 96 or 128 (any other d returns cudaErrorInvalidValue), every base and
+// stride a multiple of 16 bytes (the wrapper checks). Returns
+// cudaGetLastError() after the launch.
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               void* out, void* lse, int b, int s, int h,
                               int kv, int d,
@@ -584,6 +571,8 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
   float* lf = static_cast<float*>(lse);
   if (d == 64)
     return tc::launch<64>(q, k, v, out, lf, b, s, h, kv, qs, ks, vs, os, st);
+  if (d == 96)
+    return tc::launch<96>(q, k, v, out, lf, b, s, h, kv, qs, ks, vs, os, st);
   if (d == 128)
     return tc::launch<128>(q, k, v, out, lf, b, s, h, kv, qs, ks, vs, os,
                            st);

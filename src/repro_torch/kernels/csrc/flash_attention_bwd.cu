@@ -29,10 +29,13 @@
 // Two routes after it; the wrapper picks one by dtype and head dim
 // alone (kernels/flash_attention.py, route_for), as the forward does:
 //
-// tc (bf16 at d = 64 or 128): the tensor cores, the forward tc
+// tc (bf16 at d = 64, 96 or 128): the tensor cores, the forward tc
 //   kernel's building blocks (csrc/tc_common.cuh): 64-row tiles copied
-//   by TMA into 128-byte swizzled shared memory, mbarriers, wgmma
-//   m64n64k16 with fp32 accumulators in registers. A CTA is one
+//   by TMA into swizzled shared memory (64-column panels with the
+//   128-byte swizzle at d 64 and 128, three 32-column panels with the
+//   64-byte swizzle at d 96: Panels), mbarriers, wgmma m64n64k16 (and
+//   m64n96k16 for the products whose width is d 96) with fp32
+//   accumulators in registers. A CTA is one
 //   warpgroup of 128 threads that owns 64 rows; the other side's 64-row
 //   tiles stream through a three-stage TMA ring.
 //   - fa_bwd_dkdv_tc, a CTA a (key tile, query head, batch): K and V of
@@ -63,7 +66,7 @@
 //   FlashAttention do.
 //
 // ffma (fp32, the strict parity route since the tensor cores have no
-//   IEEE fp32 mode, and bf16 at other head dims):
+//   IEEE fp32 mode, and bf16 at head dims other than 64, 96 and 128):
 //   - fa_bwd_dkdv, a block a (key tile, kv head, batch): owns its 64
 //     rows of dK and dV in registers and loops over the query heads of
 //     the group in order, and for each over the query tiles on or below
@@ -83,8 +86,9 @@
 // (0.019 ms): bound by operations. The tc route's seven products are
 // 9.4e10 flops (0.095 ms); its partials add 52 MB written and read
 // again. A warpgroup waits for each product before the elementwise
-// work that needs it; two or three CTAs an SM let one CTA's products
-// overlap another's exponentials.
+// work that needs it; two CTAs an SM at d 64 and 96 (about 99 KB of
+// shared memory each at 96) let one CTA's products overlap another's
+// exponentials; d 128 takes one.
 #include <math.h>
 
 #include "tc_common.cuh"
@@ -438,7 +442,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int kD>
 __host__ __device__ constexpr uint32_t tile_bytes() {
-  return kBT * kD * 2;           // one 64-row bf16 tile, kD / 64 panels
+  return kBT * kD * 2;           // one 64-row bf16 tile, in Panels<kD>
 }
 
 // K and V of the CTA's keys; a ring of Q and dO tiles; a ring of L and
@@ -456,32 +460,24 @@ constexpr int dq_smem() {
          8 * (kBStages + 1) + 1024;
 }
 
-// descriptors of k-step kk (16 columns of D) of a K-major 64-row tile,
-// and of k-step kk (16 rows) of panel pn of an MN-major one
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return sdesc(tile + (kk / 4) * kBT * 128 + (kk % 4) * 32, 16, 1024);
-}
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int pn, int kk) {
-  return sdesc(tile + pn * kBT * 128 + kk * 16 * 128, 1024, 1024);
-}
-
-__device__ __forceinline__ void zero(float (&r)[32]) {
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) r[i] = 0.f;
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
 // Thread t of the warpgroup holds, in the fragment layout of a wgmma
 // accumulator, rows r_a = 16(t / 32) + (t % 32) / 4 and r_a + 8 of the
-// CTA's 64; register 4j + i of a 64-column block is column
-// 8j + 2(t % 4) + i % 2 of row r_a (i < 2) or r_a + 8 (i >= 2).
+// CTA's 64; register 4j + i is column 8j + 2(t % 4) + i % 2 of row r_a
+// (i < 2) or r_a + 8 (i >= 2), across all kD columns.
 template <int kD>
-__global__ void __launch_bounds__(kBThreads, kD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kBThreads, kD <= 96 ? 2 : 1)
 fa_bwd_dkdv_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
                const __grid_constant__ Map mv, const __grid_constant__ Map mg,
                const float* __restrict__ lpad, const float* __restrict__ dpad,
                float* __restrict__ dkp, float* __restrict__ dvp, int s,
                int s_pad, int h, int rep, float scale_log2, float scale) {
-  constexpr int kPanels = kD / 64;
+  using P = Panels<kD>;
   constexpr uint32_t kTile = tile_bytes<kD>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -501,18 +497,19 @@ fa_bwd_dkdv_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   const float* lrow = lpad + (long long)bh * s_pad;
   const float* drow = dpad + (long long)bh * s_pad;
 
-  // one thread asks for each copy; rows past s arrive as zeros
+  // one thread asks for each copy, a box a panel; rows past s arrive as
+  // zeros
   auto load_q = [&](int t) {
     const int st = t % kBStages;
     const uint32_t bar = bars + 8 * st;
     const int r0 = (kt + t) * kBT;
     mbar_expect(bar, 2 * kTile + 512);
 #pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn) {
-      tma_load(q_sm + st * kTile + pn * kBT * 128, mq, bar, 64 * pn, r0, hi,
-               bi);
-      tma_load(g_sm + st * kTile + pn * kBT * 128, mg, bar, 64 * pn, r0, hi,
-               bi);
+    for (int pn = 0; pn < P::kCount; ++pn) {
+      tma_load(q_sm + st * kTile + pn * kBT * P::kRow, mq, bar,
+               P::kCols * pn, r0, hi, bi);
+      tma_load(g_sm + st * kTile + pn * kBT * P::kRow, mg, bar,
+               P::kCols * pn, r0, hi, bi);
     }
     bulk_load(ld_sm + st * 512, lrow + r0, 256, bar);
     bulk_load(ld_sm + st * 512 + 256, drow + r0, 256, bar);
@@ -526,21 +523,20 @@ fa_bwd_dkdv_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   if (tid == 0) {
     mbar_expect(kv_bar, 2 * kTile);
 #pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn) {
-      tma_load(k_sm + pn * kBT * 128, mk, kv_bar, 64 * pn, k0, kvh, bi);
-      tma_load(v_sm + pn * kBT * 128, mv, kv_bar, 64 * pn, k0, kvh, bi);
+    for (int pn = 0; pn < P::kCount; ++pn) {
+      tma_load(k_sm + pn * kBT * P::kRow, mk, kv_bar, P::kCols * pn, k0, kvh,
+               bi);
+      tma_load(v_sm + pn * kBT * P::kRow, mv, kv_bar, P::kCols * pn, k0, kvh,
+               bi);
     }
     for (int t = 0; t < kBStages - 1 && t < tiles; ++t) load_q(t);
   }
 
   const int ra = 16 * warp + lane / 4, rb = ra + 8;  // key rows in the tile
   const int col_t = 2 * (lane % 4);
-  float dk[kPanels][32], dv[kPanels][32];
-#pragma unroll
-  for (int pn = 0; pn < kPanels; ++pn) {
-    zero(dk[pn]);
-    zero(dv[pn]);
-  }
+  float dk[kD / 2], dv[kD / 2];
+  zero(dk);
+  zero(dv);
   mbar_wait(kv_bar, 0);
 
   for (int t = 0; t < tiles; ++t) {
@@ -560,7 +556,7 @@ fa_bwd_dkdv_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(sc, kmajor(k_sm, kk), kmajor(qt, kk), kk > 0);
+      wgmma_ss(sc, kdesc<kD>(k_sm, kBT, kk), kdesc<kD>(qt, kBT, kk), kk > 0);
     wg_commit();
     wg_wait_all();
     pin(sc);
@@ -591,18 +587,14 @@ fa_bwd_dkdv_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
     zero(dp);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int pn = 0; pn < kPanels; ++pn)
-        wgmma_rs(dv[pn], pf[kk], mnmajor(gt, pn, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_rows<kD>(dv, pf[kk], gt, kBT, kk);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(dp, kmajor(v_sm, kk), kmajor(gt, kk), kk > 0);
+      wgmma_ss(dp, kdesc<kD>(v_sm, kBT, kk), kdesc<kD>(gt, kBT, kk), kk > 0);
     wg_commit();
     wg_wait_all();
     pin(dp);
-#pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn) pin(dv[pn]);
+    pin(dv);
 
     // dS^T = P^T o (dP^T - D), then dK += dS^T Q
 #pragma unroll
@@ -617,14 +609,10 @@ fa_bwd_dkdv_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
     to_a_frags(dp, sf);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int pn = 0; pn < kPanels; ++pn)
-        wgmma_rs(dk[pn], sf[kk], mnmajor(qt, pn, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_rows<kD>(dk, sf[kk], qt, kBT, kk);
     wg_commit();
     wg_wait_all();
-#pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn) pin(dk[pn]);
+    pin(dk);
   }
 
   // this head's partials, (b, h, s, d) fp32
@@ -632,25 +620,23 @@ fa_bwd_dkdv_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   float* vp = dvp + (long long)bh * s * kD;
   const int row_a = k0 + ra, row_b = k0 + rb;
 #pragma unroll
-  for (int pn = 0; pn < kPanels; ++pn)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = 64 * pn + 8 * jj + col_t;
-      if (row_a < s) {
-        const long long at = (long long)row_a * kD + col;
-        *reinterpret_cast<float2*>(kp + at) = make_float2(
-            dk[pn][4 * jj] * scale, dk[pn][4 * jj + 1] * scale);
-        *reinterpret_cast<float2*>(vp + at) =
-            make_float2(dv[pn][4 * jj], dv[pn][4 * jj + 1]);
-      }
-      if (row_b < s) {
-        const long long at = (long long)row_b * kD + col;
-        *reinterpret_cast<float2*>(kp + at) = make_float2(
-            dk[pn][4 * jj + 2] * scale, dk[pn][4 * jj + 3] * scale);
-        *reinterpret_cast<float2*>(vp + at) =
-            make_float2(dv[pn][4 * jj + 2], dv[pn][4 * jj + 3]);
-      }
+  for (int jj = 0; jj < kD / 8; ++jj) {
+    const int col = 8 * jj + col_t;
+    if (row_a < s) {
+      const long long at = (long long)row_a * kD + col;
+      *reinterpret_cast<float2*>(kp + at) =
+          make_float2(dk[4 * jj] * scale, dk[4 * jj + 1] * scale);
+      *reinterpret_cast<float2*>(vp + at) =
+          make_float2(dv[4 * jj], dv[4 * jj + 1]);
     }
+    if (row_b < s) {
+      const long long at = (long long)row_b * kD + col;
+      *reinterpret_cast<float2*>(kp + at) =
+          make_float2(dk[4 * jj + 2] * scale, dk[4 * jj + 3] * scale);
+      *reinterpret_cast<float2*>(vp + at) =
+          make_float2(dv[4 * jj + 2], dv[4 * jj + 3]);
+    }
+  }
 }
 
 // dK, dV (b, s, kv, d) bf16, four elements a thread: each the sum over
@@ -686,13 +672,13 @@ __global__ void fa_bwd_sum(const float* __restrict__ dkp,
 }
 
 template <int kD>
-__global__ void __launch_bounds__(kBThreads, kD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kBThreads, kD <= 96 ? 2 : 1)
 fa_bwd_dq_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
              const __grid_constant__ Map mv, const __grid_constant__ Map mg,
              const float* __restrict__ lpad, const float* __restrict__ dpad,
              bf16* __restrict__ dq, int s, int s_pad, int h, int rep,
              float scale_log2, float scale) {
-  constexpr int kPanels = kD / 64;
+  using P = Panels<kD>;
   constexpr uint32_t kTile = tile_bytes<kD>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -713,11 +699,11 @@ fa_bwd_dq_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
     const uint32_t bar = bars + 8 * st;
     mbar_expect(bar, 2 * kTile);
 #pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn) {
-      tma_load(k_sm + st * kTile + pn * kBT * 128, mk, bar, 64 * pn, j * kBT,
-               kvh, bi);
-      tma_load(v_sm + st * kTile + pn * kBT * 128, mv, bar, 64 * pn, j * kBT,
-               kvh, bi);
+    for (int pn = 0; pn < P::kCount; ++pn) {
+      tma_load(k_sm + st * kTile + pn * kBT * P::kRow, mk, bar,
+               P::kCols * pn, j * kBT, kvh, bi);
+      tma_load(v_sm + st * kTile + pn * kBT * P::kRow, mv, bar,
+               P::kCols * pn, j * kBT, kvh, bi);
     }
   };
   const uint32_t q_bar = bars + 8 * kBStages;
@@ -729,9 +715,11 @@ fa_bwd_dq_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   if (tid == 0) {
     mbar_expect(q_bar, 2 * kTile);
 #pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn) {
-      tma_load(q_sm + pn * kBT * 128, mq, q_bar, 64 * pn, q0, hi, bi);
-      tma_load(g_sm + pn * kBT * 128, mg, q_bar, 64 * pn, q0, hi, bi);
+    for (int pn = 0; pn < P::kCount; ++pn) {
+      tma_load(q_sm + pn * kBT * P::kRow, mq, q_bar, P::kCols * pn, q0, hi,
+               bi);
+      tma_load(g_sm + pn * kBT * P::kRow, mg, q_bar, P::kCols * pn, q0, hi,
+               bi);
     }
     for (int j = 0; j < kBStages - 1 && j < tiles; ++j) load_kv(j);
   }
@@ -743,9 +731,8 @@ fa_bwd_dq_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
   const float* drow = dpad + (long long)bh * s_pad;
   const float l2a = lrow[row_a] * kLog2e, l2b = lrow[row_b] * kLog2e;
   const float da = drow[row_a], db = drow[row_b];
-  float acc[kPanels][32];
-#pragma unroll
-  for (int pn = 0; pn < kPanels; ++pn) zero(acc[pn]);
+  float acc[kD / 2];
+  zero(acc);
   mbar_wait(q_bar, 0);
 
   for (int j = 0; j < tiles; ++j) {
@@ -762,10 +749,10 @@ fa_bwd_dq_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(sc, kmajor(q_sm, kk), kmajor(kt, kk), kk > 0);
+      wgmma_ss(sc, kdesc<kD>(q_sm, kBT, kk), kdesc<kD>(kt, kBT, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss(dp, kmajor(g_sm, kk), kmajor(vt, kk), kk > 0);
+      wgmma_ss(dp, kdesc<kD>(g_sm, kBT, kk), kdesc<kD>(vt, kBT, kk), kk > 0);
     wg_commit();
     wg_wait_all();
     pin(sc);
@@ -793,33 +780,27 @@ fa_bwd_dq_tc(const __grid_constant__ Map mq, const __grid_constant__ Map mk,
     to_a_frags(dp, sf);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int pn = 0; pn < kPanels; ++pn)
-        wgmma_rs(acc[pn], sf[kk], mnmajor(kt, pn, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_rows<kD>(acc, sf[kk], kt, kBT, kk);
     wg_commit();
     wg_wait_all();
-#pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn) pin(acc[pn]);
+    pin(acc);
   }
 
   // dq (b, s, h, d) contiguous
 #pragma unroll
-  for (int pn = 0; pn < kPanels; ++pn)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = 64 * pn + 8 * jj + col_t;
-      if (row_a < s)
-        *reinterpret_cast<__nv_bfloat162*>(
-            dq + (((long long)bi * s + row_a) * h + hi) * kD + col) =
-            __floats2bfloat162_rn(acc[pn][4 * jj] * scale,
-                                  acc[pn][4 * jj + 1] * scale);
-      if (row_b < s)
-        *reinterpret_cast<__nv_bfloat162*>(
-            dq + (((long long)bi * s + row_b) * h + hi) * kD + col) =
-            __floats2bfloat162_rn(acc[pn][4 * jj + 2] * scale,
-                                  acc[pn][4 * jj + 3] * scale);
-    }
+  for (int jj = 0; jj < kD / 8; ++jj) {
+    const int col = 8 * jj + col_t;
+    if (row_a < s)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dq + (((long long)bi * s + row_a) * h + hi) * kD + col) =
+          __floats2bfloat162_rn(acc[4 * jj] * scale,
+                                acc[4 * jj + 1] * scale);
+    if (row_b < s)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dq + (((long long)bi * s + row_b) * h + hi) * kD + col) =
+          __floats2bfloat162_rn(acc[4 * jj + 2] * scale,
+                                acc[4 * jj + 3] * scale);
+  }
 }
 
 template <int kD>
@@ -831,10 +812,10 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
   const Strides qs{(long long)s * h * kD, (long long)h * kD, kD},
       ks{(long long)s * kv * kD, (long long)kv * kD, kD};
   Map mq, mk, mv, mg;
-  if (!make_map(&mq, q, b, s, h, kD, qs, kBT) ||
-      !make_map(&mg, dout, b, s, h, kD, qs, kBT) ||
-      !make_map(&mk, k, b, s, kv, kD, ks, kBT) ||
-      !make_map(&mv, v, b, s, kv, kD, ks, kBT))
+  if (!make_map<kD>(&mq, q, b, s, h, qs, kBT) ||
+      !make_map<kD>(&mg, dout, b, s, h, qs, kBT) ||
+      !make_map<kD>(&mk, k, b, s, kv, ks, kBT) ||
+      !make_map<kD>(&mv, v, b, s, kv, ks, kBT))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fa_bwd_dkdv_tc<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -844,6 +825,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                dq_smem<kD>());
   if (err != cudaSuccess) return (int)err;
+  // the scale of the head dim itself, 1 / sqrt(kD), not of a panel's
   const float scale = 1.0f / sqrtf((float)kD), scale_log2 = scale * kLog2e;
   const dim3 grid(b * h, s_pad / kBT);
   fa_bwd_dkdv_tc<kD><<<grid, kBThreads, dkdv_smem<kD>(), st>>>(
@@ -856,6 +838,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout,
       h / kv, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // the partials (b, h, s, kD) in quads of the true kD (a multiple of 4)
   const long long quads = (long long)b * s * kv * kD / 4;
   fa_bwd_sum<<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(
       dkp, dvp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), quads, s, h,
@@ -899,8 +882,8 @@ extern "C" {
 // contiguous, all fp32 (dtype 0) or all bf16 (dtype 1); lse the
 // forward's fp32 (b, h, s); lpad and dpad fp32 scratch of b * h * s_pad
 // floats, s_pad = s rounded up to a multiple of 64; h a multiple of kv,
-// 1 <= d <= 128. tc = 1 takes the tensor-core route (bf16, d = 64 or
-// 128, every base on 16 bytes), which also needs dkp and dvp, fp32
+// 1 <= d <= 128. tc = 1 takes the tensor-core route (bf16, d = 64, 96
+// or 128, every base on 16 bytes), which also needs dkp and dvp, fp32
 // scratch of b * h * s * d floats each; tc = 0 the FFMA route (dkp and
 // dvp unused). Returns cudaErrorInvalidValue for a shape it cannot
 // take, else cudaGetLastError() after the launches.
@@ -913,7 +896,7 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   if (b < 1 || s < 1 || kv < 1 || h % kv != 0 || d < 1 || d > 128 ||
       dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
-  if (tc && (dtype != 1 || (d != 64 && d != 128)))
+  if (tc && (dtype != 1 || (d != 64 && d != 96 && d != 128)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int s_pad = (s + kT - 1) / kT * kT;
@@ -928,8 +911,13 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
     if (d == 64)
       return tc::launch_tc<64>(q, k, v, dout, dq, dk, dv, lp, dp, kp, vp, b,
                                s, s_pad, h, kv, st);
-    return tc::launch_tc<128>(q, k, v, dout, dq, dk, dv, lp, dp, kp, vp, b,
-                              s, s_pad, h, kv, st);
+    if (d == 96)
+      return tc::launch_tc<96>(q, k, v, dout, dq, dk, dv, lp, dp, kp, vp, b,
+                               s, s_pad, h, kv, st);
+    if (d == 128)
+      return tc::launch_tc<128>(q, k, v, dout, dq, dk, dv, lp, dp, kp, vp, b,
+                                s, s_pad, h, kv, st);
+    return (int)cudaErrorInvalidValue;
   }
   const Dims dm{s, s_pad, h, kv, d, h / kv, 1.0f / sqrtf((float)d)};
   if (dtype == 0)

@@ -1,10 +1,12 @@
 // Hopper building blocks shared by the tensor-core attention kernels
 // (flash_attention.cu's forward, flash_attention_bwd.cu's backward):
-// TMA copies through tensor maps into 128-byte swizzled shared memory,
-// mbarriers with bounded waits, wgmma descriptors and the two m64n64k16
-// bf16 products. Each .cu that includes it is its own library;
-// kernels/_build.py hashes this header with every source, so an edit
-// here rebuilds them all.
+// TMA copies through tensor maps into swizzled shared memory (Panels:
+// 64-column panels with the 128-byte swizzle at d 64 and 128, 32-column
+// panels with the 64-byte swizzle at d 96), mbarriers with bounded
+// waits, wgmma descriptors and the bf16 products (m64n64k16 from shared
+// memory or registers; m64n96k16 from registers at d 96). Each .cu that
+// includes it is its own library; kernels/_build.py hashes this header
+// with every source, so an edit here rebuilds them all.
 #pragma once
 
 #include <cuda.h>
@@ -26,8 +28,9 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // A head's rows as the tensor map reads them: dims (D, X, Y, B), X and
 // Y the sequence and head axes in increasing stride; seq names the one
-// that is the sequence (1 or 2). A box is 64 columns (128 bytes, one
-// swizzled panel) of `rows` rows of one head of one batch.
+// that is the sequence (1 or 2). A box is one swizzled panel (64
+// columns, 128 bytes, or 32 columns, 64 bytes; see Panels) of `rows`
+// rows of one head of one batch.
 struct Map {
   CUtensorMap map;
   int seq;
@@ -86,11 +89,42 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+// wgmma shared-memory descriptor; offsets in bytes; layout 1 the
+// 128-byte swizzle, 2 the 64-byte one
 __device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
+                                          uint32_t sbo, uint32_t layout = 1) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+// How a tile of kD bf16 columns lies in shared memory: kD / kCols
+// panels of kCols columns one after the other, each `rows` rows of kRow
+// bytes, swizzled in atoms of 8 rows (kAtom bytes, every panel on a
+// multiple of it). d 64 and 128: panels of 64 columns, 128-byte rows,
+// 16-byte chunk c of row r at c ^ (r % 8) (CU_TENSOR_MAP_SWIZZLE_128B).
+// d 96: three panels of 32 columns, 64-byte rows, chunk c of row r at
+// c ^ (r / 2 % 4) (CU_TENSOR_MAP_SWIZZLE_64B): every panel whole, no
+// column of padding, and one m64n96k16 product reads all three.
+template <int kD>
+struct Panels {
+  static_assert(kD == 64 || kD == 96 || kD == 128, "d 64, 96 or 128");
+  static constexpr int kCols = kD == 96 ? 32 : 64;
+  static constexpr int kCount = kD / kCols;
+  static constexpr uint32_t kRow = 2 * kCols;
+  static constexpr uint32_t kAtom = 8 * kRow;
+  static constexpr uint32_t kLayout = kCols == 64 ? 1 : 2;
+  static constexpr int kSteps = kCols / 16;     // k-steps of 16 a panel
+};
+
+// descriptor of k-step kk (columns 16kk .. 16kk + 15) of a K-major
+// operand: 64 rows from `tile` of a tile whose panels hold `rows` rows
+template <int kD>
+__device__ __forceinline__ uint64_t kdesc(uint32_t tile, uint32_t rows,
+                                          int kk) {
+  using P = Panels<kD>;
+  return sdesc(tile + (kk / P::kSteps) * rows * P::kRow +
+                   (kk % P::kSteps) * 32,
+               16, P::kAtom, P::kLayout);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -103,9 +137,10 @@ __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 // keep the compiler from moving reads of an accumulator above the wait
-__device__ __forceinline__ void pin(float (&r)[32]) {
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // d (64 x 64, fp32) = a (64 x 16, shared, K-major) * b (16 x 64, shared,
@@ -147,6 +182,56 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 96, fp32) += a (64 x 16 bf16, registers) * b (16 x 96, shared,
+// MN-major in three 32-column panels of the 64-byte swizzle, the next
+// panel lbo bytes on)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, "
+      "1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x kD, fp32; register 4j + i is column 8j + 2(t % 4) + i % 2,
+// as in one m64n64 accumulator per 64 columns) += a (64 x 16 bf16,
+// registers) * rows 16kk .. 16kk + 15 of an MN-major tile in Panels
+// whose panels hold `rows` rows: one m64n64k16 a 64-column panel, or one
+// m64n96k16 across d 96's three
+template <int kD>
+__device__ __forceinline__ void wgmma_rs_rows(float (&acc)[kD / 2],
+                                              const uint32_t (&a)[4],
+                                              uint32_t tile, uint32_t rows,
+                                              int kk) {
+  using P = Panels<kD>;
+  const uint32_t at = tile + kk * 16 * P::kRow;
+  if constexpr (kD == 96) {
+    wgmma_rs_n96(acc, a, sdesc(at, rows * P::kRow, P::kAtom, P::kLayout));
+  } else {
+#pragma unroll
+    for (int pn = 0; pn < P::kCount; ++pn)
+      // 128 bytes a row; 8-row groups 1024 bytes apart in both directions
+      wgmma_rs(*reinterpret_cast<float(*)[32]>(&acc[32 * pn]), a,
+               sdesc(at + pn * rows * P::kRow, 1024, 1024));
+  }
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -199,12 +284,15 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A map of a (b, s, heads, d) bf16 tensor with (batch, sequence, head)
-// element strides st, D contiguous, read in boxes of 64 columns by
-// `rows` rows, 128-byte swizzled. Returns false where
-// cuTensorMapEncodeTiled refuses it.
+// A map of a (b, s, heads, kD) bf16 tensor with (batch, sequence, head)
+// element strides st, D contiguous, read in boxes of one panel
+// (Panels<kD>: 64 columns 128-byte swizzled, or 32 columns 64-byte
+// swizzled) by `rows` rows. Returns false where cuTensorMapEncodeTiled
+// refuses it.
+template <int kD>
 inline bool make_map(Map* m, const void* base, int b, int s, int heads,
-                     int d, Strides st, int rows) {
+                     Strides st, int rows) {
+  constexpr int cols = Panels<kD>::kCols;
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   // the middle dims in increasing stride; a dim of one element is never
@@ -218,15 +306,18 @@ inline bool make_map(Map* m, const void* base, int b, int s, int heads,
   const cuuint64_t s1 = (cuuint64_t)inner * e;
   const cuuint64_t s2 = n_outer > 1 ? (cuuint64_t)outer * e : s1 * n_inner;
   const cuuint64_t s3 = b > 1 ? (cuuint64_t)st.b * e : s2 * n_outer;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)n_inner,
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)n_inner,
                               (cuuint64_t)n_outer, (cuuint64_t)b};
   const cuuint64_t strides[3] = {s1, s2, s3};
-  const cuuint32_t box[4] = {64, seq_first ? (cuuint32_t)rows : 1u,
+  const cuuint32_t box[4] = {(cuuint32_t)cols,
+                             seq_first ? (cuuint32_t)rows : 1u,
                              seq_first ? 1u : (cuuint32_t)rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(&m->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

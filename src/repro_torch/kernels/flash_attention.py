@@ -4,7 +4,8 @@ launch counters.
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` -> ``_flash_kernel``). ``csrc/flash_attention.cu``
 holds two kernels and the note on their design and bound: one on the
-bf16 tensor cores (``wgmma``) and one in fp32 FFMA. :func:`route_for`
+bf16 tensor cores (``wgmma``, at head dims 64, 96 and 128) and one in
+fp32 FFMA (fp32, and bf16 at any other head dim). :func:`route_for`
 picks one from the dtype and the head dim alone; a CUDA tensor
 launches that kernel or raises, never the other. Two wrappers launch
 them and count on ``flash_attention.launches`` (every launch), and on
@@ -48,7 +49,8 @@ NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-TC_HEAD_DIMS = (64, 128)         # the head dims the tensor-core kernel takes
+# the head dims the tensor-core kernels take (96: MLA's q.k, minicpm3-4b)
+TC_HEAD_DIMS = (64, 96, 128)
 # the tensor-core kernel against the plain version, beside the element
 # check at 3e-2: no query row's output may lie further than this from the
 # plain one, relative to the row's norm. Late rows of a long sequence
@@ -70,9 +72,9 @@ BWD_ROW_FLOOR = 1e-3
 
 def route_for(dtype, head_dim: int) -> str:
     """The kernel a CUDA launch takes: ``"tc"``, the tensor cores, for
-    bf16 at a head dim of 64 or 128; ``"ffma"`` otherwise. fp32 stays on
-    FFMA because the tensor cores have no IEEE fp32 mode, and fp32 is
-    the strict parity route."""
+    bf16 at a head dim of 64, 96 or 128; ``"ffma"`` otherwise. fp32
+    stays on FFMA because the tensor cores have no IEEE fp32 mode, and
+    fp32 is the strict parity route."""
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tc"
     return "ffma"

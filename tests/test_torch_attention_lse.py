@@ -69,9 +69,17 @@ def test_plain_lse_matches_jax_logsumexp(b, s, h, kv, d):
     assert torch.equal(out2, out) and torch.equal(lse2, lse)
 
 
-@pytest.mark.parametrize("b,s,h,kv,d", SHAPES)
-def test_plain_bwd_given_lse_matches_jax_grad(b, s, h, kv, d):
+@pytest.mark.parametrize("b,s,h,kv,d,vd", [
+    pytest.param(*shape, None, id="-".join(map(str, shape)))
+    for shape in SHAPES] + [
+    # MLA's (minicpm3-4b's, cut to size): KV = H, q.k 96, v and dO
+    # zero-padded from 64 as models/attention.py pads them
+    pytest.param(1, 130, 4, 4, 96, 64, id="mla-1-130-4-4-96-v64")])
+def test_plain_bwd_given_lse_matches_jax_grad(b, s, h, kv, d, vd):
     q, k, v, do = _inputs(b, s, h, kv, d, s * h)
+    if vd is not None:
+        v[..., vd:] = 0.0
+        do[..., vd:] = 0.0
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     o, lse = fla.flash_attention_gqa_lse_plain(tq, tk, tv)
     got = fla.flash_attention_gqa_bwd_plain(tq, tk, tv, o, tdo, lse)
@@ -91,13 +99,17 @@ def test_plain_bwd_given_lse_matches_jax_grad(b, s, h, kv, d):
     for g, w in zip(fla.flash_attention_gqa_bwd(tq, tk, tv, o, tdo, lse),
                     got):
         assert torch.equal(g, w)
+    if vd is not None:          # the padded columns carry no gradient
+        assert bool((got[2][..., vd:] == 0).all())
 
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 16, "ffma"), (torch.bfloat16, 32, "ffma"),
     (torch.bfloat16, 100, "ffma"), (torch.float32, 64, "ffma"),
-    (torch.float32, 128, "ffma"), (torch.float32, 8, "ffma")])
+    (torch.float32, 128, "ffma"), (torch.float32, 8, "ffma"),
+    (torch.bfloat16, 96, "tc"), (torch.bfloat16, 80, "ffma"),
+    (torch.float32, 96, "ffma")])
 @pytest.mark.parametrize("b,s,h,kv", [(1, 5, 2, 2), (2, 70, 10, 2)])
 def test_bwd_route_by_dtype_and_head_dim(dtype, d, route, b, s, h, kv):
     """The backward takes the forward's route, from dtype and head dim

@@ -696,7 +696,7 @@ def _moved(before):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("s", TC_SEQS)
 def test_flash_attention_tc_entry_point_matches_plain(s, d):
     _need_card()
@@ -716,7 +716,7 @@ def test_flash_attention_tc_entry_point_matches_plain(s, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("rep", [1, 4, 5])
 @pytest.mark.parametrize("s", TC_SEQS)
 def test_flash_attention_tc_gqa_matches_plain(s, rep, d):
@@ -733,6 +733,68 @@ def test_flash_attention_tc_gqa_matches_plain(s, rep, d):
                                want.float().cpu().numpy(), rtol=3e-2,
                                atol=3e-2)
     assert fla.row_rel_err(got, want) <= fla.ROW_REL_TOL
+
+
+def _mla_inputs(b, s, h, seed, v_dim=64, d=96):
+    """MLA's launch in bf16 on the card: q, k (b, s, h, d) and v, dO
+    at v_dim zero-padded to d, as ``models/attention.py`` pads them."""
+    q, k, v, do = _gqa_grad_inputs(b, s, h, h, d, torch.bfloat16, seed)
+    v, do = (torch.nn.functional.pad(t[..., :v_dim], (0, d - v_dim))
+             for t in (v, do))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h", [(1, 130, 4), (2, 300, 40)])
+def test_flash_attention_tc_mla_keeps_padded_columns_zero(b, s, h):
+    """MLA (q.k 96, v zero-padded from 64) on the tensor cores: the
+    output's padded columns are exactly 0 on both forward launches, and
+    so are dV's where dO's are; the rest within the plain version's
+    tolerances; two backward calls give the same bits."""
+    _need_card()
+    q, k, v, do = _mla_inputs(b, s, h, s + h)
+    assert fla.route_for(q.dtype, q.shape[-1]) == "tc"
+    routes, bwd = _route_counts(), _bwd_counts()
+    out = kernels.flash_attention_gqa(q, k, v)
+    o, lse = fla.flash_attention_gqa_with_lse(q, k, v)
+    grads = fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
+    again = fla.flash_attention_gqa_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert _route_counts() == dict(routes, tc=routes["tc"] + 2)
+    assert _bwd_counts() == dict(bwd, all=bwd["all"] + 2, tc=bwd["tc"] + 2)
+    for t in (out, o, grads[2]):
+        assert bool((t[..., 64:] == 0).all())
+    assert torch.equal(out, o)
+    want = fla.flash_attention_gqa_plain(q, k, v)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=3e-2,
+                               atol=3e-2)
+    assert fla.row_rel_err(out, want) <= fla.ROW_REL_TOL
+    plain = fla.flash_attention_gqa_bwd_plain(q, k, v, o, do)
+    for name, g, w, a in zip(("dq", "dk", "dv"), grads, plain, again):
+        assert torch.equal(g, a), name
+        assert _scaled_err(g, w) <= 3e-2, (name, _scaled_err(g, w))
+        rows = fla.row_rel_err(g, w, fla.BWD_ROW_FLOOR)
+        assert rows <= fla.BWD_ROW_REL_TOL, (name, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [48, 80, 112])
+def test_flash_attention_tc_launches_refuse_other_head_dims(d):
+    """The tensor-core entry points take d 64, 96 and 128 alone: at any
+    other d (here with rows on 16 bytes, so the wrapper's own checks
+    pass) both C launches return an error, never the 128-wide instance,
+    and no count moves."""
+    _need_card()
+    q, k, v, do = _gqa_grad_inputs(1, 70, 2, 2, d, torch.bfloat16, d)
+    o, lse = fla.flash_attention_gqa_with_lse(q, k, v)     # FFMA
+    routes, bwd = _route_counts(), _bwd_counts()
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        fla._launch(q, k, v, torch.empty_like(q), 1, 70, 2, 2, (0, 1, 2),
+                    "tc")
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        fla._bwd_launch(q, k, v, o, do, lse, "tc")
+    assert _route_counts() == routes and _bwd_counts() == bwd
 
 
 @pytest.mark.cuda
@@ -1057,14 +1119,17 @@ def test_sharded_stream_in_a_gloo_world_on_the_card():
 # the model's attention launch (b, s, h, kv, d): GQA_CASES (ragged S,
 # grouped heads, hymba's 25/5 heads of 64, a head dim of 128), a head
 # dim of 100, one query head a kv head, and the tensor-core backward's
-# head dims 64 and 128 (in bf16) at S of three rows, one 64-row tile,
-# one past it, two tiles and two past, and 16 tiles, with groups of 1
-# and of 5 query heads (hymba-1.5b's)
+# head dims 64, 96 and 128 (in bf16) at S of three rows, one 64-row
+# tile, one past it, two tiles and two past, and 16 tiles, with groups
+# of 1 and of 5 query heads (hymba-1.5b's); at 96 (MLA's q.k) also
+# minicpm3-4b's 40 heads, KV = H, at a ragged S
 GQA_BWD_CASES = GQA_CASES + [(1, 65, 2, 2, 100), (2, 64, 3, 3, 32),
                              (2, 3, 5, 1, 64), (1, 64, 5, 1, 64),
                              (2, 65, 2, 2, 64), (1, 130, 5, 1, 128),
                              (2, 130, 3, 3, 128), (1, 1024, 10, 2, 64),
-                             (1, 1024, 2, 2, 128)]
+                             (1, 1024, 2, 2, 128), (2, 3, 2, 2, 96),
+                             (1, 65, 4, 2, 96), (1, 130, 40, 40, 96),
+                             (1, 1024, 5, 1, 96)]
 # ssd_intra_chunks (bsz, nc, q, h, g, n, p): the reduced configs' cell,
 # two groups, hymba-1.5b's cell (25 heads, one group), mamba2-780m's
 # (N 128, P 64), a Q that is not a multiple of the 32-row tiles, and
@@ -1183,9 +1248,10 @@ def test_flash_attention_function_launches_the_backward_kernel():
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 128),
                                      (torch.bfloat16, 32),
-                                     (torch.float32, 64)],
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 96)],
                          ids=["bf16-64-tc", "bf16-128-tc", "bf16-32-ffma",
-                              "f32-64-ffma"])
+                              "f32-64-ffma", "bf16-96-tc"])
 def test_flash_attention_forward_writes_the_plain_lse(dtype, d):
     """Both forward kernels write each row's logsumexp in natural-log
     units, the plain version's L within 1e-3 (bf16 inputs: the
