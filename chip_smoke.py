@@ -157,16 +157,18 @@ the order they run:
    cores), every row held to ``ROW_REL_TOL``, the padded columns of
    the output exactly 0, timed in turns with the FFMA route and beside
    SDPA on the unpadded v, its bound counting v's and o's own width;
-   qwen2-7b's
-   launch at its prefill (phase 23: B = 2, S = 2048, 28/4 heads of 128,
-   bf16, tensor cores; rows held to ``ROW_REL_TOL``, timed); SSD also
+   qwen2-7b's and qwen3-moe-235b-a22b's
+   launches at their prefills (phases 23 and 24: B = 2, S = 2048, 28/4
+   and 64/4 heads of 128, bf16, tensor cores; rows held to
+   ``ROW_REL_TOL``, timed); SSD also
    with decays that overflow above the
    diagonal, and both cells at Q = 100; the SSD kernel keeps at least 16
    warps resident an SM at both cells' widths (the CUDA occupancy
    calculator); the path's shapes timed by CUDA events, as every
    kernel (``ssd_intra`` also by its device time under
    ``torch.profiler``, ``device_ms``), beside the bound and, for
-   attention, ``scaled_dot_product_attention``; attention in bf16 at
+   attention, ``scaled_dot_product_attention`` (in turns: SDPA first
+   and last); attention in bf16 at
    head dims 64, 96 and 128 takes the tensor-core kernel, fp32 the FFMA one
    (each case checks which launch counter moved), the prefill's shape
    in both dtypes; the tensor-core kernel timed in turns against the
@@ -304,16 +306,39 @@ the order they run:
    with ``kv_cache_dtype="int8"`` (its prefill's logits the native
    prefill's bits), fed the native run's tokens: each step's logits
    within 5e-2 of the native's max abs (the reference's bound); decode
-   ms a step and the cache's bytes of each.
+   ms a step and the cache's bytes of each;
+24. the MoE FFN (``repro_torch.models.moe``): (a) qwen3-moe-235b-a22b
+   at full width (d_model 4096, 64/4 heads of 128, 128 experts of d_ff
+   1536, top-8, vocab 151,936, capacity factor 1.25) cut to 8 of its 94
+   layers (2.115e10 bf16 parameters, 42.3 GB; the whole model does not
+   fit one card), served as phase 10: 8 attention launches a prefill,
+   all on the tensor cores; the (token, k) pairs dropped at the prefill
+   (capacity 321) and at decode (capacity 1); every comparison across
+   routes (kernel against plain, SDPA and float64 attention; the decode
+   continuation, which runs at ample capacity, 16, where nothing drops)
+   replays the first route's expert choices (``RouteTape``) and logs
+   the share it would have chosen otherwise, then holds the bf16 bound
+   of phase 10; the fp32 check on a cut of 2 layers drawn after the
+   bf16 weights are freed; (d) ``kmeans_router_init`` on its embedding
+   table from 2 x 2048 sample tokens (128 centroids of 4096): routers in
+   bf16, the same every layer, unit columns; entropy and max/mean load
+   of the random and the k-means routers; (b) llama4-scout-17b-a16e at
+   full width (d_model 5120, 40/8 heads of 128, 16 experts of d_ff
+   8192, top-1, vocab 202,048) cut to 4 of 48 layers, 8 decode steps,
+   as (a); (c) one MoE layer at qwen3-moe's full width, 2 x 2048 tokens
+   in bf16, forward and backward twice: output and the gradients of x
+   and the four leaves ``torch.equal``; against fp32 with the bf16
+   choices replayed within 3e-2 of scale; ms by CUDA events and a
+   pass's device ms, cuBLAS against the rest.
 
-Phases 11-17 run after phase 7, before 2c; 2d, then 18-23, after 10.
+Phases 11-17 run after phase 7, before 2c; 2d, then 18-24, after 10.
 The last lines are a ``kernels`` JSON line (each kernel's ``launches``
 is the sum of its ``launches_by_path``: the k-means kernels' on the
 main fit and predict, phase 13's ``kernel`` backend, phase 14's stream,
 phase 15's resilient stream, phase 16's sharded fit and phase 17's
 sharded stream, each summed over its ranks; the LM kernels' on the
-serving paths of phases 10, 21 and 23 and the training steps of phases
-18 and 22), the card's name
+serving paths of phases 10, 21, 23 and 24 and the training steps of
+phases 18 and 22), the card's name
 and power limit from ``nvidia-smi``, and ``{"ok": true, "device":
 {...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
@@ -373,6 +398,16 @@ MLA_TRAIN = dict(arch="minicpm3-4b", layers=31, batch=2, seq=2048, steps=3)
 # phase 23: qwen2-7b serving at full width and depth, natively and with
 # the int8 KV cache from the same prefill
 INT8_SERVE = dict(arch="qwen2-7b", batch=2, prompt=2048, steps=32)
+# phase 24: the MoE FFN at full width, cut in depth (neither model fits
+# one card): qwen3-moe-235b-a22b at 8 of its 94 layers (2.115e10
+# parameters, 42.3 GB in bf16) and llama4-scout-17b-a16e at 4 of 48;
+# each fp32 check on a cut of 2 layers drawn after the bf16 weights are
+# freed
+MOE_SERVE = dict(arch="qwen3-moe-235b-a22b", layers=8, batch=2, prompt=2048,
+                 steps=32)
+SCOUT_SERVE = dict(arch="llama4-scout-17b-a16e", layers=4, batch=2,
+                   prompt=2048, steps=8)
+MOE_FP32_LAYERS = 2
 RESILIENT_TRAIN = dict(layers=2, seq=512, steps=8, ckpt_every=4,
                        fail_at=6)
 # phase 20: the k-means clusters of phase 10's layer-0 KV cache
@@ -680,7 +715,11 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
 
             def new():
                 return kernels.flash_attention_gqa(q, k, v)
-            turns = {"new": []}
+
+            def library():
+                return sdpa_gqa(q, k, lib_v)
+            # SDPA first and last, the kernel's turns between
+            turns = {"library": [median_ms(library)], "new": []}
             if route == "tc":
                 # the earlier route, the FFMA kernel, on the same inputs
                 def old():
@@ -708,13 +747,14 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
                 turns["new"].append(median_ms(new))
                 turns["lse"].append(median_ms(with_lse))
                 entry["lse_ms"] = statistics.mean(turns["lse"])
+            turns["library"].append(median_ms(library))
             entry.update(
                 ms=statistics.mean(turns["new"]), turns_ms=turns,
                 plain_ms=median_ms(
                     lambda: fla.flash_attention_gqa_plain(q, k, v), reps=3,
                     inner=1),
                 bound_ms=bound_ms, bound_by=by,
-                library_ms=median_ms(lambda: sdpa_gqa(q, k, lib_v)))
+                library_ms=statistics.mean(turns["library"]))
         del want
         log(f"flash_attention {label}: {json.dumps(entry)}")
         return entry
@@ -804,6 +844,15 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
         randn(qb, qs, qw.n_heads, qw.head_dim, dtype=bf),
         *(randn(qb, qs, qw.n_kv_heads, qw.head_dim, dtype=bf)
           for _ in range(2)), timed=True)
+    # qwen3-moe-235b-a22b's launch at its prefill (phase 24): 64/4 heads
+    # of 128, a GQA group of 16
+    qm = get_config(MOE_SERVE["arch"])
+    mb, ms_ = MOE_SERVE["batch"], MOE_SERVE["prompt"]
+    moe_entry = attn_case(
+        f"{qm.name} prefill B={mb} S={ms_}",
+        randn(mb, ms_, qm.n_heads, qm.head_dim, dtype=bf),
+        *(randn(mb, ms_, qm.n_kv_heads, qm.head_dim, dtype=bf)
+          for _ in range(2)), timed=True)
 
     m = cfg.ssm
     nc = s // m.chunk
@@ -835,20 +884,163 @@ def lm_kernel_phase(dev, gen, bw, fp32, bf16, cfg, batch, prompt):
         log(f"ssd_intra N={nn_} P={pp_}: {warps} warps resident an SM")
         check(warps >= 16, f"ssd_intra N={nn_} P={pp_}: {warps} warps "
               f"resident an SM, fewer than 16")
-    return attn_main, ssd_main, dict(mla=mla_entry, qwen2=qwen2_entry)
+    return attn_main, ssd_main, dict(mla=mla_entry, qwen2=qwen2_entry,
+                                     moe=moe_entry)
+
+
+class RouteTape:
+    """The port's expert choices (``repro_torch.models.moe.route``),
+    recorded call by call or replayed, so that the second route of a
+    comparison takes the first route's experts: in bf16 an ulp of
+    attention flips some choices, and logits compared across a flip
+    measure an expert swap, not the attention. ``moe_ffn`` looks
+    ``route`` up at every call, so one swap reaches every layer."""
+
+    def __init__(self):
+        self.moe = importlib.import_module("repro_torch.models.moe")
+        self.route = self.moe.route
+
+    @contextlib.contextmanager
+    def _swapped(self, fn):
+        self.moe.route = fn
+        try:
+            yield
+        finally:
+            self.moe.route = self.route
+
+    @contextlib.contextmanager
+    def record(self):
+        """Yields ``{"calls": [(experts, cfg), ...]}``, filled as the
+        layers route (nothing but a list append on the path)."""
+        tape = {"calls": []}
+
+        def recorded(xf, router, cfg):
+            gates, experts = self.route(xf, router, cfg)
+            tape["calls"].append((experts, cfg))
+            return gates, experts
+        with self._swapped(recorded):
+            yield tape
+
+    @contextlib.contextmanager
+    def replay(self, calls):
+        """Route each call to the experts of ``calls`` (a record's, in
+        order), the gates the softmax of this route's own logits at
+        them: where the choices agree, the real route's bits. Yields
+        ``{"differ": [...], "entries": [...]}``: per call, the choices
+        this route would have made that the replayed ones lack."""
+        import torch
+        it = iter(calls)
+        tape = {"differ": [], "entries": []}
+
+        def replayed(xf, router, cfg):
+            experts, _ = next(it)
+            check(tuple(experts.shape) == (xf.shape[0], cfg.moe_top_k),
+                  f"route replay: {tuple(experts.shape)} recorded for "
+                  f"{xf.shape[0]} tokens")
+            logits = (xf @ router.to(xf.dtype)).float()
+            own = self.route(xf, router, cfg)[1]
+            tape["differ"].append(
+                (own[:, :, None] != experts[:, None, :]).all(-1).sum())
+            tape["entries"].append(experts.numel())
+            return torch.softmax(logits.gather(1, experts), -1), experts
+        with self._swapped(replayed):
+            yield tape
+        check(next(it, None) is None, "route replay: recorded calls left "
+              "over (the replayed path routed fewer times)")
+
+
+def routed(tape, calls=None):
+    """``tape.record()``, or ``tape.replay(calls)`` where calls are
+    given; a no-op where there is no tape (no MoE)."""
+    if tape is None:
+        return contextlib.nullcontext({})
+    return tape.record() if calls is None else tape.replay(calls)
+
+
+def differ_share(rep):
+    """The share of replayed choices the route would have made
+    otherwise (None where nothing was replayed)."""
+    if not rep.get("entries"):
+        return None
+    return float(sum(int(d) for d in rep["differ"])) / sum(rep["entries"])
+
+
+def dropped(calls):
+    """(token, k) pairs each recorded call dropped: each expert keeps
+    ``moe.capacity(cfg, T)`` of its pairs."""
+    import torch
+    moe = importlib.import_module("repro_torch.models.moe")
+    out = []
+    for experts, cfg in calls:
+        load = torch.bincount(experts.reshape(-1), minlength=cfg.n_experts)
+        cap = moe.capacity(cfg, experts.shape[0])
+        out.append(int((load - cap).clamp(min=0).sum()))
+    return out
+
+
+def splice(first, step, batch):
+    """Per layer, a prefill's recorded choices (B * S tokens) followed by
+    one decode step's (B tokens) in a prefill of S + 1 tokens' order."""
+    import torch
+    out = []
+    for (a, cfg), (b_, _) in zip(first, step):
+        k = a.shape[1]
+        out.append((torch.cat([a.view(batch, -1, k), b_.view(batch, 1, k)],
+                              1).reshape(-1, k), cfg))
+    return out
+
+
+def greedy_token(logits, cfg):
+    return logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+
+
+def continuation(dev, cfg, params, tokens, tape):
+    """The first decode step from a prefill of ``tokens`` against the
+    last position of a prefill one token longer: (max difference over
+    scale, the share of choices replayed against the longer prefill's
+    own). A MoE config runs at ample capacity (``n_experts /
+    moe_top_k``: nothing drops at any T, as the reference's
+    ``test_moe_decode_matches_with_ample_capacity``), the longer
+    prefill replaying the prefill's and the step's choices."""
+    import torch
+
+    from repro_torch.train import make_prefill_step, make_serve_step
+    if tape is not None:
+        cfg = dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    b, s = tokens.shape
+    prefill = make_prefill_step(cfg)
+    with routed(tape) as first:
+        lg, pc = prefill(params, {"tokens": tokens})
+    cache = decode_cache(cfg, pc, s + 1, dev)
+    del pc
+    tok = greedy_token(lg, cfg)
+    with routed(tape) as step:
+        dec, _c = make_serve_step(cfg)(params, cache, tok, s)
+    del _c, cache
+    calls = None if tape is None else splice(first["calls"], step["calls"], b)
+    with routed(tape, calls) as rep:
+        longer, _c = prefill(params, {"tokens": torch.cat([tokens, tok], 1)})
+    del _c
+    return rel_err(dec, longer), differ_share(rep)
 
 
 def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps, expect,
-                int8=False):
-    """Phase 10 (and 21, 23): the LM serving path of ``cfg``: ``batch``
-    prompts of ``prompt`` tokens, then ``steps`` greedy decode steps,
-    held against the plain route in bf16 and, with the same weights, in
-    fp32. ``expect``: each kernel's launches on that path (counters not
-    named there must not move). ``int8``: then decode the same steps
-    again, from the same prefill, with ``kv_cache_dtype="int8"``, fed
-    the native run's tokens, each step's logits within 5e-2 of the
-    native's max abs. Returns the report, with the launches of the main
-    path (prefill + decode), and the decode cache."""
+                int8=False, params=None):
+    """Phase 10 (and 21, 23, 24): the LM serving path of ``cfg``:
+    ``batch`` prompts of ``prompt`` tokens, then ``steps`` greedy decode
+    steps, held against the plain route in bf16 and, with the same
+    weights, in fp32. ``expect``: each kernel's launches on that path
+    (counters not named there must not move). ``int8``: then decode the
+    same steps again, from the same prefill, with
+    ``kv_cache_dtype="int8"``, fed the native run's tokens, each step's
+    logits within 5e-2 of the native's max abs. ``params``: the weights
+    (drawn from ``gen`` where None). A MoE config's comparisons replay
+    the first route's expert choices (:class:`RouteTape`), and its fp32
+    check is the caller's (``moe_serve_phase``: a cut of the model, as
+    the served weights widened do not fit). Returns the report, with the
+    launches of the main path (prefill + decode), and the decode
+    cache."""
     import torch
 
     from repro_torch.models import init_params
@@ -856,46 +1048,48 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps, expect,
 
     b, s = batch, prompt
     label = f"serve {cfg.name}"
+    tape = RouteTape() if cfg.family == "moe" else None
     t0 = time.perf_counter()
-    params = init_params(cfg, gen, device=dev)
+    if params is None:
+        params = init_params(cfg, gen, device=dev)
     sync()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads"
              + (f", ssm d_inner {cfg.ssm.d_inner}" if cfg.ssm else "")
-             + (f", MLA {cfg.mla}" if cfg.mla else ""))
+             + (f", MLA {cfg.mla}" if cfg.mla else "")
+             + (f", {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+                f"{cfg.moe_top_k}, capacity factor {cfg.moe_capacity_factor}"
+                if tape else ""))
     log(f"{label}: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}"
         f", {shape}), {n_params} params, {n_bytes / 2**30:.3f} GiB in "
-        f"{cfg.dtype}, made in {time.perf_counter() - t0:.2f} s")
+        f"{cfg.dtype}, ready in {time.perf_counter() - t0:.2f} s")
     prefill = make_prefill_step(cfg)
     serve_step = make_serve_step(cfg)
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
-
-    def greedy(logits):
-        return logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
 
     # the main path: one prefill, then greedy decode steps
     reset_launches(wrappers)
     torch.cuda.reset_peak_memory_stats(dev)
     sync()
     t0 = time.perf_counter()
-    logits, pcache = prefill(params, {"tokens": tokens})
+    with routed(tape) as main_pf:
+        logits, pcache = prefill(params, {"tokens": tokens})
     # one position more than the path uses, for the traced step below
     cache = decode_cache(cfg, pcache, s + steps + 1, dev)
     del pcache
-    tok = greedy(logits)
-    first_tok = tok
+    tok = greedy_token(logits, cfg)
     step_ms, fed, dec_logits = [], [], []
-    for t in range(steps):
-        sync()
-        t1 = time.perf_counter()
-        fed.append(tok)
-        dlogits, cache = serve_step(params, cache, tok, s + t)
-        tok = greedy(dlogits)
-        sync()
-        step_ms.append((time.perf_counter() - t1) * 1e3)
-        dec_logits.append(dlogits)
-    first_dec = dec_logits[0]
+    with routed(tape) as main_dec:
+        for t in range(steps):
+            sync()
+            t1 = time.perf_counter()
+            fed.append(tok)
+            dlogits, cache = serve_step(params, cache, tok, s + t)
+            tok = greedy_token(dlogits, cfg)
+            sync()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            dec_logits.append(dlogits)
     path_s = time.perf_counter() - t0
     launches = read_launches(wrappers)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -909,6 +1103,24 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps, expect,
     for nm, cnt in launches.items():
         check(cnt == expect.get(nm, 0), f"{label}: {nm} launched {cnt} "
               f"times on the main path, not {expect.get(nm, 0)}")
+    routing = {}
+    if tape:
+        moe = importlib.import_module("repro_torch.models.moe")
+        by_layer = dropped(main_pf["calls"])
+        routing = dict(
+            capacity_prefill=moe.capacity(cfg, b * s),
+            capacity_decode=moe.capacity(cfg, b),
+            dropped_prefill=sum(by_layer),
+            dropped_prefill_by_layer=by_layer,
+            pairs_prefill=cfg.n_layers * b * s * cfg.moe_top_k,
+            dropped_decode=sum(dropped(main_dec["calls"])),
+            pairs_decode=cfg.n_layers * steps * b * cfg.moe_top_k)
+        log(f"{label}: (token, k) pairs dropped over {cfg.n_layers} layers: "
+            f"prefill {routing['dropped_prefill']} of "
+            f"{routing['pairs_prefill']} (capacity "
+            f"{routing['capacity_prefill']}; by layer {by_layer}), decode "
+            f"{routing['dropped_decode']} of {routing['pairs_decode']} "
+            f"(capacity {routing['capacity_decode']})")
 
     # prefill time: median of 3 after the main path's warm-up call
     pre_ms = []
@@ -921,38 +1133,40 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps, expect,
         del _c
     check(torch.equal(again, logits), f"{label}: a repeat prefill differs")
 
-    def rel(a, b):
-        return float((a - b).abs().max()) / float(b.abs().max())
-
     # The served dtype, bf16: over 32 layers of random weights the bf16
     # roundings of any two correct attentions part the logits by about
     # 3e-2 of scale (scripts/lm_bf16_floor.py), so the bound is 3e-2 or
     # 1.5 times the farthest that two other correct attentions, PyTorch's
     # SDPA and one in float64, land from the plain route on the same
-    # prompts, whichever is larger
+    # prompts, whichever is larger. A MoE route replays the main
+    # prefill's expert choices.
+    pf_calls = main_pf.get("calls")
     ssd_plain = kernel_module("ssd_intra").ssd_intra_chunks_plain
-    with plain_route():
+    with plain_route(), routed(tape, pf_calls) as rep_plain:
         plain_logits, _c = prefill(params, {"tokens": tokens})
         del _c
-    floors = {}
+    floors, shares = {}, {"plain": differ_share(rep_plain)}
     for nm, attention in (("sdpa", sdpa_gqa), ("float64", exact_gqa)):
-        with lm_route(attention, ssd_plain):
+        with lm_route(attention, ssd_plain), routed(tape, pf_calls) as rep_:
             other, _c = prefill(params, {"tokens": tokens})
-        floors[nm] = rel(other, plain_logits)
+        floors[nm] = rel_err(other, plain_logits)
+        shares[nm] = differ_share(rep_)
         del _c, other
-    plain_err = rel(logits, plain_logits)
+    plain_err = rel_err(logits, plain_logits)
     floor = max(floors.values())
     # decode continuation: position s decoded from the cache against the
     # last position of a prefill of s + 1 tokens
-    longer, _c = prefill(params, {"tokens": torch.cat([tokens, first_tok],
-                                                      1)})
-    cont_err = rel(first_dec, longer)
-    del _c, longer
+    cont_err, shares["continuation"] = continuation(dev, cfg, params, tokens,
+                                                    tape)
     bound = max(1.5 * floor, 3e-2)
     log(f"{label} bf16: kernel vs plain prefill logits {plain_err:.4g} of "
         f"scale; SDPA vs plain {floors['sdpa']:.4g}, float64 attention vs "
         f"plain {floors['float64']:.4g}; decode continuation "
         f"{cont_err:.4g}; bound {bound:.4g}")
+    if tape:
+        routing["replayed_differ_share"] = shares
+        log(f"{label} bf16: share of expert choices a route would have "
+            f"made otherwise (replayed): {shares}")
     check(plain_err <= bound, f"{label}: bf16 kernel prefill is "
           f"{plain_err:.3g} of scale from the plain one, beyond {bound:.3g}")
     check(cont_err <= bound, f"{label}: bf16 decode continuation "
@@ -973,11 +1187,15 @@ def serve_phase(dev, gen, wrappers, cfg, batch, prompt, steps, expect,
                cache_bytes=sum(t.numel() * t.element_size()
                                for t in cache.values()),
                cache_positions=s + steps + 1)
+    if tape:
+        rep["routing"] = routing
     if int8:
         rep["int8"] = int8_decode(dev, cfg, params, tokens, logits, fed,
                                   dec_logits, s, label)
     del dec_logits
-    rep.update(fp32_check(dev, cfg, params, tokens, s, label))
+    if not tape:
+        rep.update(fp32_check(dev, dataclasses.replace(cfg, dtype="float32"),
+                              _widen(params), tokens, label))
     log(f"{label}: prefill {prefill_ms:.2f} ms median of {pre_ms} "
         f"({rep['prefill_tokens_per_s']:.4g} tokens/s); decode "
         f"{decode_ms:.3f} ms per step median ({rep['decode_tokens_per_s']:.4g}"
@@ -1039,37 +1257,27 @@ def int8_decode(dev, cfg, params, tokens, logits, fed, dec_logits, s,
     return rep
 
 
-def fp32_check(dev, cfg, params, tokens, s, label):
-    """The same weights widened to fp32: kernel against plain prefill and
-    the decode continuation, each within 1e-4 of scale."""
-    import torch
+def fp32_check(dev, cfg32, params32, tokens, label):
+    """fp32 weights (the served ones widened, or a MoE model's cut):
+    kernel against plain prefill and the decode continuation, each
+    within 1e-4 of scale; a MoE route replays the kernel prefill's
+    expert choices."""
+    from repro_torch.train import make_prefill_step
 
-    from repro_torch.train import make_prefill_step, make_serve_step
-
-    def greedy(lg):
-        return lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
-
-    def rel(a, b):
-        return float((a - b).abs().max()) / float(b.abs().max())
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = _widen(params)
+    tape = RouteTape() if cfg32.family == "moe" else None
     prefill32 = make_prefill_step(cfg32)
-    lg32, pc32 = prefill32(params32, {"tokens": tokens})
-    with plain_route():
+    with routed(tape) as first:
+        lg32, _c = prefill32(params32, {"tokens": tokens})
+        del _c
+    with plain_route(), routed(tape, first.get("calls")) as rep:
         plain32, _c = prefill32(params32, {"tokens": tokens})
         del _c
-    plain_err32 = rel(lg32, plain32)
-    cache32 = decode_cache(cfg32, pc32, s + 1, dev)
-    del pc32
-    tok32 = greedy(lg32)
-    dec32, _c = make_serve_step(cfg32)(params32, cache32, tok32, s)
-    del _c, cache32
-    longer32, _c = prefill32(params32, {"tokens": torch.cat([tokens, tok32],
-                                                            1)})
-    del _c
-    cont_err32 = rel(dec32, longer32)
+    plain_err32 = rel_err(lg32, plain32)
+    cont_err32, cont_share = continuation(dev, cfg32, params32, tokens, tape)
     log(f"{label} fp32: kernel vs plain prefill logits {plain_err32:.4g} of "
-        f"scale; decode continuation {cont_err32:.4g}")
+        f"scale; decode continuation {cont_err32:.4g}"
+        + (f"; expert choices replayed, differing share "
+           f"{differ_share(rep)} and {cont_share}" if tape else ""))
     check(plain_err32 <= 1e-4, f"{label}: fp32 kernel and plain prefill "
           f"logits differ by {plain_err32:.3g} of scale > 1e-4")
     check(cont_err32 <= 1e-4, f"{label}: fp32 decode continuation "
@@ -1099,6 +1307,186 @@ def _widen(tree):
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# -- phase 24: the MoE FFN -----------------------------------------------------
+
+# cuBLAS's kernels by name on an H100 (the rest of a MoE layer's device
+# time is the dispatch and combine glue and the elementwise work)
+CUBLAS = re.compile(r"gemm|xmma|nvjet|cutlass", re.I)
+
+
+def moe_serve_phase(dev, wrappers, spec, seed, router_init=False):
+    """Phase 24 (a), (b), (d): ``spec``'s MoE config at full width, cut
+    to ``spec["layers"]`` layers, served as phase 10 serves hymba-1.5b
+    (``serve_phase``: its bf16 checks with the expert choices replayed,
+    the decode continuation at ample capacity); ``router_init``: then
+    ``kmeans_router_init`` on its embedding table (24 d). The fp32 check
+    runs on a cut of ``MOE_FP32_LAYERS`` layers drawn after the bf16
+    weights are freed (the served weights widened do not fit)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    nl = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device=dev)
+    sync()
+    log(f"serve {cfg.name}: full width, cut to {nl} of {full.n_layers} "
+        f"layers (the whole model does not fit one card); drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # bf16 at a head dim of 128: every attention launch on the tensor
+    # cores, none on FFMA; decode attends in plain torch
+    rep, cache = serve_phase(dev, gen, wrappers, cfg, spec["batch"],
+                             spec["prompt"], spec["steps"],
+                             expect={"flash_attention": nl,
+                                     "flash_attention.tc": nl},
+                             params=params)
+    rep["layers_of"] = [nl, full.n_layers]
+    del cache
+    if router_init:
+        rep["router_init"] = router_init_check(dev, gen, params, cfg,
+                                               spec["batch"], spec["prompt"])
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_FP32_LAYERS,
+                                dtype="float32")
+    params32 = init_params(cfg32, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (spec["batch"], spec["prompt"]),
+                           generator=gen, device=dev)
+    rep["fp32_layers"] = cfg32.n_layers
+    rep.update(fp32_check(dev, cfg32, params32, tokens,
+                          f"serve {cfg.name} ({cfg32.n_layers}-layer cut)"))
+    del params32
+    torch.cuda.empty_cache()
+    return rep
+
+
+def router_init_check(dev, gen, params, cfg, batch, seq):
+    """Phase 24 (d): ``kmeans_router_init`` on the served model's
+    embedding table, ``batch`` x ``seq`` sample tokens (``n_experts``
+    centroids of d_model): every layer the same (D, E) router in the
+    embedding's dtype, unit columns, finite; the entropy and max/mean
+    load of the layer-0 top-1 choices of the random and the k-means
+    routers, as ``repro_torch.examples.expert_bootstrap`` reports
+    them."""
+    import torch
+
+    from repro_torch.core.integrations import kmeans_router_init
+    from repro_torch.examples.expert_bootstrap import routing_stats
+    label = f"kmeans_router_init {cfg.name}"
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev)
+    ent_r, load_r = routing_stats(params, cfg, tokens)
+    sync()
+    t0 = time.perf_counter()
+    km = kmeans_router_init(params, cfg, tokens, seed=0)
+    sync()
+    secs = time.perf_counter() - t0
+    router = km["layers"]["moe"]["router"]
+    check(tuple(router.shape) == (cfg.n_layers, cfg.d_model, cfg.n_experts)
+          and router.dtype == params["embed"].dtype
+          and bool(torch.isfinite(router).all()),
+          f"{label}: a router of {tuple(router.shape)} {router.dtype}")
+    check(all(torch.equal(router[0], r_) for r_ in router[1:]),
+          f"{label}: the layers' routers differ")
+    norms = router[0].float().norm(dim=0)
+    check(float((norms - 1).abs().max()) <= 1e-2, f"{label}: column norms "
+          f"{float(norms.min()):.4g}..{float(norms.max()):.4g}, not 1")
+    ent_k, load_k = routing_stats(km, cfg, tokens)
+    out = dict(sample_tokens=batch * seq, centroids=cfg.n_experts,
+               seconds=secs, random=dict(entropy=ent_r, max_over_mean=load_r),
+               kmeans=dict(entropy=ent_k, max_over_mean=load_k),
+               max_entropy=math.log(cfg.n_experts))
+    log(f"{label}: {batch * seq} sample tokens, {cfg.n_experts} centroids "
+        f"of {cfg.d_model} in {secs:.2f} s; random router entropy "
+        f"{ent_r:.4f} max/mean load {load_r:.3f}; k-means router entropy "
+        f"{ent_k:.4f} max/mean load {load_k:.3f} (max entropy "
+        f"{out['max_entropy']:.4f})")
+    return out
+
+
+def moe_layer_phase(dev, gen, cfg, batch, seq):
+    """Phase 24 (c): one MoE layer at ``cfg``'s full width (``batch`` x
+    ``seq`` tokens, bf16, the config's capacity), forward and backward:
+    two passes ``torch.equal`` in the output and the gradients of x,
+    router, w_gate, w_up and w_down; against the same layer in fp32 with
+    the bf16 pass's expert choices replayed, each within 3e-2 of scale;
+    ms by CUDA events; the device ms of a pass by kernel, cuBLAS against
+    the rest (the dispatch and combine glue, the elementwise work)."""
+    import torch
+    moe = importlib.import_module("repro_torch.models.moe")
+    label = f"moe layer {cfg.name}"
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+
+    def draw(*shape, std=1.0):
+        w = torch.randn(shape, generator=gen, device=dev).mul_(std)
+        return w.to(torch.bfloat16).requires_grad_()
+    p = {"router": draw(d, e, std=d ** -0.5),
+         "w_gate": draw(e, d, f, std=d ** -0.5),
+         "w_up": draw(e, d, f, std=d ** -0.5),
+         "w_down": draw(e, f, d, std=f ** -0.5)}
+    x = draw(batch, seq, d)
+    g_out = torch.randn((batch, seq, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+
+    def fwd_bwd(xx, pp, gg):
+        for t in (xx, *pp.values()):
+            t.grad = None
+        out = moe.moe_ffn(xx, pp, cfg)
+        out.backward(gg)
+        return out.detach(), {"x": xx.grad} | {k: v.grad for k, v in
+                                               pp.items()}
+    tape = RouteTape()
+    with tape.record() as rec:
+        out1, g1 = fwd_bwd(x, p, g_out)
+    out2, g2 = fwd_bwd(x, p, g_out)
+    same = {"out": torch.equal(out1, out2)} | {
+        k: torch.equal(g1[k], g2[k]) for k in g1}
+    log(f"{label}: two forward-and-backward passes torch.equal: {same}")
+    check(all(same.values()), f"{label}: two passes differ: {same}")
+    del out2, g2
+    drops = sum(dropped(rec["calls"]))
+    x32 = x.detach().float().requires_grad_()
+    p32 = {k: v.detach().float().requires_grad_() for k, v in p.items()}
+    with tape.replay(rec["calls"]) as rep:
+        out32, g32 = fwd_bwd(x32, p32, g_out.float())
+    errs = {"out": rel_err(out1, out32)} | {k: rel_err(g1[k], g32[k])
+                                            for k in g1}
+    share = differ_share(rep)
+    del x32, p32, out32, g32, out1, g1
+    torch.cuda.empty_cache()
+    log(f"{label}: bf16 against fp32 with the bf16 choices replayed, max "
+        f"difference over scale {errs} (bound 3e-2); fp32 would have "
+        f"chosen otherwise at {share} of the entries; {drops} of "
+        f"{batch * seq * cfg.moe_top_k} (token, k) pairs dropped at "
+        f"capacity {moe.capacity(cfg, batch * seq)}")
+    for nm, err in errs.items():
+        check(err <= 3e-2, f"{label}: {nm} {err:.3g} of scale from fp32")
+
+    def forward():
+        with torch.no_grad():
+            return moe.moe_ffn(x, p, cfg)
+    fwd_ms = median_ms(forward)
+    pass_ms = median_ms(lambda: fwd_bwd(x, p, g_out), reps=5, inner=2)
+    by_kernel = device_ms_by_kernel(lambda: fwd_bwd(x, p, g_out), calls=5)
+    gemm = sum(v for k, v in by_kernel.items() if CUBLAS.search(k))
+    glue = {k: v for k, v in by_kernel.items() if not CUBLAS.search(k)}
+    top = sorted(glue.items(), key=lambda kv: -kv[1])[:8]
+    log(f"{label}: forward {fwd_ms:.3f} ms, forward and backward "
+        f"{pass_ms:.3f} ms (CUDA events); device ms a pass: cuBLAS "
+        f"{gemm:.3f}, the rest {sum(glue.values()):.3f}")
+    for k, v in top:
+        log(f"  {v:9.4f} ms  {k[:90]}")
+    return dict(tokens=batch * seq, dtype="bfloat16", bits_equal=same,
+                fp32_rel_err=errs, fp32_differ_share=share, dropped=drops,
+                capacity=moe.capacity(cfg, batch * seq), forward_ms=fwd_ms,
+                forward_backward_ms=pass_ms, device_ms_cublas=gemm,
+                device_ms_rest=sum(glue.values()),
+                device_ms_rest_top=[[k, v] for k, v in top])
 
 
 # -- phase 2d: the backward kernels against their plain versions --------------
@@ -4512,11 +4900,26 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 24. the MoE FFN: qwen3-moe and llama4-scout served ---------------
+    t0 = time.perf_counter()
+    report["moe_serve"] = moe_rep = moe_serve_phase(
+        dev, wrappers, MOE_SERVE, seed=6, router_init=True)
+    report["scout_serve"] = scout_rep = moe_serve_phase(
+        dev, wrappers, SCOUT_SERVE, seed=7)
+    report["moe_layer"] = moe_layer_phase(
+        dev, torch.Generator(device=dev).manual_seed(8),
+        get_config(MOE_SERVE["arch"]), MOE_SERVE["batch"],
+        MOE_SERVE["prompt"])
+    torch.cuda.empty_cache()
+    log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+
     lm_paths = {"lm_serve": serve_rep["launches"],       # phase 10
                 "train": train_rep["launches"],          # phase 18
                 "mla_serve": mla_rep["launches"],        # phase 21
                 "mla_train": mla_train_rep["launches"],  # phase 22
-                "qwen2_serve": int8_rep["launches"]}     # phase 23
+                "qwen2_serve": int8_rep["launches"],     # phase 23
+                "moe_serve": moe_rep["launches"],        # phase 24 (a)
+                "scout_serve": scout_rep["launches"]}    # phase 24 (b)
     train_paths = {"train": train_rep["launches"],
                    "mla_train": mla_train_rep["launches"]}
 

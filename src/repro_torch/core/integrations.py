@@ -1,6 +1,9 @@
 """Integrations of KPynq K-means into the LM stack (port of
 ``repro.core.integrations``).
 
+``kmeans_router_init`` bootstraps a MoE model's routers from the
+K-means centroids of token embeddings: each expert starts as the owner
+of a region of embedding space instead of a random hyperplane.
 ``cluster_kv_cache`` compresses a long-context KV cache: each head's
 keys are clustered with the filtered (Yinyang) fit, the port's
 ``core.kmeans.yinyang`` as the reference runs its own, and each head's
@@ -9,13 +12,12 @@ K weighted centroids (``clustered_attention_scores``) instead of S
 positions. No kernel of the port lies on this path, as no Pallas kernel
 lies on the reference's.
 
-Seeds: the reference starts each head from
-``kmeans_plusplus(PRNGKey(seed + head))``, which torch cannot draw; the
-port starts it from its own k-means++ on ``torch.Generator`` seeded
-``seed + head``, or from the starting centroids a caller passes
-(``inits``), which is how the parity tests hand JAX's across.
-``kmeans_router_init`` needs the MoE parameters of ROADMAP Queue 1
-item 11.3 and raises until they are ported.
+Seeds: the reference starts each head (and the router's fit) from
+``kmeans_plusplus(PRNGKey(seed + head))`` (``PRNGKey(seed)``), which
+torch cannot draw; the port starts it from its own k-means++ on
+``torch.Generator`` seeded ``seed + head`` (``seed``), or from the
+starting centroids a caller passes (``inits``, ``init``), which is how
+the parity tests hand JAX's across.
 """
 from __future__ import annotations
 
@@ -26,12 +28,31 @@ from .init import kmeans_plusplus
 from .kmeans import yinyang
 
 
-def kmeans_router_init(params: dict, cfg, sample_tokens, seed: int = 0):
-    """Re-initialise every MoE router to centroid directions of the
-    token embeddings: needs the MoE FFN, not ported yet."""
-    raise NotImplementedError(
-        "kmeans_router_init needs the MoE parameters, which are not "
-        "ported yet (ROADMAP.md, Queue 1 item 11.3)")
+def kmeans_router_init(params: dict, cfg, sample_tokens, seed: int = 0,
+                       init=None) -> dict:
+    """``params`` with every layer's MoE router re-initialised to the
+    centroid directions of the sample tokens' embeddings: a Yinyang fit
+    of ``cfg.n_experts`` centroids (25 iterations at most, tol 1e-4)
+    from the port's k-means++ on ``torch.Generator(seed)``, or from
+    ``init`` (E, D); each centroid over its norm + 1e-6, transposed to
+    (D, E) in the embedding's dtype, the same for every layer. The other
+    leaves are ``params``' own (not copied)."""
+    if cfg.family != "moe":
+        raise ValueError("router bootstrap only applies to MoE archs")
+    embed = params["embed"]
+    tokens = torch.as_tensor(sample_tokens, device=embed.device)
+    embeds = F.embedding(tokens.reshape(-1).long(), embed).float()
+    if init is None:
+        gen = torch.Generator(device=embeds.device).manual_seed(seed)
+        init = kmeans_plusplus(gen, embeds, cfg.n_experts)
+    else:
+        init = torch.as_tensor(init).to(embeds.device, torch.float32)
+    c = yinyang(embeds, init, max_iters=25, tol=1e-4).centroids
+    c = c / (torch.linalg.vector_norm(c, dim=-1, keepdim=True) + 1e-6)
+    router = c.T.to(embed.dtype)                            # (D, E)
+    moe = dict(params["layers"]["moe"])
+    moe["router"] = router.expand(cfg.n_layers, *router.shape).contiguous()
+    return {**params, "layers": {**params["layers"], "moe": moe}}
 
 
 def cluster_kv_head(keys, values, init_centroids, *, max_iters: int = 15,

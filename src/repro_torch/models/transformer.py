@@ -7,13 +7,13 @@ carry across one to one (``repro_torch.convert``); the layers run in a
 Python loop over that axis, each leaf unbound once a pass (the
 gradient of ``unbind`` is one ``stack``, where a ``select`` per layer
 would build a zero tensor of the whole stack per layer). Every config
-without MoE is supported: dense (MLA among them), vlm (with
-``vision_embeds``), audio, ssm and hybrid. ``kv_cache_dtype="int8"``
-quantizes the GQA cache of dense, vlm and audio configs, as the
-reference does; MLA and ssm configs ignore it, as the reference does;
-a hybrid config with it raises (the reference's hybrid int8 cache is
-faulty, ROADMAP.md Queue 3 item 11). MoE raises
-``NotImplementedError`` naming its ROADMAP.md item.
+is supported: dense (MLA among them), moe (``models.moe.moe_ffn`` in
+place of the dense SwiGLU, in training, prefill and decode alike), vlm
+(with ``vision_embeds``), audio, ssm and hybrid.
+``kv_cache_dtype="int8"`` quantizes the GQA cache of dense, moe, vlm
+and audio configs, as the reference does; MLA and ssm configs ignore
+it, as the reference does; a hybrid config with it raises (the
+reference's hybrid int8 cache is faulty, ROADMAP.md Queue 3 item 11).
 
 ``cfg.remat == "full"`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
@@ -32,6 +32,7 @@ from .attention import (gqa_decode, gqa_train, mla_decode, mla_train,
                         quantize_kv)
 from .layers import cross_entropy_chunked, rms_norm, swiglu
 from .mamba import mamba_mixer_decode, mamba_mixer_train
+from .moe import moe_ffn
 
 # ---------------------------------------------------------------------------
 # parameter construction
@@ -40,16 +41,11 @@ from .mamba import mamba_mixer_decode, mamba_mixer_train
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run."""
-    def not_ported(what, item):
-        return NotImplementedError(f"{cfg.name}: {what} is not ported yet "
-                                   f"(ROADMAP.md, Queue 1 item 11.{item})")
     m = cfg.mla
     if m is not None and m.v_dim > m.nope_dim + m.rope_dim:
         # V is zero-padded to the q.k width for the attention kernel
         raise NotImplementedError(f"{cfg.name}: MLA with v_dim {m.v_dim} "
                                   f"wider than nope + rope")
-    if cfg.family == "moe" or cfg.n_experts:
-        raise not_ported("the MoE FFN", 3)
     if cfg.family == "hybrid" and _int8_cache(cfg):
         raise NotImplementedError(
             f"{cfg.name}: kv_cache_dtype='int8' on a hybrid config is "
@@ -195,7 +191,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             std = 0.02 if name in ("embed", "lm_head") else fan_in ** -0.5
             leaf = torch.randn(shape, generator=generator,
                                device=generator.device)
-            leaf = (leaf * std).to(device=dev, dtype=dt)
+            # scaled in place: one fp32 copy of the leaf, not two
+            leaf = leaf.mul_(std).to(device=dev, dtype=dt)
         leaves[path] = leaf
     return rebuild(shapes, leaves)
 
@@ -227,8 +224,11 @@ def _embed(params, tokens, cfg: ArchConfig, vision_embeds=None):
 def _ffn(x, lp, cfg: ArchConfig):
     if cfg.d_ff:
         h2 = rms_norm(x, lp["ln2"])
-        x = x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
-                       lp["mlp"]["w_down"])
+        if cfg.family == "moe":
+            x = x + moe_ffn(h2, lp["moe"], cfg)
+        else:
+            x = x + swiglu(h2, lp["mlp"]["w_gate"], lp["mlp"]["w_up"],
+                           lp["mlp"]["w_down"])
     return x
 
 

@@ -1364,3 +1364,66 @@ def test_train_step_on_card_matches_cpu_and_repeats(arch):
         assert torch.equal(a, b)
         if a.is_floating_point():
             assert _scaled_err(a.cpu(), c) <= 1e-4
+
+
+# -- the MoE FFN on the card ---------------------------------------------------
+
+def _moe_case(arch, seed, dtype, device):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()       # capacity factor 1.25: drops
+    rng = np.random.default_rng(seed)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    shapes = {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
+              "w_down": (e, f, d)}
+    p = {k: torch.from_numpy((rng.standard_normal(s) * s[-2] ** -0.5)
+                             .astype(np.float32)).to(device, dtype)
+         .requires_grad_() for k, s in shapes.items()}
+    # one shared direction crowds the tokens onto some experts
+    x = rng.standard_normal((2, 24, d)) + 1.5 * rng.standard_normal(d)
+    x = torch.from_numpy(x.astype(np.float32)).to(device, dtype)
+    r = torch.from_numpy(rng.standard_normal((2, 24, d)).astype(np.float32))
+    return cfg, x.requires_grad_(), p, r.to(device, dtype)
+
+
+def _moe_pass(cfg, x, p, r):
+    from repro_torch.models.moe import moe_ffn
+    for t in (x, *p.values()):
+        t.grad = None
+    out = moe_ffn(x, p, cfg)
+    (out * r).sum().backward()
+    return out.detach(), {"x": x.grad} | {k: t.grad for k, t in p.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_ffn_on_card_matches_cpu(arch):
+    """fp32, experts overflowing at the config's capacity: the output
+    within 1e-5 of the CPU's scale, every gradient within 1e-4 (sums in
+    another order)."""
+    _need_card()
+    cpu_out, cpu_grads = _moe_pass(*_moe_case(arch, 0, torch.float32, "cpu"))
+    out, grads = _moe_pass(*_moe_case(arch, 0, torch.float32, "cuda"))
+    assert _scaled_err(out.cpu(), cpu_out) <= 1e-5
+    for name, g in grads.items():
+        if not cpu_grads[name].abs().max():      # top-1: the router's
+            assert not g.abs().max(), name
+            continue
+        assert _scaled_err(g.cpu(), cpu_grads[name]) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_ffn_on_card_repeats_bit_for_bit(arch, dtype):
+    """Two forward-and-backward passes on the same inputs give the same
+    bits: no scatter-add or atomic accumulation on the path."""
+    _need_card()
+    case = _moe_case(arch, 1, dtype, "cuda")
+    out1, g1 = _moe_pass(*case)
+    g1 = {k: v.clone() for k, v in g1.items()}
+    out2, g2 = _moe_pass(*case)
+    assert torch.equal(out1, out2)
+    for name in g1:
+        assert torch.equal(g1[name], g2[name]), name

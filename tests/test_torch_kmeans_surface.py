@@ -1,6 +1,6 @@
 """The rest of the port's k-means surface against the JAX package's, on
 the CPU: ``configs.kpynq``, ``TokenPipeline`` and ``PrefetchingLoader``
-(``repro_torch.data``), ``core.integrations`` and the three examples
+(``repro_torch.data``), ``core.integrations`` and the four examples
 (``repro_torch.examples``).
 
 ``cluster_kv_cache`` runs both packages' plain Yinyang fits from JAX's
@@ -8,7 +8,9 @@ per-head k-means++ seeds (handed to the port as ``inits``), on keys
 drawn as blobs so that no point sits at a near-tie between two
 centroids: centroids, value means and counts within rtol 1e-5 (fp32
 sums in another order). ``clustered_attention_scores`` on the same
-inputs within rtol 1e-5. Batches and configs are compared exactly.
+inputs within rtol 1e-5. ``kmeans_router_init`` runs both packages'
+fits from JAX's k-means++ seeds (``init``) over JAX's embeddings:
+routers within 1e-6. Batches and configs are compared exactly.
 """
 import dataclasses
 
@@ -21,15 +23,19 @@ import torch
 from repro.configs import get_config as jax_config
 from repro.configs import kpynq as jax_kpynq
 from repro.core.init import kmeans_plusplus as jax_kmeans_plusplus
+import repro.models as jax_models
 from repro.core.integrations import cluster_kv_cache as jax_cluster_kv
+from repro.core.integrations import kmeans_router_init as jax_router_init
 from repro.core.integrations import \
     clustered_attention_scores as jax_clustered_scores
 from repro.data import TokenPipeline as JaxPipeline
 from repro_torch import configs
 from repro_torch.configs import get_config
+from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core import integrations
 from repro_torch.data import PointStream, PrefetchingLoader, TokenPipeline
-from repro_torch.examples import kmeans_clustering, quickstart, serve_kmeans
+from repro_torch.examples import (expert_bootstrap, kmeans_clustering,
+                                  quickstart, serve_kmeans)
 from repro_torch.streaming import StreamingKMeans
 
 
@@ -175,8 +181,51 @@ def test_cluster_kv_cache_own_seeds_and_router():
     again = integrations.cluster_kv_cache(torch.from_numpy(keys),
                                           torch.from_numpy(vals), 4, seed=3)
     assert torch.equal(c, again[0])
-    with pytest.raises(NotImplementedError, match="item 11.3"):
-        integrations.kmeans_router_init({}, None, None)
+    # the router bootstrap refuses a config without experts, as the
+    # reference does
+    with pytest.raises(ValueError, match="only applies to MoE"):
+        integrations.kmeans_router_init({}, get_config("qwen2-7b").reduced(),
+                                        None)
+
+
+# -- the MoE router bootstrap --------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_kmeans_router_init_matches_jax(arch, seed):
+    """Both packages' Yinyang fits from JAX's k-means++ seeds (handed to
+    the port as ``init``) over JAX's embeddings of the same tokens: every
+    layer's router within 1e-6 (fp32 sums in another order), every other
+    leaf untouched."""
+    jcfg, cfg = jax_config(arch).reduced(), get_config(arch).reduced()
+    jparams = jax_models.init_params(jax.random.PRNGKey(seed), jcfg)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (4, 128))
+    toks = toks.astype(np.int32)
+    want = jax_router_init(jparams, jcfg, jnp.asarray(toks), seed=seed)
+    embeds = jnp.take(jparams["embed"], jnp.asarray(toks).reshape(-1),
+                      axis=0).astype(jnp.float32)
+    init = np.array(jax_kmeans_plusplus(jax.random.PRNGKey(seed), embeds,
+                                        jcfg.n_experts))
+    params = lm_params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                  device="cpu")
+    got = integrations.kmeans_router_init(params, cfg, torch.from_numpy(toks),
+                                          init=init)
+    router = got["layers"]["moe"]["router"]
+    assert tuple(router.shape) == (cfg.n_layers, cfg.d_model, cfg.n_experts)
+    np.testing.assert_allclose(router.numpy(),
+                               np.asarray(want["layers"]["moe"]["router"]),
+                               rtol=0, atol=1e-6)
+    assert got["layers"]["moe"]["w_gate"] is params["layers"]["moe"]["w_gate"]
+    assert got["embed"] is params["embed"]
+    # its own k-means++ seeds: unit columns (but for the + 1e-6 over
+    # centroid norms of about 0.05), the same on a second call
+    own = integrations.kmeans_router_init(params, cfg, torch.from_numpy(toks),
+                                          seed=seed)["layers"]["moe"]["router"]
+    np.testing.assert_allclose(own.norm(dim=1).numpy(), 1.0, atol=1e-4)
+    assert torch.equal(own, integrations.kmeans_router_init(
+        params, cfg, torch.from_numpy(toks), seed=seed)["layers"]["moe"]
+        ["router"])
 
 
 # -- the examples --------------------------------------------------------------
@@ -193,6 +242,15 @@ def test_kmeans_clustering_example_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "uci-medium" in out and "telemetry:" in out
     assert "matches single-device: True" in out
+
+
+def test_expert_bootstrap_example_on_cpu(capsys):
+    (ent_rand, load_rand), (ent_km, load_km) = expert_bootstrap.main(
+        ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "random router: entropy=" in out and "kmeans router" in out
+    for ent, load in ((ent_rand, load_rand), (ent_km, load_km)):
+        assert 0.0 < ent <= np.log(4) + 1e-9 and 1.0 <= load <= 4.0
 
 
 def test_serve_example_on_cpu(capsys):

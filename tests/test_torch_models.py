@@ -30,14 +30,28 @@ from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
 from repro_torch.models.mamba import ssd_chunked
 from repro_torch.train import make_prefill_step, make_serve_step
 
-ARCHS = ["qwen2-7b", "mamba2-780m", "hymba-1.5b", "minicpm3-4b"]
+ARCHS = ["qwen2-7b", "mamba2-780m", "hymba-1.5b", "minicpm3-4b",
+         "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"]
 SUPPORTED = ARCHS + ["phi4-mini-3.8b", "mistral-nemo-12b",
                      "musicgen-medium", "llava-next-mistral-7b"]
 
 
+def _ample(cfg):
+    """A MoE config at ample capacity (``n_experts / moe_top_k``): no
+    pair drops, so a token's output does not hang on the batch's other
+    tokens (the reference's overflow is faulty, ROADMAP.md Queue 3 item
+    12, and is held in ``tests/test_torch_moe.py``)."""
+    if cfg.family != "moe":
+        return cfg
+    return dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.n_experts / cfg.moe_top_k)
+
+
 def _configs(arch, dtype="float32"):
-    return (dataclasses.replace(jax_config(arch).reduced(), dtype=dtype),
-            dataclasses.replace(get_config(arch).reduced(), dtype=dtype))
+    return (_ample(dataclasses.replace(jax_config(arch).reduced(),
+                                       dtype=dtype)),
+            _ample(dataclasses.replace(get_config(arch).reduced(),
+                                       dtype=dtype)))
 
 
 def _params(jcfg, cfg, seed):
@@ -178,7 +192,7 @@ def test_ssd_chunked_matches_jax(s, h, g, chunk):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_matches_decode_continuation(arch):
-    cfg = get_config(arch).reduced()
+    cfg = _ample(get_config(arch).reduced())
     params = tm.init_params(cfg, torch.Generator().manual_seed(4),
                             device="cpu")
     b, s = 2, 8
@@ -219,19 +233,13 @@ def test_init_params_follows_the_reference_layout():
     assert abs(float(w.std()) * cfg.d_model ** 0.5 - 1.0) < 0.1
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("qwen3-moe-235b-a22b", "Queue 1 item 11.3"),
-    ("llama4-scout-17b-a16e", "Queue 1 item 11.3"),
-    ("hybrid-int8", "Queue 3 item 11")])
+@pytest.mark.parametrize("arch,item", [("hybrid-int8", "Queue 3 item 11")])
 def test_unsupported_configs_raise(arch, item):
-    """MoE is not ported yet; a hybrid config with the int8 cache is
-    refused, as the reference's path for it is faulty (it prefills
-    unquantized k and v into int8 and reads them back unscaled)."""
-    if arch == "hybrid-int8":
-        cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(),
-                                  kv_cache_dtype="int8")
-    else:
-        cfg = get_config(arch).reduced()
+    """A hybrid config with the int8 cache is refused, as the
+    reference's path for it is faulty (it prefills unquantized k and v
+    into int8 and reads them back unscaled)."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(),
+                              kv_cache_dtype="int8")
     gen = torch.Generator().manual_seed(0)
     # each names its ROADMAP item
     with pytest.raises(NotImplementedError, match=f"{item}\\)"):
@@ -241,6 +249,61 @@ def test_unsupported_configs_raise(arch, item):
     # the shape tree is data and stays available
     assert tm.param_shapes(cfg)["layers"]["ln1"] == (cfg.n_layers,
                                                      cfg.d_model)
+
+
+def test_moe_decode_matches_with_ample_capacity():
+    """The port's counterpart of the reference's test of the same name:
+    every position decoded one token at a time from an empty cache
+    against the training forward's logits, at a capacity where nothing
+    drops."""
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(),
+                              moe_capacity_factor=100.0)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    b, s = 2, 12
+    toks = torch.from_numpy(_tokens(cfg, b, s, seed=3))
+    logits_train = tm.forward(params, toks, cfg) @ params["lm_head"]
+    cache = tm.init_cache(cfg, b, s, device="cpu")
+    outs = []
+    for t in range(s):
+        lg, cache = tm.decode_step(params, cache, toks[:, t:t + 1], t, cfg)
+        outs.append(lg[:, 0])
+    err = float((logits_train - torch.stack(outs, 1)).abs().max())
+    assert err < 1e-3, err
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "hymba-1.5b"])
+def test_init_params_scales_in_place_to_the_same_bits(arch):
+    """``init_params`` scales each normal draw in place (one fp32 copy
+    of a leaf, which lets 8 layers of qwen3-moe-235b-a22b be drawn on
+    one card): the same bits as the draw scaled out of place."""
+    cfg = get_config(arch).reduced()
+    params = tm.init_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    from repro_torch.models.transformer import flatten_with_path
+    for path, leaf in flatten_with_path(params):
+        name = path.split("/")[-1]
+        if name in ("A_log", "dt_bias", "D") or "norm" in name or \
+                name in ("ln1", "ln2", "mix_na", "mix_nm"):
+            continue
+        shape = tuple(leaf.shape)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = 0.02 if name in ("embed", "lm_head") else fan_in ** -0.5
+        want = (torch.randn(shape, generator=gen) * std).to(leaf.dtype)
+        assert torch.equal(leaf, want), path
+
+
+def test_moe_layout_follows_the_reference():
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    jparams = jm.init_params(jax.random.PRNGKey(0),
+                             jax_config("qwen3-moe-235b-a22b").reduced())
+    assert "mlp" not in params["layers"]
+    for name, leaf in params["layers"]["moe"].items():
+        assert tuple(leaf.shape) == \
+            tuple(jparams["layers"]["moe"][name].shape), name
 
 
 def test_configs_match_the_reference():
