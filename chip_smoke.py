@@ -330,15 +330,46 @@ the order they run:
    and the four leaves ``torch.equal``; against fp32 with the bf16
    choices replayed within 3e-2 of scale; ms by CUDA events and a
    pass's device ms, cuBLAS against the rest.
+25. the sharded train state (``repro_torch.launch``,
+   ``train.make_sharded_train_step``, the parent's cached memory freed
+   first): (a) hymba-1.5b at full width cut to 16 of 32 layers (bf16
+   parameters from a seeded generator, fp32 moments, ``remat="full"``)
+   over a world of 4 ``gloo`` ranks sharing the card, mesh (2, 2)
+   ("data", "model"), 3 steps of 2 x 2048 tokens, the main path (the LM
+   kernels' counts reset just before and read just after on every
+   rank): step 1's loss within 2e-3 and ``grad_norm`` within 1e-2
+   (relative) of the parent's single-device step from the same state,
+   the same step twice from one state bit for bit, every shard the
+   shape DTensor's rule gives, the ranks' losses alike, each step's
+   time and its transfers' time, each rank's peak memory; in the same
+   world, on phase 19's cut (2 layers, 512 tokens, full width: its
+   checkpoints about 2 GB), (b) the state after 2 steps saved (each
+   distinct shard sent to rank 0, which writes) and resumed on mesh
+   (4, 1) through ``ElasticController``, the saved and the resumed
+   state's shards each their slice of the file bit for bit, and the
+   parent's unsharded restore of the same checkpoint the file's bits,
+   and (c) ``ResilientLoop(state_shardings=...)``, 4 steps, a
+   checkpoint every 2, a failure at step 2, bit for bit its
+   uninterrupted run; (f) ``python -m repro_torch.examples.train_lm``
+   as a process beside that world: it exits 0 and its last loss is
+   below its first; (d) a world of 1 over NCCL at full depth: the
+   sharded step on the trivial mesh bit for bit phase 18's first step
+   from the same state (parameters, moments, loss); (e) ``python -m
+   repro_torch.launch.train --arch hymba-1.5b --steps 6 --batch 2
+   --seq 512 --fail-at 3`` as a process: it exits 0 and prints its loss
+   and ``restarts=1``; (g) ``roofline.model_flops`` of phases 18 and
+   22's steps over their median step times and the card's bf16 peak,
+   beside the card's name and power limit.
 
-Phases 11-17 run after phase 7, before 2c; 2d, then 18-24, after 10.
+Phases 11-17 run after phase 7, before 2c; 2d, then 18-25, after 10.
 The last lines are a ``kernels`` JSON line (each kernel's ``launches``
 is the sum of its ``launches_by_path``: the k-means kernels' on the
 main fit and predict, phase 13's ``kernel`` backend, phase 14's stream,
 phase 15's resilient stream, phase 16's sharded fit and phase 17's
 sharded stream, each summed over its ranks; the LM kernels' on the
 serving paths of phases 10, 21, 23 and 24 and the training steps of
-phases 18 and 22), the card's name
+phases 18, 22 and 25 (a), the last summed over its ranks), the card's
+name
 and power limit from ``nvidia-smi``, and ``{"ok": true, "device":
 {...}}``. The
 script exits non-zero, printing no result, where CUDA is missing or the
@@ -410,6 +441,39 @@ SCOUT_SERVE = dict(arch="llama4-scout-17b-a16e", layers=4, batch=2,
 MOE_FP32_LAYERS = 2
 RESILIENT_TRAIN = dict(layers=2, seq=512, steps=8, ckpt_every=4,
                        fail_at=6)
+# phase 25: the sharded train state (repro_torch.launch): hymba-1.5b at
+# full width over a world of 4 gloo ranks sharing the card, mesh (2, 2),
+# cut to 16 of its 32 layers (8.72e8 parameters: 2.18 GB of shards a
+# rank beside its gathered parameters and gradients, 1.74 GB each); the
+# elastic resume and the replay on phase 19's cut (2 layers, 512 tokens:
+# checkpoints of about 2 GB, where the 16 layers' are 8.7 GB); (d) and
+# (e) at full depth, (e) the launcher as a user runs it. The ranks'
+# unsharded yardstick steps run one rank at a time (a state and the
+# step's new one and fp32 gradients, about 25 GB)
+SHARDED_TRAIN = dict(arch="hymba-1.5b", world=4, mesh=(2, 2), layers=16,
+                     batch=2, seq=2048, steps=3, seed=9, elastic=(4, 1),
+                     save_at=2, timeout=900, rate_bytes=64 << 20,
+                     replay=dict(layers=2, seq=512, steps=4, ckpt_every=2,
+                                 fail_at=2))
+# phase 25 (a)'s bounds, relative: the losses and grad_norms of steps 1-3
+# against make_train_step's; the full state after steps 1 and 3, by leaf
+# (Frobenius: a parameter's change from the initial state, a moment),
+# rowwise_train_step's against make_train_step's, and the sharded state
+# against rowwise_train_step's (after step 1, after step 3). Readings
+# on an H100 80GB HBM3 at 700 W: losses 4.5e-7, 2.8e-5, 2.0e-5 and
+# grad_norms 2.0e-4, 4.7e-4, 4.4e-5 from make_train_step's; rowwise
+# against make_train_step moments up to 0.066, changes up to 0.22 (bf16
+# gradients of one row against one pass over two; step 1's change is
+# under bf16's step for most parameters); sharded against rowwise
+# bit for bit after step 1, and after step 3 moments 0.022, changes
+# 0.082 (the global norm's sums in another order move step 2's clip by
+# an ulp, and some bf16 parameters round the other way). A gradient
+# shard on another parameter's shard is off by about 1.4.
+SHARDED_BOUNDS = dict(loss=2e-4, grad_norm=2e-3, params=0.5, moments=0.2,
+                      rowwise_loss=1e-4, rowwise_params=(1e-6, 0.3),
+                      rowwise_moments=(1e-6, 0.1))
+LAUNCHER = ["--arch", "hymba-1.5b", "--steps", "6", "--batch", "2", "--seq",
+            "512", "--fail-at", "3"]
 # phase 20: the k-means clusters of phase 10's layer-0 KV cache
 KV_CLUSTERS = 64
 # phase 2b: filtered_assign at a D too wide for whole rows in shared
@@ -3740,6 +3804,796 @@ def sharded_stream_phase(dev, pts_np, k, n_groups, yard, stream_rep,
     return rep
 
 
+# -- phase 25: the sharded train state ---------------------------------------
+
+LM_WRAPPERS = ("flash_attention", "ssd_intra", "flash_attention_bwd",
+               "ssd_intra_bwd")
+
+
+def lm_wrappers() -> dict:
+    """The LM kernels' wrappers by the ``kernels`` line's names."""
+    import repro_torch.kernels as kernels
+    return {"flash_attention": kernels.flash_attention,
+            "ssd_intra": kernels.ssd_intra,
+            "flash_attention_bwd":
+                kernel_module("flash_attention").flash_attention_gqa_bwd,
+            "ssd_intra_bwd": kernel_module("ssd_intra").ssd_intra_chunks_bwd}
+
+
+def _shards_equal(a, b) -> bool:
+    """Whether two states placed alike hold the same bits: each rank
+    compares its own shards (the shards cover every leaf), no
+    collective."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.dtensor import local_tensor
+    same = True
+    for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]):
+        check(getattr(x, "placements", None) == getattr(y, "placements",
+                                                        None),
+              "phase 25: two states compared shard by shard are placed "
+              "differently")
+        x, y = local_tensor(x), local_tensor(y)
+        same &= x.dtype == y.dtype and x.shape == y.shape \
+            and bool(torch.equal(x, y))
+    return same
+
+
+def _shards_are_file(state, arrays) -> bool:
+    """Whether each of this rank's shards of ``state`` holds the bytes of
+    its slice of the checkpoint's host leaves ``arrays``."""
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.dtensor import local_slices
+    same = True
+    for x, a in zip(tree_flatten(state)[0], arrays):
+        sl = local_slices(x.shape, x.device_mesh.shape,
+                          x.device_mesh.get_coordinate(), x.placements)
+        same &= _same_bytes(x.to_local(), a[sl])
+    return same
+
+
+def _same_bytes(t, arr) -> bool:
+    """Whether tensor ``t`` holds the bytes of numpy array ``arr``."""
+    import torch
+    t = t.detach().cpu().contiguous().reshape(-1)
+    a = np.ascontiguousarray(arr).reshape(-1)
+    return t.numel() * t.element_size() == a.nbytes and bool(np.array_equal(
+        t.view(torch.uint8).numpy(), a.view(np.uint8)))
+
+
+def _collective_rates(dev, mesh, nbytes, reps=3) -> dict:
+    """The bytes a second that reach a rank of a ``gloo`` world, through
+    the host from the card, when every rank of a group hands every
+    other one ``nbytes``: ``all_gather`` (``core.distributed._gather``,
+    the route of ``dtensor.gather_full``) against point-to-point
+    (``dtensor.exchange``, the route of ``dtensor.reduce_to_shard``), in
+    turns, over the world and over mesh dimension 1's pairs. Medians of
+    ``reps`` turns."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import _gather
+    from repro_torch.dtensor import exchange
+    x = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, device=dev)
+
+    def settle():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    out = {}
+    for label, group in (("world", dist.group.WORLD),
+                         ("pair", mesh.get_group(1))):
+        ranks = dist.get_process_group_ranks(group)
+        peers = [r for r in ranks if r != dist.get_rank()]
+        times = {"all_gather": [], "p2p": []}
+        for _ in range(reps):
+            for route in times:
+                dist.barrier()
+                settle()
+                t = time.perf_counter()
+                if route == "all_gather":
+                    _gather(x, group, len(ranks))
+                else:
+                    exchange({r: x for r in peers},
+                             {r: ((nbytes,), torch.uint8) for r in peers},
+                             dev)
+                settle()
+                times[route].append(time.perf_counter() - t)
+        out[label] = {route: len(peers) * nbytes / statistics.median(ts)
+                      for route, ts in times.items()}
+    return out
+
+
+def rowwise_train_step(cfg, parts: int):
+    """The sharded step's arithmetic on one device, without placements:
+    the batch's rows cut into ``parts`` blocks as the data axis cuts
+    them, each block's gradient from a pass of its own
+    (``loss_and_grads``), their fp32 mean added in block order, then
+    AdamW on the whole leaves. Phase 25 holds the sharded state to it
+    tightly; ``make_train_step`` (one pass over every row, bf16
+    gradients) differs from it by bf16's rounding."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_flatten, tree_unflatten
+    from repro_torch.data import to_device
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train import TrainState, loss_and_grads
+
+    def step(state, batch):
+        n = len(batch["tokens"]) // parts
+        acc, loss = None, None
+        for j in range(parts):
+            rows = to_device({k: v[j * n:(j + 1) * n]
+                              for k, v in batch.items()}, state.step.device)
+            part_loss, grads = loss_and_grads(state.params, rows, cfg)
+            leaves, treedef, _ = tree_flatten(grads)
+            del grads, rows
+            part = [g.float() for g in leaves]
+            del leaves
+            acc = part if acc is None else [a + g for a, g in zip(acc, part)]
+            loss = part_loss.float() if loss is None \
+                else loss + part_loss.float()
+            del part
+        grads = tree_unflatten(treedef, [a / parts for a in acc])
+        del acc
+        with torch.no_grad():
+            p, m, v, metrics = adamw_update(grads, state.m, state.v,
+                                            state.params, state.step,
+                                            AdamWConfig())
+        metrics["loss"] = loss / parts
+        return TrainState(state.step + 1, p, m, v), metrics
+
+    return step
+
+
+def _slices_of(state, shardings) -> dict:
+    """This rank's slices of a full state's params, m and v under
+    ``shardings``, on the host: {tree: [leaf slices]}."""
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.dtensor import local_slices
+    out = {}
+    for k in ("params", "m", "v"):
+        out[k] = []
+        for x, sh in zip(tree_flatten(getattr(state, k))[0],
+                         tree_flatten(getattr(shardings, k))[0]):
+            sl = local_slices(x.shape, sh.mesh.shape,
+                              sh.mesh.get_coordinate(), sh.placements)
+            out[k].append(x[sl].cpu().clone())
+    return out
+
+
+def _gap_sums(state, ref, init) -> dict:
+    """Per leaf of params, m and v: ``[sum (got - want)^2, sum ref^2,
+    elements that differ]`` over this rank's shards (a plain state's
+    whole leaves), in float64, where ``want`` is the leaf ``ref``
+    (the rank's slice of the unsharded state) and
+    ``ref`` is ``want`` for a moment and ``want - init`` (the update)
+    for a parameter. The parent adds them over the ranks (a replicated
+    shard counts once a rank on both sides of the ratio)."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.dtensor import local_tensor
+    out = {}
+    for k in ("params", "m", "v"):
+        rows = []
+        for i, x in enumerate(tree_flatten(getattr(state, k))[0]):
+            got = local_tensor(x).double()
+            want = ref[k][i].to(got.device).double()
+            base = want - init[i].to(got.device).double() \
+                if k == "params" else want
+            rows.append([float(torch.sum(torch.square(got - want))),
+                         float(torch.sum(torch.square(base))),
+                         int(torch.count_nonzero(got != want))])
+        out[k] = rows
+    return out
+
+
+def sharded_train_rank(rank, world, job):
+    """One rank of phase 25's world (``spawn_world`` runs it, every rank
+    on the card). (a) :func:`rowwise_train_step` from the same seed on
+    this rank, the ranks one after another, kept as this rank's slices
+    of the state after step 1 and the last; then the sharded step on
+    mesh ``job["mesh"]``: each shard's shape against DTensor's own rule,
+    ``job["steps"]`` steps from the initial state, the main path, with
+    the LM kernels' counts reset just before and read just after and
+    each step's transfers timed; the state after step 1 and the last
+    against the unsharded slices (:func:`_gap_sums`); the first step
+    again from the initial state (the same bits); the collectives'
+    rates (:func:`_collective_rates`). (b) the state after
+    ``job["save_at"]`` steps saved and resumed onto mesh
+    ``job["elastic"]`` (``ElasticController``), bit for bit; (c)
+    ``ResilientLoop(state_shardings=...)`` on the replay cut through a
+    failure, bit for bit its uninterrupted run. Returns this rank's
+    report."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    import repro_torch.core.distributed as core_dist
+    import repro_torch.dtensor as dtensor
+    from repro_torch.checkpoint import load_checkpoint_arrays, save_checkpoint
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.sharding import (batch_pspecs, named,
+                                             train_state_pspecs)
+    from repro_torch.runtime import (ElasticController, FailureInjector,
+                                     ResilientLoop)
+    from repro_torch.train import init_train_state, make_sharded_train_step
+
+    dev = torch.device("cpu" if job["rehearsal"] else "cuda")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    wrappers = lm_wrappers()
+    cfg = get_config(job["arch"])
+    cfg = dataclasses.replace(cfg.reduced() if job["rehearsal"] else cfg,
+                              n_layers=job["layers"])
+
+    def rank_sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def mesh_of(shape):
+        return init_device_mesh(dev.type, tuple(shape),
+                                mesh_dim_names=("data", "model"))
+
+    def shapes_ok(leaves):
+        """Each shard the shape DTensor's own rule gives."""
+        return all(tuple(x.to_local().shape) == tuple(
+            compute_local_shape_and_global_offset(x.shape, x.device_mesh,
+                                                  x.placements)[0])
+            for x in leaves)
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(job["seed"])
+
+    def setup(c, mesh):
+        st_sh = named(mesh, train_state_pspecs(c))
+        step = make_sharded_train_step(c, st_sh,
+                                       named(mesh, batch_pspecs(c, mesh)))
+        state = init_train_state(c, seeded(), device=dev, shardings=st_sh)
+        return st_sh, step, state
+
+    out = {"device": str(dev)}
+    mesh = mesh_of(job["mesh"])
+    pipe = TokenPipeline(cfg, batch=job["batch"], seq=job["seq"], seed=0)
+    st_sh = named(mesh, train_state_pspecs(cfg))
+    last = job["steps"]
+
+    # the yardstick for the state: the sharded step's arithmetic on one
+    # device (rowwise_train_step), one rank at a time (a state, the
+    # step's new one and fp32 gradients are about 25 GB at 16 layers)
+    tok = named(mesh, batch_pspecs(cfg, mesh))["tokens"]
+    parts = math.prod(mesh.shape[i] for i, p in enumerate(tok.placements)
+                      if isinstance(p, Shard))
+    ref, ref_losses = {}, []
+    for r in range(world):
+        if r == rank:
+            st = init_train_state(cfg, seeded(), device=dev)
+            unsharded = rowwise_train_step(cfg, parts)
+            for i in range(last):
+                st, met = unsharded(st, pipe.global_batch(i))
+                ref_losses.append(float(met["loss"]))
+                if i + 1 in (1, last):
+                    ref[i + 1] = _slices_of(st, st_sh)
+            del st, met
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    if dev.type == "cuda":
+        out["after_yardstick_gib"] = torch.cuda.memory_reserved(dev) / 2**30
+
+    st_sh, step, state0 = setup(cfg, mesh)
+    leaves = tree_flatten(state0)[0]
+    out["shapes_ok"] = shapes_ok(leaves)
+    out["shard_bytes"] = sum(x.to_local().numel() * x.to_local().element_size()
+                             for x in leaves)
+    del leaves
+
+    # the main path: each step's collectives timed between two syncs of
+    # the card (a gloo transfer copies through the host anyway)
+    spent = []
+
+    def timed(fn):
+        def run(*args):
+            rank_sync()
+            t = time.perf_counter()
+            got = fn(*args)
+            rank_sync()
+            spent.append(time.perf_counter() - t)
+            return got
+        return run
+
+    routes = (dtensor, "exchange"), (core_dist, "_gather")
+    kept = [getattr(mod, name) for mod, name in routes]
+    reset_launches(wrappers)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, s1, m1 = state0, None, None
+    losses, norms, step_ms, coll_ms = [], [], [], []
+    for (mod, name), fn in zip(routes, kept):
+        setattr(mod, name, timed(fn))
+    try:
+        for i in range(last):
+            batch_i = pipe.global_batch(i)
+            spent.clear()
+            rank_sync()
+            t0 = time.perf_counter()
+            state, met = step(state, batch_i)
+            rank_sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            coll_ms.append(sum(spent) * 1e3)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            if i == 0:
+                s1, m1 = state, met
+    finally:
+        for (mod, name), fn in zip(routes, kept):
+            setattr(mod, name, fn)
+    out["launches"] = read_launches(wrappers)
+    out.update(losses=losses, grad_norms=norms, step_ms=step_ms,
+               collective_ms=coll_ms, ref_losses=ref_losses,
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else 0.0),
+               first=dict(loss=float(m1["loss"]),
+                          grad_norm=float(m1["grad_norm"])))
+    init = [x.to_local() for x in tree_flatten(state0.params)[0]]
+    out["gaps"] = {n: _gap_sums(s, ref[n], init)
+                   for n, s in ((1, s1), (last, state))}
+    del state, ref, init
+    # the first step again from the same state: the same bits
+    s1b, m1b = step(state0, pipe.global_batch(0))
+    out["repeat"] = _shards_equal(s1, s1b) and all(
+        bool(torch.equal(m1[k], m1b[k])) for k in ("loss", "grad_norm"))
+    del s1, s1b, m1b, state0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["rates"] = _collective_rates(dev, mesh, job["rate_bytes"])
+
+    # (b) and (c) on the replay cut (its checkpoints a quarter of the
+    # 16 layers'): (b) its state after save_at steps saved, resumed on
+    # another mesh, both states held to the file's bits shard by shard
+    rp = job["replay"]
+    cut = dataclasses.replace(cfg, n_layers=rp["layers"])
+    c_sh, c_step, c_state = setup(cut, mesh)
+    c_pipe = TokenPipeline(cut, batch=job["batch"], seq=rp["seq"], seed=0)
+    kept = c_state
+    for i in range(job["save_at"]):
+        kept = c_step(kept, c_pipe.global_batch(i))[0]
+    ck = os.path.join(job["scratch"], "elastic")
+    rank_sync()
+    t0 = time.perf_counter()
+    save_checkpoint(ck, job["save_at"], kept)
+    out["save_s"] = time.perf_counter() - t0
+    ctl = ElasticController(ck)
+    t0 = time.perf_counter()
+    on_b, at = ctl.resume_on(kept, named(mesh_of(job["elastic"]),
+                                         train_state_pspecs(cut)),
+                             device=dev)
+    rank_sync()
+    out["resume_s"] = time.perf_counter() - t0
+    arrays = load_checkpoint_arrays(ck)[2]
+    out["elastic"] = dict(
+        step=at, bits=_shards_are_file(on_b, arrays)
+        and _shards_are_file(kept, arrays),
+        mesh=list(on_b.params["embed"].device_mesh.shape),
+        has=ctl.has_checkpoint(),
+        shapes_ok=shapes_ok(tree_flatten(on_b)[0]))
+    del on_b, kept, arrays
+
+    # (c) a failure, restored onto the placements
+    def run(tag, fail):
+        loop = ResilientLoop(c_step, c_pipe,
+                             os.path.join(job["scratch"], tag),
+                             ckpt_every=rp["ckpt_every"],
+                             injector=FailureInjector(fail))
+        t = time.perf_counter()
+        final = loop.run(c_state, rp["steps"], state_shardings=c_sh)
+        rank_sync()
+        return loop, final, time.perf_counter() - t
+
+    _, clean, clean_s = run("clean", ())
+    loop, faulted, fault_s = run("fault", (rp["fail_at"],))
+    out["replay"] = dict(bits=_shards_equal(clean, faulted),
+                         restarts=loop.restarts, clean_s=clean_s,
+                         faulted_s=fault_s,
+                         losses=[m["loss"] for m in loop.metrics_log])
+    return out
+
+
+def nccl_rank(rank, world, job):
+    """Phase 25 (d), the one rank of a world over NCCL: phase 18's
+    unsharded first step and the sharded step on the trivial mesh from
+    the same state (``make_host_mesh``, 1 x 1), compared bit for bit."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.dtensor import local_tensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (batch_pspecs, named,
+                                             train_state_pspecs)
+    from repro_torch.train import (init_train_state, make_sharded_train_step,
+                                   make_train_step)
+    dev = torch.device("cpu" if job["rehearsal"] else "cuda")
+    cfg = get_config(job["arch"])
+    cfg = cfg.reduced() if job["rehearsal"] else cfg
+    state = init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(job["seed"]), device=dev)
+    batch = TokenPipeline(cfg, batch=job["batch"], seq=job["seq"],
+                          seed=0).global_batch(0)
+    want, wm = make_train_step(cfg)(state, batch)
+    mesh = make_host_mesh(device=dev)
+    step = make_sharded_train_step(cfg, named(mesh, train_state_pspecs(cfg)),
+                                   named(mesh, batch_pspecs(cfg, mesh)))
+    t0 = time.perf_counter()
+    got, gm = step(state, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    same = {k: bool(torch.equal(gm[k], wm[k]))
+            for k in ("loss", "grad_norm", "lr")}
+    for name, a, b in (("params", got.params, want.params),
+                       ("m", got.m, want.m), ("v", got.v, want.v)):
+        same[name] = all(
+            x.dtype == y.dtype and bool(torch.equal(local_tensor(x), y))
+            for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+    return dict(bits=same, loss=float(gm["loss"]), want_loss=float(wm["loss"]),
+                seconds=seconds, backend=torch.distributed.get_backend())
+
+
+def _start(cmd, scratch_dir):
+    """A port entry point as a user runs it: a process in the
+    repository's environment, its output piped."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.Popen([sys.executable, "-m", *cmd, "--ckpt-dir",
+                             scratch_dir], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(pr, name, t0, timeout=600):
+    """Wait for a :func:`_start` process; logs its output, fails the run
+    unless it exits 0. Returns (stdout, seconds since ``t0``)."""
+    try:
+        so, se = pr.communicate(timeout=timeout)
+    finally:
+        if pr.poll() is None:
+            pr.kill()
+            pr.wait()
+    sec = time.perf_counter() - t0
+    log(f"phase 25 {name} exited {pr.returncode} after {sec:.1f} s: "
+        + " | ".join(x for x in so.splitlines() if x.strip()))
+    check(pr.returncode == 0, f"phase 25: {name} exited {pr.returncode}: "
+          f"{se[-1500:]}")
+    return so, sec
+
+
+def _gap_table(ranks, n) -> dict:
+    """{tree: (largest relative gap over the leaves, its leaf's index,
+    elements that differ, every leaf's gap)} after step ``n``: each
+    leaf's :func:`_gap_sums` added over the ranks."""
+    out = {}
+    for k in ("params", "m", "v"):
+        rows = [r["gaps"][n][k] for r in ranks]
+        gaps, differ = [], 0
+        for leaf in range(len(rows[0])):
+            num = sum(x[leaf][0] for x in rows)
+            den = sum(x[leaf][1] for x in rows)
+            differ += sum(x[leaf][2] for x in rows)
+            gaps.append(math.sqrt(num / den) if den else
+                        (0.0 if num == 0 else math.inf))
+        worst = max(gaps)
+        out[k] = (worst, gaps.index(worst), differ, gaps)
+    return out
+
+
+def sharded_train_phase(dev, scratch, train_rep, mla_train_cfg,
+                        mla_train_rep, *, rehearsal=False):
+    """Phase 25: the sharded train state on ``torch.distributed``
+    (``SHARDED_TRAIN``). (a)-(c) in a world of ``world`` gloo ranks
+    sharing the card (:func:`sharded_train_rank`): against the parent's
+    single-device steps from the same state, each step's loss and
+    ``grad_norm``, and against the ranks' unsharded steps the full
+    parameters and moments after step 1 and the last, within
+    ``SHARDED_BOUNDS``; the first step repeated bit for bit, every shard
+    the shape DTensor's rule gives; the collectives' rates; (b) on the
+    replay cut, the elastic resume and the saved state shard for shard
+    the file's bits, and the parent's unsharded restore of the same
+    checkpoint the file's bits; (c) the replay bit for bit. (d) a world
+    of 1 over NCCL at full depth: the sharded step on the trivial mesh
+    is phase 18's first step, bit for bit. (e) the launcher and (f) the
+    LM example as processes, side by side once the worlds are done.
+    (g) the model FLOP share of phases 18 and 22. ``rehearsal=True``
+    runs (a)-(d) on the CPU at the configs' ``reduced()`` widths, (d)
+    over gloo, and skips (e) and (f), saying so. Returns the report,
+    with the main path's launches summed over the ranks."""
+    import torch
+    from repro_torch.checkpoint import (load_checkpoint_arrays,
+                                        restore_checkpoint)
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import spawn_world
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.specs import meta_train_state
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.train import init_train_state, make_train_step
+
+    st, bounds = SHARDED_TRAIN, SHARDED_BOUNDS
+    full_cfg = get_config(st["arch"])
+    full_cfg = full_cfg.reduced() if rehearsal else full_cfg
+    cfg = dataclasses.replace(full_cfg, n_layers=st["layers"])
+    rep = dict(arch=cfg.name, layers=cfg.n_layers, world=st["world"],
+               mesh=list(st["mesh"]), batch=st["batch"], seq=st["seq"],
+               steps=st["steps"], bounds=bounds)
+    if rehearsal:
+        log("phase 25 rehearsal: on the CPU at reduced widths, (d) over "
+            "gloo; (e) and (f) skipped")
+    # the yardsticks: the single-device steps from the same state, one
+    # pass over every row (make_train_step) and a pass a data rank's
+    # rows (rowwise_train_step), their states after step 1 and the last
+    # held to each other
+    pipe = TokenPipeline(cfg, batch=st["batch"], seq=st["seq"], seed=0)
+    last = st["steps"]
+
+    def chain(step_fn, keep):
+        gen = torch.Generator(device=dev).manual_seed(st["seed"])
+        state = init_train_state(cfg, gen, device=dev)
+        init = [t.clone() for t in tree_flatten(state.params)[0]]
+        losses, norms, kept = [], [], {}
+        for i in range(last):
+            state, m = step_fn(state, pipe.global_batch(i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if i + 1 in (1, last):
+                kept[i + 1] = keep(state, i + 1)
+        return init, losses, norms, kept
+
+    t0 = time.perf_counter()
+    init, s_losses, s_norms, whole = chain(make_train_step(cfg),
+                                           lambda x, n: x)
+    single = dict(losses=s_losses, grad_norms=s_norms,
+                  seconds=time.perf_counter() - t0)
+    n_params = sum(t.numel() for t in init)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_flatten(whole[1])[0])
+    want = {n: {k: tree_flatten(getattr(x, k))[0] for k in ("params", "m",
+                                                             "v")}
+            for n, x in whole.items()}
+
+    def held(state, n):
+        sums = _gap_sums(state, want[n], init)
+        del want[n], whole[n]
+        return sums
+    r_init, r_losses, r_norms, r_sums = chain(
+        rowwise_train_step(cfg, st["mesh"][0]), held)
+    rowwise_gaps = {n: _gap_table([{"gaps": r_sums}], n) for n in r_sums}
+    del init, r_init, want, whole
+    parent_gib = 0.0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        parent_gib = torch.cuda.memory_reserved(dev) / 2**30
+    log(f"phase 25: {cfg.name} at full width cut to {cfg.n_layers} of "
+        f"{full_cfg.n_layers} layers ({n_params} parameters, a state of "
+        f"{state_bytes / 1e9:.3f} GB); make_train_step: losses "
+        f"{single['losses']}, grad_norms {single['grad_norms']}; "
+        f"rowwise_train_step (a pass a data rank's rows): losses "
+        f"{r_losses}, grad_norms {r_norms}, its state against "
+        f"make_train_step's (largest relative gap, its leaf, elements that "
+        f"differ) by tree after step: "
+        f"{ {n: {k: v[:3] for k, v in g.items()} for n, g in rowwise_gaps.items()} }"
+        f"; the parent keeps {parent_gib:.3f} GiB of the card")
+    rep["rowwise"] = dict(losses=r_losses, grad_norms=r_norms,
+                          gaps=rowwise_gaps)
+
+    job = dict(arch=st["arch"], layers=st["layers"], batch=st["batch"],
+               seq=st["seq"], steps=st["steps"], seed=st["seed"],
+               mesh=st["mesh"], elastic=st["elastic"], save_at=st["save_at"],
+               replay=st["replay"], rate_bytes=st["rate_bytes"],
+               rehearsal=rehearsal,
+               scratch=tempfile.mkdtemp(prefix="sharded_", dir=scratch))
+    t0 = time.perf_counter()
+    ranks = spawn_world(sharded_train_rank, st["world"], args=(job,),
+                        backend="gloo", timeout=st["timeout"])
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    rel = {k: [abs(a - b) / abs(b) for a, b in zip(r0[k], single[k])]
+           for k in ("losses", "grad_norms")}
+    gaps = {n: _gap_table(ranks, n) for n in (1, st["steps"])}
+    launches = {nm: sum(r["launches"][nm] for r in ranks)
+                for nm in r0["launches"]}
+    per_step = {nm: c / (st["steps"] * st["world"])
+                for nm, c in launches.items()}
+    nl = cfg.n_layers
+    want = {"flash_attention": 2 * nl, "flash_attention.tc": 2 * nl,
+            "ssd_intra": 2 * nl, "flash_attention_bwd": nl,
+            "flash_attention_bwd.tc": nl, "ssd_intra_bwd": nl}
+    med = statistics.median(r0["step_ms"][1:])
+    coll = statistics.median(r0["collective_ms"][1:])
+    tokens = st["batch"] * st["seq"]
+    rates = {g: {k: v / 1e9 for k, v in r.items()}
+             for g, r in r0["rates"].items()}
+    rep["a"] = dict(single=single, rel_err=rel, gaps=gaps,
+                    first=[r["first"] for r in ranks],
+                    losses=r0["losses"], grad_norms=r0["grad_norms"],
+                    ref_losses=[r["ref_losses"] for r in ranks],
+                    step_ms=[r["step_ms"] for r in ranks],
+                    collective_ms=[r["collective_ms"] for r in ranks],
+                    step_ms_median=med, collective_ms_median=coll,
+                    tokens_per_s=tokens / (med / 1e3),
+                    peak_gib=[r["peak_gib"] for r in ranks],
+                    shard_bytes=[r["shard_bytes"] for r in ranks],
+                    rates_gb_s=[r["rates"] for r in ranks],
+                    after_yardstick_gib=[r.get("after_yardstick_gib", 0.0)
+                                         for r in ranks],
+                    launches_per_rank_step=per_step, world_s=world_s)
+    log(f"phase 25 (a) world of {st['world']} gloo ranks on mesh "
+        f"{tuple(st['mesh'])} ('data', 'model'), {st['steps']} steps of "
+        f"{st['batch']} x {st['seq']} tokens: losses {r0['losses']}, "
+        f"grad_norms {r0['grad_norms']} (relative to the single device's "
+        f"{rel}); the ranks' rowwise_train_step losses "
+        f"{rep['a']['ref_losses']}; the full state against "
+        f"rowwise_train_step's, (largest relative gap, its leaf, elements "
+        f"that differ) by tree after step: "
+        f"{ {n: {k: v[:3] for k, v in g.items()} for n, g in gaps.items()} }"
+        f"; rank 0 "
+        f"step ms {r0['step_ms']} (median of the last {st['steps'] - 1}: "
+        f"{med:.1f} ms, {tokens / (med / 1e3):.5g} tokens/s), of which "
+        f"transfers {r0['collective_ms']}; peak memory a rank "
+        f"{[round(r['peak_gib'], 3) for r in ranks]} GiB (the yardstick "
+        f"left {[round(x, 3) for x in rep['a']['after_yardstick_gib']]}), "
+        f"shards a rank "
+        f"{[r['shard_bytes'] for r in ranks]} bytes; launches a rank a step "
+        f"{per_step}; the world ran {world_s:.1f} s")
+    log(f"phase 25 (a) collectives through the host, {st['rate_bytes']} "
+        f"bytes from every rank to every other of a group, GB/s into rank "
+        f"0 (median of 3): {rates}; {nvidia_smi_line() if not rehearsal else 'cpu'}")
+    for n, g in rowwise_gaps.items():
+        check(g["params"][0] <= bounds["params"]
+              and max(g["m"][0], g["v"][0]) <= bounds["moments"],
+              f"phase 25: rowwise_train_step's state after step {n} is off "
+              f"make_train_step's: {g}")
+    check(max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r_losses))
+          <= bounds["rowwise_loss"],
+          f"phase 25: the sharded losses {r0['losses']} are off "
+          f"rowwise_train_step's {r_losses}")
+    check(max(rel["losses"]) <= bounds["loss"], f"phase 25: the losses "
+          f"{rel['losses']} from the single device's, beyond {bounds['loss']}")
+    check(max(rel["grad_norms"]) <= bounds["grad_norm"], f"phase 25: "
+          f"grad_norm {rel['grad_norms']} from the single device's, beyond "
+          f"{bounds['grad_norm']}")
+    for n, g in gaps.items():
+        at = 0 if n == 1 else 1
+        check(g["params"][0] <= bounds["rowwise_params"][at]
+              and max(g["m"][0], g["v"][0]) <= bounds["rowwise_moments"][at],
+              f"phase 25: the sharded state after step {n} is off "
+              f"rowwise_train_step's: {g}")
+    check(all(r["losses"] == r0["losses"] for r in ranks),
+          "phase 25: the ranks' losses differ")
+    check(all(r["repeat"] for r in ranks),
+          "phase 25: the same sharded step from one state gave other bits")
+    check(all(r["shapes_ok"] for r in ranks),
+          "phase 25: a shard's shape is not what its placements give")
+    check(all(math.isfinite(x) for x in r0["losses"] + r0["grad_norms"]),
+          "phase 25: a non-finite loss or grad_norm")
+    for nm in LM_WRAPPERS + ("flash_attention.tc", "flash_attention_bwd.tc"):
+        check(per_step.get(nm, 0) == want[nm] or rehearsal,
+              f"phase 25: {nm} launched {per_step.get(nm, 0)} times a rank "
+              f"a step, not {want[nm]}")
+
+    # (b) the elastic resume, and the parent's unsharded restore
+    rp = st["replay"]
+    cut = dataclasses.replace(cfg, n_layers=rp["layers"])
+    el = [r["elastic"] for r in ranks]
+    ck = os.path.join(job["scratch"], "elastic")
+    ck_bytes = sum(f.stat().st_size for f in
+                   (Path(ck) / f"step_{st['save_at']:06d}").iterdir())
+    t0 = time.perf_counter()
+    restored, at = restore_checkpoint(ck, meta_train_state(cut), device=dev)
+    sync()
+    restore_s = time.perf_counter() - t0
+    arrays = load_checkpoint_arrays(ck)[2]
+    parent_bits = all(_same_bytes(x, a) for x, a in
+                      zip(tree_flatten(restored)[0], arrays))
+    del restored, arrays
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rep["b"] = dict(step=at, bits=[e["bits"] for e in el],
+                    mesh=el[0]["mesh"], checkpoint_bytes=ck_bytes,
+                    save_s=r0["save_s"], resume_s=r0["resume_s"],
+                    parent_restore_s=restore_s, parent_bits=parent_bits,
+                    layers=rp["layers"], seq=rp["seq"])
+    log(f"phase 25 (b) on the cut to {rp['layers']} layers, step "
+        f"{st['save_at']} saved from mesh {tuple(st['mesh'])} "
+        f"({ck_bytes / 1e9:.3f} GB, {r0['save_s']:.2f} s with the transfers "
+        f"to rank 0) and resumed on {tuple(el[0]['mesh'])} in "
+        f"{r0['resume_s']:.2f} s: both states the file's bits, shard for "
+        f"shard, on every rank: {rep['b']['bits']}; the parent's unsharded "
+        f"restore {restore_s:.2f} s, the file's bits: {parent_bits}")
+    check(all(e["bits"] and e["step"] == st["save_at"] and e["has"]
+              and e["shapes_ok"] for e in el),
+          "phase 25: the elastic resume is not the saved state's bits, or "
+          "a shard is not the shape its placements give")
+    check(at == st["save_at"] and parent_bits,
+          "phase 25: the unsharded restore is not the checkpoint's bits")
+
+    # (c) the replay
+    rps = [r["replay"] for r in ranks]
+    rep["c"] = dict(rps[0], bits=[x["bits"] for x in rps], **rp)
+    log(f"phase 25 (c) ResilientLoop(state_shardings=...) on the cut to "
+        f"{rp['layers']} layers and {rp['seq']} tokens, {rp['steps']} steps, "
+        f"a checkpoint every {rp['ckpt_every']}, a failure at step "
+        f"{rp['fail_at']}: {rps[0]['restarts']} restart, uninterrupted "
+        f"{rps[0]['clean_s']:.2f} s, faulted {rps[0]['faulted_s']:.2f} s, "
+        f"bit for bit {rep['c']['bits']}")
+    check(all(x["restarts"] == 1 and x["bits"] for x in rps),
+          "phase 25: the replay is not its uninterrupted run's bits")
+    shutil.rmtree(job["scratch"], ignore_errors=True)
+
+    # (d) the NCCL route: a world of 1 at full depth, phase 18's state
+    job1 = dict(arch=st["arch"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+                seed=1, rehearsal=rehearsal)
+    t0 = time.perf_counter()
+    one = spawn_world(nccl_rank, 1, args=(job1,),
+                      backend="gloo" if rehearsal else "nccl",
+                      timeout=st["timeout"])[0]
+    one_s = time.perf_counter() - t0
+    p18 = train_rep["first_step"]["kernels"]["loss"] if train_rep else None
+    rep["d"] = dict(one, world_s=one_s, phase18_loss=p18)
+    log(f"phase 25 (d) a world of 1 over {one['backend']} at full depth: the "
+        f"sharded step on the trivial mesh against phase 18's unsharded step "
+        f"from the same state, bit for bit {one['bits']}; loss "
+        f"{one['loss']:.6f} (phase 18's first step {p18}); the sharded step "
+        f"{one['seconds']:.2f} s, the world {one_s:.1f} s")
+    check(all(one["bits"].values()), f"phase 25: the sharded step on the "
+          f"trivial mesh is not the unsharded step's bits {one['bits']}")
+    check(p18 is None or one["want_loss"] == p18,
+          "phase 25: the unsharded step is not phase 18's first step")
+
+    # (e) the launcher, as a user runs it, and (f) the LM example beside
+    # it (a few GB of the card), once no world is timing its steps
+    if not rehearsal:
+        t0 = time.perf_counter()
+        lm = _start(["repro_torch.examples.train_lm"],
+                    tempfile.mkdtemp(prefix="lm_", dir=scratch))
+        launcher = _start(["repro_torch.launch.train", *LAUNCHER],
+                          tempfile.mkdtemp(prefix="launch_", dir=scratch))
+        so, sec = _finish(launcher, "(e) launch.train", t0)
+        check("loss" in so and "restarts=1" in so,
+              "phase 25: the launcher printed no loss or not restarts=1")
+        rep["e"] = dict(stdout=so, seconds=sec)
+        so, sec = _finish(lm, "(f) examples.train_lm", t0)
+        mt = re.search(r"loss: start=([0-9.]+) end=([0-9.]+)", so)
+        check(mt is not None and float(mt.group(2)) < float(mt.group(1)),
+              "phase 25: the LM example's loss did not fall")
+        rep["f"] = dict(stdout=so, seconds=sec, start=float(mt.group(1)),
+                        end=float(mt.group(2)))
+
+    # (g) the model-FLOP share of phases 18 and 22
+    _, _, bf16 = peaks(torch.cuda.get_device_name(0)) \
+        if dev.type == "cuda" else (0, 0, 989e12)
+    share = {}
+    for label, c, r in (("train", full_cfg, train_rep),
+                        ("mla_train", mla_train_cfg, mla_train_rep)):
+        if r is None:
+            continue
+        mf = model_flops(c, "train", r["batch"], r["seq"])
+        sec = r["step_ms_median_last"] / 1e3
+        share[label] = dict(model_flops=mf, step_s=sec,
+                            flops_per_s=mf / sec,
+                            share=mf / sec / bf16)
+    rep["g"] = dict(bf16_peak=bf16, mfu=share)
+    log(f"phase 25 (g) model FLOPs a step over the median step time and "
+        f"the bf16 peak ({bf16 / 1e12:.0f} TFLOP/s), "
+        f"{nvidia_smi_line()}: "
+        + "; ".join(f"{k} {v['model_flops']:.5g} FLOP in {v['step_s']:.4f} s"
+                    f" = {v['flops_per_s'] / 1e12:.2f} TFLOP/s, "
+                    f"{v['share']:.2%}" for k, v in share.items()))
+    rep["launches"] = launches
+    return rep
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4913,15 +5767,26 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
 
+    # -- 25. the sharded train state on torch.distributed ----------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["sharded_train"] = sharded_rep = sharded_train_phase(
+        dev, scratch, train_rep, mla_train_cfg, mla_train_rep)
+    torch.cuda.empty_cache()
+    log(f"phase 25 took {time.perf_counter() - t0:.1f} s")
+
     lm_paths = {"lm_serve": serve_rep["launches"],       # phase 10
                 "train": train_rep["launches"],          # phase 18
                 "mla_serve": mla_rep["launches"],        # phase 21
                 "mla_train": mla_train_rep["launches"],  # phase 22
                 "qwen2_serve": int8_rep["launches"],     # phase 23
                 "moe_serve": moe_rep["launches"],        # phase 24 (a)
-                "scout_serve": scout_rep["launches"]}    # phase 24 (b)
+                "scout_serve": scout_rep["launches"],    # phase 24 (b)
+                # phase 25 (a), summed over the ranks
+                "sharded_train": sharded_rep["launches"]}
     train_paths = {"train": train_rep["launches"],
-                   "mla_train": mla_train_rep["launches"]}
+                   "mla_train": mla_train_rep["launches"],
+                   "sharded_train": sharded_rep["launches"]}
 
     def row(nm, entry, source, replaces, by_path):
         """``by_path``: {path: that path's launch counts}; ``launches``

@@ -1,5 +1,5 @@
 """Atomic, async checkpoints with validated restore (port of
-``repro.checkpoint.checkpoint``, single process).
+``repro.checkpoint.checkpoint``).
 
 The on-disk layout is the reference's, byte for byte where it matters,
 so each package reads the other's files:
@@ -35,6 +35,18 @@ in order, a namedtuple by field, and ``None`` holds no leaf. A state
 saved by either package therefore restores into the other's structure
 leaf for leaf.
 
+A sharded state (DTensor leaves, ``launch.sharding``) is saved whole:
+every rank of the world calls :func:`save_checkpoint`, each leaf's
+distinct shards are sent to rank 0 (``dtensor.gather_to_root``), rank
+0 snapshots and writes, and every rank
+waits at a barrier after the atomic publish (with ``async_=True``, in
+the returned handle's ``join``). :func:`restore_checkpoint` with
+``shardings=`` hands each rank DTensors over its own slices of the
+stored leaves, on any mesh: the one that saved or another (an elastic
+restart). The files are the same either way, so a sharded state
+restores from a checkpoint of an unsharded one (either package's) and
+the reverse.
+
 Two access levels: :func:`save_checkpoint` / :func:`restore_checkpoint`
 (a nested structure of tensors in, tensors on ``device`` out) and
 :func:`load_checkpoint_arrays` (host numpy leaves plus the manifest, no
@@ -53,8 +65,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .._unported import ITEM_11_5
 from ..device import resolve_device
+from ..dtensor import gather_to_root, is_dtensor, shard_of
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -74,63 +86,68 @@ def tree_flatten(tree):
     ``paths`` names each leaf (``"['params']['w']"``) for errors."""
     leaves: list = []
     paths: list = []
+    return leaves, _walk(tree, "", leaves, paths), paths
 
-    def walk(node, path):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = list(node) if isinstance(node, OrderedDict) \
-                else sorted(node)
-            return ("dict", type(node), keys,
-                    [walk(node[k], f"{path}[{k!r}]") for k in keys])
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node), None,
-                    [walk(v, f"{path}.{f}")
-                     for f, v in zip(type(node)._fields, node)])
-        if isinstance(node, (list, tuple)):
-            return ("seq", type(node), None,
-                    [walk(v, f"{path}[{i}]") for i, v in enumerate(node)])
-        leaves.append(node)
-        paths.append(path or "<root>")
-        return ("leaf",)
 
-    return leaves, walk(tree, ""), paths
+# The recursions are module functions, not closures: a nested function
+# that calls itself holds its own cell, and that cycle would keep the
+# leaves it closes over (a whole state's tensors) alive until the
+# garbage collector runs.
+def _walk(node, path, leaves, paths):
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = list(node) if isinstance(node, OrderedDict) else sorted(node)
+        return ("dict", type(node), keys,
+                [_walk(node[k], f"{path}[{k!r}]", leaves, paths)
+                 for k in keys])
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node), None,
+                [_walk(v, f"{path}.{f}", leaves, paths)
+                 for f, v in zip(type(node)._fields, node)])
+    if isinstance(node, (list, tuple)):
+        return ("seq", type(node), None,
+                [_walk(v, f"{path}[{i}]", leaves, paths)
+                 for i, v in enumerate(node)])
+    leaves.append(node)
+    paths.append(path or "<root>")
+    return ("leaf",)
 
 
 def tree_unflatten(treedef, leaves):
     """The structure of ``treedef`` with ``leaves`` in flat order."""
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(td):
-        kind = td[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        _, typ, keys, kids = td
-        vals = [build(k) for k in kids]
-        if kind == "dict":
-            out = typ()
-            out.update(zip(keys, vals))
-            return out
-        if kind == "namedtuple":
-            return typ(*vals)
-        return typ(vals)
 
-    return build(treedef)
+def _build(td, it):
+    kind = td[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    _, typ, keys, kids = td
+    vals = [_build(k, it) for k in kids]
+    if kind == "dict":
+        out = typ()
+        out.update(zip(keys, vals))
+        return out
+    if kind == "namedtuple":
+        return typ(*vals)
+    return typ(vals)
 
 
 BF16_WORDS = np.dtype("V2")     # how npz holds a bfloat16 leaf
 
 
-def _host_leaf(x, path: str):
+def _host_leaf(x, path: str, copy: bool = True):
     """``(array, dtype name)``: a host numpy snapshot of one leaf that
-    later writes to ``x`` do not reach (tensors are copied; numpy arrays
+    later writes to ``x`` do not reach (tensors are copied, unless
+    ``copy=False`` says a host tensor is the caller's own; numpy arrays
     are taken as they are, as the reference takes them), and the dtype
     the manifest gives it. A bf16 tensor becomes its 16-bit words
     (``|V2``) under the name ``"bfloat16"``."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().to("cpu", copy=True)
+        x = x.detach().to("cpu", copy=copy)
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(BF16_WORDS), "bfloat16"
         try:
@@ -156,6 +173,41 @@ def _leaf_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 # -- save ----------------------------------------------------------------------
 
+class _Publish:
+    """A sharded save in flight: ``join`` waits for rank 0's writer
+    thread, then for every rank at a barrier."""
+
+    def __init__(self, thread):
+        self.thread = thread
+
+    def join(self):
+        import torch.distributed as dist
+        if self.thread is not None:
+            self.thread.join()
+        dist.barrier()
+
+
+def _host_leaves(flat, paths, sharded: bool):
+    """The host snapshot of every leaf, or of a ``sharded`` state's
+    leaves gathered whole: ``(host, writer)``, where only the writer
+    (rank 0) holds a snapshot (``host`` is ``None`` elsewhere)."""
+    if not sharded:
+        return [_host_leaf(x, p) for x, p in zip(flat, paths)], True
+    import torch.distributed as dist
+    # refuse a dtype npz cannot hold on every rank, before a collective
+    for x, p in zip(flat, paths):
+        if isinstance(x, torch.Tensor):
+            _host_leaf(torch.empty(0, dtype=x.dtype), p)
+    writer = dist.get_rank() == 0
+    host = []
+    for x, p in zip(flat, paths):
+        full = gather_to_root(x) if is_dtensor(x) else x
+        if writer:      # a gathered leaf is a fresh host tensor
+            host.append(_host_leaf(full, p, copy=not is_dtensor(x)))
+        del full
+    return (host if writer else None), writer
+
+
 def save_checkpoint(ckpt_dir, step: int, state, *, async_: bool = False,
                     meta: dict | None = None):
     """Serialise ``state`` (a nested structure of tensors and arrays)
@@ -164,13 +216,20 @@ def save_checkpoint(ckpt_dir, step: int, state, *, async_: bool = False,
     host snapshot happens here, synchronously; with ``async_=True`` the
     write runs on a thread, which is returned for the caller to
     ``join``. Callers passing numpy arrays they mutate in place must
-    copy them first."""
+    copy them first.
+
+    A state with DTensor leaves is a collective: every rank of the world
+    calls it, rank 0 writes, and every rank returns after the publish
+    (with ``async_=True`` every rank gets a handle whose ``join`` waits
+    for it)."""
     ckpt_dir = Path(ckpt_dir)
     flat, _, paths = tree_flatten(state)
-    host = [_host_leaf(x, p) for x, p in zip(flat, paths)]
-    host_leaves = [a for a, _ in host]
+    sharded = any(is_dtensor(x) for x in flat)
+    host, writer = _host_leaves(flat, paths, sharded)
+    del flat
 
     def _write():
+        host_leaves = [a for a, _ in host]
         step_dir = ckpt_dir / f"step_{step:06d}"
         tmp_dir = ckpt_dir / f".tmp_step_{step:06d}_{time.time_ns()}"
         tmp_dir.mkdir(parents=True, exist_ok=True)
@@ -191,12 +250,20 @@ def save_checkpoint(ckpt_dir, step: int, state, *, async_: bool = False,
         latest_tmp.write_text(step_dir.name)
         latest_tmp.rename(ckpt_dir / "LATEST")       # atomic pointer
 
-    if async_:
-        t = threading.Thread(target=_write, daemon=True)
-        t.start()
-        return t
-    _write()
-    return None
+    thread = None
+    if writer:
+        if async_:
+            thread = threading.Thread(target=_write, daemon=True)
+            thread.start()
+        else:
+            _write()
+    if sharded:
+        handle = _Publish(thread)
+        if async_:
+            return handle
+        handle.join()
+        return None
+    return thread
 
 
 # -- find and load -------------------------------------------------------------
@@ -296,12 +363,12 @@ def restore_checkpoint(ckpt_dir, like, *, step: int | None = None,
     leaf a tensor on ``device`` (``None`` = ``cuda``) in its stored
     dtype (a ``"bfloat16"`` leaf as bf16). ``fallback=True`` drops back
     to the newest complete save when the newest is corrupt or partial.
-    ``shardings=`` (restoring onto another mesh) belongs to the sharded
-    train state and raises."""
-    if shardings is not None:
-        raise NotImplementedError(
-            f"restore_checkpoint(shardings=...) is not ported yet: "
-            f"{ITEM_11_5}")
+
+    ``shardings``: a tree of ``launch.sharding.NamedSharding`` of
+    ``like``'s structure; each leaf then comes back as a DTensor over
+    this rank's slice of the stored leaf, on that sharding's mesh, which
+    need not be the mesh that saved (an elastic restart). Every rank
+    reads the files; no collective runs."""
     dev = resolve_device(device)
     step, manifest, leaves = load_checkpoint_arrays(ckpt_dir, step=step,
                                                     fallback=fallback)
@@ -316,5 +383,13 @@ def restore_checkpoint(ckpt_dir, like, *, step: int | None = None,
                 f"checkpoint leaf shape {got.shape} != expected "
                 f"{tuple(np.shape(want))}")
     dtypes = [m["dtype"] for m in manifest["leaves"]]
-    return tree_unflatten(treedef, [_leaf_tensor(x, dt).to(dev)
-                                    for x, dt in zip(leaves, dtypes)]), step
+    tensors = (_leaf_tensor(x, dt) for x, dt in zip(leaves, dtypes))
+    if shardings is None:
+        return tree_unflatten(treedef, [t.to(dev) for t in tensors]), step
+    shs = tree_flatten(shardings)[0]
+    if len(shs) != len(leaves):
+        raise ValueError(f"{len(shs)} shardings for {len(leaves)} "
+                         f"checkpoint leaves")
+    return tree_unflatten(treedef, [
+        shard_of(t, sh.mesh, sh.placements, device=dev)
+        for t, sh in zip(tensors, shs)]), step

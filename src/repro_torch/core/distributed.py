@@ -52,6 +52,7 @@ world of fresh processes on one machine, with a deadline.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -512,6 +513,25 @@ def _world_entry(rank, fn, world_size, backend, init_method, timeout,
     with open(path + ".tmp", "wb") as fh:
         pickle.dump(out, fh)
     os.replace(path + ".tmp", path)
+
+
+@contextlib.contextmanager
+def one_rank_world(backend: str = "gloo", timeout: float = 600.0):
+    """A world of this process alone (rank 0 of 1) for the ``with``
+    block, joined over a file store in a temporary directory; over NCCL
+    it takes card 0."""
+    import torch.distributed as dist
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+        dist.init_process_group(
+            backend, init_method="file://" + os.path.join(tmp, "store"),
+            world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=timeout))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 def spawn_world(fn, world_size: int, *, args=(), backend: str = "gloo",

@@ -1,2 +1,2 @@
-"""The k-means examples on the port (counterparts of ``examples/``):
+"""The examples on the port (counterparts of ``examples/``):
 ``python -m repro_torch.examples.<name> [--device cuda|cpu]``."""

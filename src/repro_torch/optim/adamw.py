@@ -67,10 +67,13 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves))
 
 
-def adamw_update(grads, m, v, params, step, cfg: AdamWConfig):
+def adamw_update(grads, m, v, params, step, cfg: AdamWConfig, gnorm=None):
     """Returns ``(new_params, new_m, new_v, {"grad_norm", "lr"})``;
-    ``step`` is the int32 step tensor of the update (0 for the first)."""
-    gnorm = global_norm(grads)
+    ``step`` is the int32 step tensor of the update (0 for the first).
+    ``gnorm``: the gradient's global norm where ``grads`` holds a shard
+    of it (the sharded step's), else :func:`global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
     lr = cosine_lr(step, cfg)
     b1, b2 = cfg.b1, cfg.b2

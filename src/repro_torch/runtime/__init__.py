@@ -1,6 +1,7 @@
-"""Fault-tolerant runtime (port of ``repro.runtime``, single device)."""
-from .fault_tolerance import (FailureInjector, InjectedFailure,
-                              ResilientLoop, StragglerWatchdog)
+"""Fault-tolerant runtime (port of ``repro.runtime``)."""
+from .fault_tolerance import (ElasticController, FailureInjector,
+                              InjectedFailure, ResilientLoop,
+                              StragglerWatchdog)
 
 __all__ = ["ResilientLoop", "FailureInjector", "InjectedFailure",
-           "StragglerWatchdog"]
+           "StragglerWatchdog", "ElasticController"]

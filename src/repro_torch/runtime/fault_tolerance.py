@@ -1,5 +1,5 @@
-"""Fault-tolerant driver: restart on failure, stragglers, chaos (port of
-``repro.runtime.fault_tolerance``, single device).
+"""Fault-tolerant training loop: restart on failure, stragglers, chaos,
+elastic restarts (port of ``repro.runtime.fault_tolerance``).
 
 * :class:`ResilientLoop` drives (step fn, pipeline, checkpointer); on an
   injected failure it restores the last good checkpoint and replays.
@@ -8,12 +8,15 @@
 * :class:`StragglerWatchdog`: a step-time EWMA; a step slower than
   ``threshold`` times the EWMA is flagged.
 * :class:`FailureInjector`: deterministic chaos for tests.
+* :class:`ElasticController`: a sharded train state's checkpoint
+  restored onto another mesh (grow or shrink). The k-means stream's
+  elastic path is ``StreamingKMeans.restore(d, mesh=...)`` instead,
+  over host state that is the same on every rank.
 
-``ElasticController`` (re-targeting a sharded train state's checkpoint
-onto another mesh) belongs to the sharded train state, ROADMAP Queue 1
-item 11.5. The k-means stream's elastic path needs none of it: it is
-``StreamingKMeans.restore(d, mesh=...)`` over host state that is the
-same on every rank.
+A sharded state (DTensor leaves) runs in every rank of the world, each
+rank driving the same loop in lockstep: its saves and restores are
+collectives (``checkpoint``), and ``run(state_shardings=...)`` restores
+onto the given placements.
 """
 from __future__ import annotations
 
@@ -24,9 +27,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._unported import ITEM_11_5
-from ..checkpoint.checkpoint import (restore_checkpoint, save_checkpoint,
-                                     tree_flatten)
+from ..checkpoint.checkpoint import (latest_step, restore_checkpoint,
+                                     save_checkpoint, tree_flatten)
+from ..dtensor import local_tensor
 
 
 class InjectedFailure(RuntimeError):
@@ -94,11 +97,11 @@ class StragglerWatchdog:
 
 
 def _state_device(state):
-    """The device of ``state``'s first tensor leaf (``None``, which
-    means ``cuda``, when it holds none)."""
+    """The device of ``state``'s first tensor leaf, a DTensor's local
+    shard's (``None``, which means ``cuda``, when it holds none)."""
     for leaf in tree_flatten(state)[0]:
         if isinstance(leaf, torch.Tensor):
-            return leaf.device
+            return local_tensor(leaf).device
     return None
 
 
@@ -146,22 +149,28 @@ class ResilientLoop:
         return save_checkpoint(self.ckpt_dir, step, state,
                                async_=self.async_ckpt)
 
-    def _restore(self, state):
+    def _restore(self, state, state_shardings):
         if self.restore_fn is not None:
             return self.restore_fn(state)
         return restore_checkpoint(self.ckpt_dir, state,
-                                  device=_state_device(state))
+                                  device=_state_device(state),
+                                  shardings=state_shardings)
 
     def run(self, state, n_steps: int, *, state_shardings=None,
             start_step: int | None = None):
+        """Steps ``state`` to ``n_steps``; returns the final state.
+        ``state_shardings`` (a tree of ``launch.sharding.NamedSharding``
+        of ``state``'s structure): a restore puts the leaves back in
+        those placements, as DTensors, and a full ``state`` is put in
+        them before the first save, so that rank 0 alone writes it."""
         if state_shardings is not None:
-            raise NotImplementedError(
-                f"ResilientLoop.run(state_shardings=...) is not ported "
-                f"yet: {ITEM_11_5}")
+            from ..launch.sharding import shard_tree
+            state = shard_tree(state, state_shardings)
         if start_step is not None:
             step = int(start_step)
         else:
-            step = int(state.step) if hasattr(state, "step") else 0
+            step = int(local_tensor(state.step)) \
+                if hasattr(state, "step") else 0
         anchor = self._save(state, step)              # step anchor
         if anchor is not None:
             anchor.join()
@@ -190,7 +199,24 @@ class ResilientLoop:
                 if pending is not None:
                     pending.join()
                     pending = None
-                state, step = self._restore(state)
+                state, step = self._restore(state, state_shardings)
         if pending is not None:
             pending.join()
         return state
+
+
+class ElasticController:
+    """Re-target a checkpoint from mesh A to mesh B (grow or shrink)."""
+
+    def __init__(self, ckpt_dir):
+        self.ckpt_dir = ckpt_dir
+
+    def resume_on(self, like, new_shardings, device=None):
+        """``(state, step)``: the newest checkpoint in ``like``'s
+        structure with its leaves placed by ``new_shardings``, on
+        ``device`` (``None``: ``cuda``)."""
+        return restore_checkpoint(self.ckpt_dir, like, device=device,
+                                  shardings=new_shardings)
+
+    def has_checkpoint(self) -> bool:
+        return latest_step(self.ckpt_dir) is not None

@@ -418,3 +418,135 @@ def card_stream_pair(rank, world):
     """:func:`card_stream` sharded over a mesh of the world."""
     from repro_torch.core import make_mesh
     return card_stream(make_mesh(world))
+
+
+def sharded_train_world(rank, world, states, batches, tmp):
+    """The sharded train state in a world of 8 ``gloo`` ranks on the CPU
+    (``tests/test_torch_launch.py``). ``states``: {arch: JAX's reduced
+    train state as nested dicts of numpy}; ``batches``: the global
+    batches of steps 1, 2, 3.
+
+    Each arch: the sharded step on mesh (4, 2) from that state, step 1
+    twice (the bits of the second against the first), then steps 2 and
+    3; every shard's shape against DTensor's own rule; the full
+    parameters and moments after steps 1 and 3 (``gather_full``, every
+    rank taking part). Then hymba's stepped state placed on
+    mesh (8, 1), saved, and restored onto mesh (2, 4) by
+    ``ElasticController``; and ``ResilientLoop(state_shardings=...)``
+    on mesh (4, 2), 4 steps with a checkpoint every 2, with a failure at
+    step 2 and without. Returns rank 0's report; the others their
+    losses."""
+    import types
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.data import TokenPipeline
+    from repro_torch.dtensor import gather_full, local_tensor
+    from repro_torch.launch.sharding import (batch_pspecs, named, shard_tree,
+                                             train_state_pspecs)
+    from repro_torch.runtime import (ElasticController, FailureInjector,
+                                     ResilientLoop)
+    from repro_torch.train import make_sharded_train_step
+
+    def mesh_of(shape):
+        return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+
+    def full(tree):
+        return [gather_full(x) for x in tree_flatten(tree)[0]]
+
+    def same(a, b):
+        return all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(full(a), full(b)))
+
+    def shapes_ok(tree):
+        return all(tuple(x.to_local().shape) == tuple(
+            compute_local_shape_and_global_offset(
+                x.shape, x.device_mesh, x.placements)[0])
+            for x in tree_flatten(tree)[0])
+
+    mesh = mesh_of((4, 2))
+    out = {}
+    # uneven shards (torch.chunk's rule) gathered whole, bit for bit
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dtensor import gather_to_root, shard_of
+    gen = torch.Generator().manual_seed(3)
+    cases = [(torch.randn(7, 5, generator=gen).bfloat16(),
+              (Shard(0), Shard(1))),
+             (torch.randn(11, 3, generator=gen), (Shard(0), Shard(0))),
+             (torch.randn(3, 2, generator=gen), (Shard(1), Replicate())),
+             (torch.randn(1, 4, generator=gen), (Shard(0), Shard(1)))]
+    gathered = []
+    for full_t, pl in cases:
+        x = shard_of(full_t, mesh, pl)
+        root = gather_to_root(x)
+        gathered.append(torch.equal(gather_full(x).view(torch.uint8),
+                                    full_t.view(torch.uint8))
+                        and (root is None) == (rank != 0)
+                        and (root is None or torch.equal(root, full_t)))
+    out["gather"] = gathered
+    stepped = {}
+    for arch, np_state in states.items():
+        cfg = get_config(arch).reduced()
+        st_sh = named(mesh, train_state_pspecs(cfg))
+        step = make_sharded_train_step(cfg, st_sh,
+                                       named(mesh, batch_pspecs(cfg, mesh)))
+        state = train_state_from_numpy(types.SimpleNamespace(**np_state),
+                                       cfg, device="cpu")
+        s1, m1 = step(state, batches[0])
+        s1b, m1b = step(state, batches[0])
+        s2, m2 = step(s1, batches[1])
+        s3, m3 = step(s2, batches[2])
+        stepped[arch] = (cfg, st_sh, step, state, s1)
+        out[arch] = dict(
+            loss=float(m1["loss"]), grad_norm=float(m1["grad_norm"]),
+            losses=[float(m["loss"]) for m in (m1, m2, m3)],
+            grad_norms=[float(m["grad_norm"]) for m in (m1, m2, m3)],
+            repeat=same(s1, s1b) and torch.equal(m1["loss"], m1b["loss"]),
+            shapes_ok=shapes_ok(s1) and shapes_ok(s3),
+            local_embed=tuple(local_tensor(s1.params["embed"]).shape),
+            step=int(local_tensor(s1.step)),
+            full={n: {k: full(getattr(s, k)) for k in ("params", "m", "v")}
+                  for n, s in ((1, s1), (3, s3))})
+
+    cfg, st_sh, step, state, s1 = stepped["hymba-1.5b"]
+    specs = train_state_pspecs(cfg)
+    on_a = shard_tree(s1, named(mesh_of((8, 1)), specs))
+    save_checkpoint(os.path.join(tmp, "elastic"), 1, on_a)
+    ctl = ElasticController(os.path.join(tmp, "elastic"))
+    on_b, at = ctl.resume_on(s1, named(mesh_of((2, 4)), specs),
+                             device="cpu")
+    out["elastic"] = dict(bits=same(on_b, s1), step=at,
+                          shapes_ok=shapes_ok(on_b) and shapes_ok(on_a),
+                          has=ctl.has_checkpoint(),
+                          mesh=tuple(on_b.params["embed"].device_mesh.shape))
+
+    pipe = TokenPipeline(cfg, 8, 32, seed=1)
+
+    def run(tag, fail):
+        loop = ResilientLoop(step, pipe, os.path.join(tmp, tag),
+                             ckpt_every=2, injector=FailureInjector(fail))
+        return loop, loop.run(state, 4, state_shardings=st_sh)
+
+    clean_loop, clean = run("clean", ())
+    loop, faulted = run("fault", (2,))
+    out["replay"] = dict(bits=same(clean, faulted), restarts=loop.restarts,
+                         shapes_ok=shapes_ok(faulted),
+                         step=int(local_tensor(faulted.step)),
+                         # a save that more than one rank wrote leaves
+                         # a directory its rename could not publish
+                         leftovers=sorted(
+                             n for tag in ("clean", "fault")
+                             for n in os.listdir(os.path.join(tmp, tag))
+                             if n.startswith(".tmp_")),
+                         losses=[m["loss"] for m in loop.metrics_log],
+                         clean_losses=[m["loss"]
+                                       for m in clean_loop.metrics_log])
+    losses = {a: out[a]["losses"] for a in states}
+    return out if rank == 0 else losses

@@ -210,10 +210,29 @@ def test_bf16_leaf_raises_type_error_naming_it(tmp_path):
 
 
 def test_shardings_and_default_device(tmp_path):
-    save_checkpoint(tmp_path, 1, _state())
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 11.5"):
-        restore_checkpoint(tmp_path, _state(), shardings=object(), **CPU)
+    """``shardings=`` hands back DTensors in those placements (a world of
+    one rank here; ``tests/test_torch_launch.py`` restores onto another
+    mesh in a world of 8), and a sharded state saves the files the
+    unsharded one does."""
+    from repro_torch.core.distributed import one_rank_world
+    from repro_torch.dtensor import is_dtensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import P, named
+    save_checkpoint(tmp_path / "a", 1, _state())
+    with one_rank_world("gloo"):
+        sh = named(make_host_mesh(device="cpu"),
+                   {"params": {"w": P("data", "model"), "b": P("model")},
+                    "step": P()})
+        back, step = restore_checkpoint(tmp_path / "a", _state(),
+                                        shardings=sh, **CPU)
+        leaves = tree_flatten(back)[0]
+        assert step == 1 and all(is_dtensor(x) for x in leaves)
+        assert back["params"]["w"].placements == sh["params"]["w"].placements
+        _assert_leaves_equal([x.to_local().numpy() for x in leaves],
+                             _leaves(_state()))
+        save_checkpoint(tmp_path / "b", 1, back)
+    _assert_leaves_equal(load_checkpoint_arrays(tmp_path / "b")[2],
+                         load_checkpoint_arrays(tmp_path / "a")[2])
     if not torch.cuda.is_available():         # None means cuda
         with pytest.raises(RuntimeError, match="CUDA"):
             restore_checkpoint(tmp_path, _state())
@@ -316,3 +335,46 @@ def test_jax_arrays_and_port_tensors_write_the_same_files(tmp_path):
     assert jm == tm
     _assert_leaves_equal(load_checkpoint_arrays(tmp_path / "j")[2],
                          load_checkpoint_arrays(tmp_path / "t")[2])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sharded_train_state_crosses_packages(tmp_path, writer):
+    """A train state JAX wrote restores into the port's placements, and a
+    sharded state the port wrote is JAX's files (a world of one rank
+    here: the slicing itself is held on 8 ranks in
+    ``tests/test_torch_launch.py``)."""
+    from repro.configs import get_config as jax_config
+    from repro.train.steps import init_train_state as jax_init_state
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.core.distributed import one_rank_world
+    from repro_torch.dtensor import is_dtensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (named, shard_tree,
+                                             train_state_pspecs)
+    jstate = jax_init_state(jax.random.PRNGKey(3),
+                            jax_config("hymba-1.5b").reduced())
+    cfg = get_config("hymba-1.5b").reduced()
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
+                                   **CPU)
+    want = [np.asarray(x) for x in jax.tree.leaves(jstate)]
+    with one_rank_world("gloo"):
+        sh = named(make_host_mesh(device="cpu"), train_state_pspecs(cfg))
+        if writer == "jax":
+            jax_save(tmp_path, 3, jstate)
+            got, step = restore_checkpoint(tmp_path, state, shardings=sh,
+                                           **CPU)
+            leaves = tree_flatten(got)[0]
+            assert step == 3 and all(is_dtensor(x) for x in leaves)
+            _assert_leaves_equal([x.to_local().numpy() for x in leaves],
+                                 want)
+        else:
+            save_checkpoint(tmp_path, 3, shard_tree(state, sh))
+    if writer == "port":
+        _assert_leaves_equal(jax_load(tmp_path)[2], want)
+        like = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                            jstate)
+        jgot, step = jax_restore(tmp_path, like)
+        assert step == 3
+        _assert_leaves_equal([np.asarray(x) for x in jax.tree.leaves(jgot)],
+                             want)

@@ -1324,6 +1324,48 @@ def test_ssd_intra_chunks_bwd_matches_finite_differences():
 
 
 @pytest.mark.cuda
+def test_sharded_step_on_a_one_rank_nccl_mesh_is_the_unsharded_step():
+    """The sharded step (``make_sharded_train_step``) in a world of one
+    rank over NCCL, on the trivial mesh, from the state of the unsharded
+    step: parameters, moments, loss and grad_norm the same bits (no
+    collective may change a value), the kernels launched as the
+    unsharded step launches them."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.checkpoint.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import one_rank_world
+    from repro_torch.data import TokenPipeline
+    from repro_torch.dtensor import gather_full
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (batch_pspecs, named,
+                                             train_state_pspecs)
+    from repro_torch.train import (init_train_state, make_sharded_train_step,
+                                   make_train_step)
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(),
+                              dtype="bfloat16")
+    state = init_train_state(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = TokenPipeline(cfg, batch=2, seq=64, seed=0).global_batch(0)
+    want, wm = make_train_step(cfg)(state, batch)
+    before = (fla.flash_attention_gqa_bwd.launches,
+              ssd.ssd_intra_chunks_bwd.launches)
+    with one_rank_world("nccl"):
+        mesh = make_host_mesh()
+        step = make_sharded_train_step(cfg, named(mesh, train_state_pspecs(
+            cfg)), named(mesh, batch_pspecs(cfg, mesh)))
+        got, gm = step(state, batch)
+        full = [gather_full(x) for x in tree_flatten(got)[0]]
+    torch.cuda.synchronize()
+    assert fla.flash_attention_gqa_bwd.launches == before[0] + cfg.n_layers
+    assert ssd.ssd_intra_chunks_bwd.launches == before[1] + cfg.n_layers
+    for key in ("loss", "grad_norm", "lr"):
+        assert torch.equal(gm[key], wm[key]), key
+    for a, b in zip(full, tree_flatten(want)[0]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-780m", "qwen2-7b"])
 def test_train_step_on_card_matches_cpu_and_repeats(arch):
     """A reduced config's train step (remat on) on the card against the

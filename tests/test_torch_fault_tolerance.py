@@ -148,6 +148,25 @@ def test_only_injected_failures_are_recovered(tmp_path):
                          async_ckpt=False)
     with pytest.raises(InjectedFailure):
         loop.run(t0, 8)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 11.5"):
-        loop.run(t0, 8, state_shardings=object())
+    # with state_shardings a restore puts the state back as DTensors in
+    # those placements, and the replay is the uninterrupted run's bits
+    from repro_torch.core.distributed import one_rank_world
+    from repro_torch.dtensor import from_local, is_dtensor, local_tensor
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import P, named, shard_tree
+
+    def sharded_step(state, batch):
+        new, metrics = _torch_step(State(*map(local_tensor, state)), batch)
+        return State(*(from_local(n, o.device_mesh, o.placements, o.shape)
+                       for n, o in zip(new, state))), metrics
+
+    _, clean = _run(ResilientLoop, FailureInjector, t0, _torch_step,
+                    tmp_path / "c", (), False)
+    with one_rank_world("gloo"):
+        sh = named(make_host_mesh(device="cpu"), State(P(), P("data")))
+        loop = ResilientLoop(sharded_step, _Pipe(), tmp_path / "s",
+                             ckpt_every=4, injector=FailureInjector((6,)))
+        got = loop.run(shard_tree(t0, sh), 14, state_shardings=sh)
+        assert loop.restarts == 1 and is_dtensor(got.w)
+        assert got.w.placements == sh.w.placements
+        assert torch.equal(got.w.to_local(), clean.w)
