@@ -42,9 +42,10 @@ iteration (``shift``; on the compact backend ``shift``, ``n_cand`` and
 ``gmax`` in one transfer) and applies the reference's exit rules to
 them. :class:`EngineStats` counts every such read in ``host_syncs``.
 
-Observability (``fit(obs=...)``, :mod:`repro_torch.obs`): the loop body
-runs its phases inside ``kpynq/*`` profiler ranges, and with obs on it
-writes one row per iteration into a float64 telemetry ring on the
+Observability (``fit(obs=...)``, :mod:`repro_torch.obs`): the fit, its
+init, the loop body's phases, each host read and the epilogue run inside
+``kpynq/*`` spans (:func:`repro_torch.obs.trace.phase`), and with obs on
+it writes one row per iteration into a float64 telemetry ring on the
 device, drained once at fit exit. Tuning (``fit(tune=...)``,
 :mod:`repro_torch.tune`): a per-(card, N, K, D) cache of measured
 :class:`EngineConfig` winners. The serve-side batched assign
@@ -529,8 +530,11 @@ def compact_candidate_pass(points, new_c, assignments, ub_t, lb, groups,
         use_groups = use_groups_decision(
             cap_n=cap_n, cap_g=cap_g, l_max=members.shape[1], k=k,
             chunk=chunk, group_gather_factor=group_gather_factor)
+    if use_groups and gmax is None:
+        with phase("kpynq/host_read", points.is_cuda):
+            gmax = int(gmax_t)
     if use_groups:
-        use_groups = (int(gmax_t) if gmax is None else gmax) <= cap_g
+        use_groups = gmax <= cap_g
     if use_groups:
         nas, nub, new_clb, pairs, chg = _group_branch(
             cpts, new_c, c_as, c_ub, c_lb, gneed, members, gsize,
@@ -958,11 +962,13 @@ def _fetch(carry: EngineCarry, vals: list, live: bool) -> list:
     """The float64 device scalars ``vals`` in one device-to-host
     transfer. ``live`` (``ObsConfig.live_drain``): the ring row the last
     body wrote rides the same transfer and goes to the ring listeners."""
-    if not live:
-        return torch.stack(vals).tolist()
-    got = torch.cat([torch.stack(vals),
-                     carry.ring[carry.iteration - 1]]).tolist()
-    _obs_ring.emit_ring_row(carry.iteration - 1, got[len(vals):])
+    got = torch.stack(vals)
+    if live:
+        got = torch.cat([got, carry.ring[carry.iteration - 1]])
+    with phase("kpynq/host_read", got.is_cuda):
+        got = got.tolist()
+    if live:
+        _obs_ring.emit_ring_row(carry.iteration - 1, got[len(vals):])
     return got[:len(vals)]
 
 
@@ -1263,79 +1269,90 @@ def fit(points, init_centroids, *, n_groups: int | None = None,
     Returns a :class:`KMeansResult` (tensors on ``device``); with
     ``return_stats=True`` returns ``(result, EngineStats)``."""
     dev = resolve_device(device)
-    points = as_float32(points, dev)
-    init_c = as_float32(init_centroids, dev)
-    k = init_c.shape[0]
-    n, d = points.shape
-    weights = None if sample_weight is None else \
-        as_float32(sample_weight, dev)
-    obs_cfg = normalize_obs(obs)
-    ring_iters = int(max_iters) + 1 if obs_cfg and obs_cfg.ring else 0
-    live_drain = bool(obs_cfg and obs_cfg.live_drain and ring_iters)
-    if tune == "force" and config is None:
-        from .. import tune as _tune
-        config = _tune.get_or_tune(points, init_c, n_groups=n_groups,
-                                   max_iters=int(max_iters), tol=float(tol),
-                                   device=dev)
-    cfg, backend = _resolve_config(backend=backend, tile_n=tile_n,
-                                   min_cap=min_cap, chunk=chunk,
-                                   config=config, tune=tune, n=n, k=k, d=d,
-                                   device=dev)
-    stats = EngineStats(backend=backend, config=cfg.to_dict(), n_points=n)
+    on_card = dev.type == "cuda"
+    with phase("kpynq/fit", on_card):
+        points = as_float32(points, dev)
+        init_c = as_float32(init_centroids, dev)
+        k = init_c.shape[0]
+        n, d = points.shape
+        weights = None if sample_weight is None else \
+            as_float32(sample_weight, dev)
+        obs_cfg = normalize_obs(obs)
+        ring_iters = int(max_iters) + 1 if obs_cfg and obs_cfg.ring else 0
+        live_drain = bool(obs_cfg and obs_cfg.live_drain and ring_iters)
+        if tune == "force" and config is None:
+            from .. import tune as _tune
+            config = _tune.get_or_tune(points, init_c, n_groups=n_groups,
+                                       max_iters=int(max_iters),
+                                       tol=float(tol), device=dev)
+        cfg, backend = _resolve_config(backend=backend, tile_n=tile_n,
+                                       min_cap=min_cap, chunk=chunk,
+                                       config=config, tune=tune, n=n, k=k,
+                                       d=d, device=dev)
+        stats = EngineStats(backend=backend, config=cfg.to_dict(),
+                            n_points=n)
 
-    if backend == "lloyd":
-        res = lloyd(points, init_c, int(max_iters), float(tol),
-                    weights=weights)
-        stats.n_iters = res.n_iters
-        stats.host_syncs = res.n_iters      # one shift read per iteration
-        if obs_cfg is not None:
-            # the dense loop has no filter pass, hence no ring; the
-            # registry still gets the fit's counters and event
-            _publish_fit(obs_cfg, stats, *_drain(res, None, stats, False))
-        return (res, stats) if return_stats else res
+        if backend == "lloyd":
+            res = lloyd(points, init_c, int(max_iters), float(tol),
+                        weights=weights)
+            stats.n_iters = res.n_iters
+            stats.host_syncs = res.n_iters  # one shift read an iteration
+            if obs_cfg is not None:
+                # the dense loop has no filter pass, hence no ring; the
+                # registry still gets the fit's counters and event
+                _publish_fit(obs_cfg, stats, *_drain(res, None, stats, False))
+            return (res, stats) if return_stats else res
 
-    if n_groups is None:
-        n_groups = max(k // 10, 1)
-    n_groups = int(min(n_groups, k))
-    stats.x2_evals = 1
+        if n_groups is None:
+            n_groups = max(k // 10, 1)
+        n_groups = int(min(n_groups, k))
+        stats.x2_evals = 1
 
-    groups = group_centroids(init_c, n_groups)
-    members, gsize = build_group_tables(groups.cpu().numpy(), n_groups, dev)
-    stats.host_syncs += 1
-    carry = _init_carry(points, init_c, groups, n_groups=n_groups,
-                        ring_iters=ring_iters)
-
-    if backend == "compact":
-        carry, core, gmax = _fit_compact(
-            points, weights, carry, groups, members, gsize, cfg=cfg, k=k,
-            n_groups=n_groups, max_iters=int(max_iters), tol=float(tol),
-            max_bucket_switches=int(max_bucket_switches), stats=stats,
-            ring_iters=ring_iters, live_drain=live_drain)
-        stats.host_syncs += core.reads_gmax(gmax)
-    else:
-        core = PassCore.from_config(cfg, backend=backend, k=k,
-                                    n_groups=n_groups, ring_iters=ring_iters,
-                                    live_drain=live_drain)
-        cond = _loop_cond(max_iters=int(max_iters), tol=float(tol))
-        body = _loop_body(core, points, weights, groups, members, gsize)
-        shift = float("inf")
-        while cond(carry.iteration, shift):
-            carry = body(carry)
-            # the per-iteration host sync
-            shift = _fetch(carry, [carry.shift.double()], True)[0] \
-                if live_drain else float(carry.shift)
+        with phase("kpynq/init", on_card):
+            groups = group_centroids(init_c, n_groups)
+            with phase("kpynq/host_read", on_card):
+                groups_np = groups.cpu().numpy()
+            members, gsize = build_group_tables(groups_np, n_groups, dev)
             stats.host_syncs += 1
-        gmax = None
-    stats.n_iters = carry.iteration
+            carry = _init_carry(points, init_c, groups, n_groups=n_groups,
+                                ring_iters=ring_iters)
 
-    assignments, evals, inertia = _epilogue_pass(
-        core, points, weights, carry, groups, members, gsize, gmax)
-    result = KMeansResult(carry.centroids, assignments, carry.iteration,
-                          evals, inertia)
-    if obs_cfg is not None:
-        _publish_fit(obs_cfg, stats,
-                     *_drain(result, carry.ring, stats, live_drain))
-    return (result, stats) if return_stats else result
+        if backend == "compact":
+            carry, core, gmax = _fit_compact(
+                points, weights, carry, groups, members, gsize, cfg=cfg,
+                k=k, n_groups=n_groups, max_iters=int(max_iters),
+                tol=float(tol), max_bucket_switches=int(max_bucket_switches),
+                stats=stats, ring_iters=ring_iters, live_drain=live_drain)
+            stats.host_syncs += core.reads_gmax(gmax)
+        else:
+            core = PassCore.from_config(cfg, backend=backend, k=k,
+                                        n_groups=n_groups,
+                                        ring_iters=ring_iters,
+                                        live_drain=live_drain)
+            cond = _loop_cond(max_iters=int(max_iters), tol=float(tol))
+            body = _loop_body(core, points, weights, groups, members, gsize)
+            shift = float("inf")
+            while cond(carry.iteration, shift):
+                carry = body(carry)
+                # the per-iteration host sync
+                if live_drain:
+                    shift = _fetch(carry, [carry.shift.double()], True)[0]
+                else:
+                    with phase("kpynq/host_read", on_card):
+                        shift = float(carry.shift)
+                stats.host_syncs += 1
+            gmax = None
+        stats.n_iters = carry.iteration
+
+        with phase("kpynq/epilogue", on_card):
+            assignments, evals, inertia = _epilogue_pass(
+                core, points, weights, carry, groups, members, gsize, gmax)
+        result = KMeansResult(carry.centroids, assignments, carry.iteration,
+                              evals, inertia)
+        if obs_cfg is not None:
+            _publish_fit(obs_cfg, stats,
+                         *_drain(result, carry.ring, stats, live_drain))
+        return (result, stats) if return_stats else result
 
 
 # --------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels as _kernels
+from ..obs.trace import phase
 from .distances import (pairwise_dists, pairwise_sq_dists, row_norms_sq,
                         rowwise_dists)
 
@@ -109,8 +110,10 @@ def lloyd(points, init_centroids, max_iters: int = 100, tol: float = 1e-4,
         assign = torch.argmin(pairwise_dists(points, centroids), dim=1).int()
         new_c, _ = update_centroids(points, assign, k, centroids,
                                     weights=weights)
-        shift = float(torch.max(torch.sqrt(torch.sum(
-            (new_c - centroids) ** 2, dim=-1))))
+        shift_t = torch.max(torch.sqrt(torch.sum(
+            (new_c - centroids) ** 2, dim=-1)))
+        with phase("kpynq/host_read", points.is_cuda):
+            shift = float(shift_t)
         centroids = new_c
         evals = evals + n * k
         i += 1

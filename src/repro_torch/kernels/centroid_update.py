@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from ..obs.trace import phase
 from . import _build
 
 NAME = "centroid_update"
@@ -148,9 +149,16 @@ def centroid_update(points, labels, k: int, weights=None):
     int32 ``labels`` (N,), optionally weighted by float32 ``weights``.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    :func:`centroid_update_plain`."""
-    if not points.is_cuda:
-        return centroid_update_plain(points, labels, k, weights)
+    :func:`centroid_update_plain`. Entry to return is one
+    ``kpynq/centroid_update`` span."""
+    with phase("kpynq/centroid_update", points.is_cuda):
+        if not points.is_cuda:
+            return centroid_update_plain(points, labels, k, weights)
+        return _launch(points, labels, k, weights)
+
+
+def _launch(points, labels, k, weights):
+    """Launch ``csrc/centroid_update.cu``'s kernel on the card."""
     _check(points, labels, k, weights)
     n, d = points.shape
     p = plan(n, d, k)

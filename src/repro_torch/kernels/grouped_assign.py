@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from ..obs.trace import phase
 from . import _build
 
 NAME = "grouped_assign"
@@ -141,13 +142,16 @@ def grouped_assign(x, c_grouped, ids, block_mask, *, tile_n: int = 256,
     squared norms (``None`` computes them).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    :func:`grouped_assign_plain`. Same returns as the plain version."""
-    if not x.is_cuda:
-        return grouped_assign_plain(x, c_grouped, ids, block_mask,
-                                    tile_n=tile_n, x2=x2, c2g=c2g)
-    out = _launch(False, x, c_grouped, ids, block_mask, tile_n, x2, c2g)
-    _build.count_launch(grouped_assign)
-    return out
+    :func:`grouped_assign_plain`. Same returns as the plain version.
+    Entry to return is one ``kpynq/grouped_assign`` span."""
+    with phase("kpynq/grouped_assign", x.is_cuda):
+        if not x.is_cuda:
+            return grouped_assign_plain(x, c_grouped, ids, block_mask,
+                                        tile_n=tile_n, x2=x2, c2g=c2g)
+        out = _launch(False, x, c_grouped, ids, block_mask, tile_n, x2,
+                      c2g)
+        _build.count_launch(grouped_assign)
+        return out
 
 
 def grouped_assign_simple(x, c_grouped, ids, block_mask, *,

@@ -3,13 +3,20 @@
 
 Two granularities:
 
-* **Device phases** — the engine's loop body runs its phases inside
-  :func:`phase` ranges (``kpynq/candidate_pass``,
-  ``kpynq/move_and_bounds``, ``kpynq/ring_write``): a
-  ``torch.profiler.record_function`` range, and on the card an NVTX
-  range as well, so any profiler view of a fit attributes kernels to
-  engine phases. They stand where the reference has
-  ``jax.named_scope``. :func:`profile` runs a callable under
+* **Device phases** — :func:`phase` is the one way the program marks a
+  span: an NVTX range on the card always (for Nsight), and a
+  ``torch.profiler.record_function`` range only while a profiler is
+  active, so a fit that nobody traces pays a flag check, not a range.
+  Under a profiler the ranges sit in the exported trace on the clock of
+  the device activity. The spans (the reference marks its phases with
+  ``jax.named_scope``): ``kpynq/fit`` (``core.engine.fit``, entry to
+  return), ``kpynq/init`` (groups, tables, the filter state),
+  ``kpynq/candidate_pass``, ``kpynq/move_and_bounds``, ``kpynq/reduce``
+  (the sharded fit's all-reduce), ``kpynq/ring_write``,
+  ``kpynq/epilogue`` (the last pass, the inertia), ``kpynq/host_read``
+  (each host read that ``EngineStats.host_syncs`` counts) and
+  ``kpynq/grouped_assign`` / ``kpynq/centroid_update`` (the kernels'
+  wrappers, checks and launch). :func:`profile` runs a callable under
   ``torch.profiler`` and exports a Chrome/Perfetto trace (open at
   https://ui.perfetto.dev).
 * **Host spans** — :func:`span` is a context manager timing a host
@@ -22,6 +29,9 @@ import contextlib
 import os
 import tempfile
 import time
+
+import torch
+from torch._C._autograd import _profiler_enabled
 
 from .metrics import MetricsRegistry, default_registry
 
@@ -58,18 +68,32 @@ def span(name: str, registry: MetricsRegistry | None = None, **fields):
         reg.log_event("span", **merged)
 
 
-@contextlib.contextmanager
-def phase(name: str, on_card: bool):
-    """One engine phase: a ``record_function`` range, plus an NVTX
+class phase:
+    """One span of the program, as a context manager: a
+    ``record_function`` range while a profiler is active, and an NVTX
     range where ``on_card`` (the tensors live on a CUDA device; a build
-    of torch without CUDA has no NVTX)."""
-    import torch
-    with torch.profiler.record_function(name):
-        if on_card:
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+    of torch without CUDA has no NVTX). A class, not a generator: with
+    no profiler active an enter and exit is a flag check and, on the
+    card, an NVTX push and pop."""
+    __slots__ = ("name", "on_card", "_range")
+
+    def __init__(self, name: str, on_card: bool):
+        self.name = name
+        self.on_card = on_card
+        self._range = None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        if self.on_card:
+            torch.cuda.nvtx.range_push(self.name)
+
+    def __exit__(self, *exc):
+        if self.on_card:
+            torch.cuda.nvtx.range_pop()
+        if self._range is not None:
+            self._range.__exit__(*exc)
 
 
 def profile(fn, *args, trace_dir: str | None = None,
@@ -85,7 +109,6 @@ def profile(fn, *args, trace_dir: str | None = None,
     Also logged as a ``profile`` event in the registry so the export
     names the artifact path.
     """
-    import torch
     from torch.profiler import ProfilerActivity
 
     if trace_dir is None:
