@@ -8,8 +8,9 @@ the order they run:
 
 1. build every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``, one
    compiler process per source, all at once; log ``-Xptxas -v``
-   (registers, shared memory, spills) of every kernel in full (all eight
-   have been redesigned for this card), and count the ``HGMMA``
+   (registers, shared memory, spills) of every kernel in full (eight
+   redesigned for this card, ``bounds_upkeep`` written for it), and
+   count the ``HGMMA``
    instructions in the built ``flash_attention`` and
    ``flash_attention_bwd`` libraries (``cuobjdump -sass``; none in
    either where ``cuobjdump`` exists fails the run);
@@ -26,6 +27,18 @@ the order they run:
    ``centroid_update`` in turns (plain, ``index_add_``, kernel, kernel,
    ``index_add_``, plain) and its two passes apart under
    ``torch.profiler``;
+2e. ``bounds_upkeep`` (a kernel with no TPU counterpart: the move's
+   bound upkeep and own-distance refresh) at uci-xlarge's and
+   uci-highk's shapes, with about half the rows refreshed, with every
+   row, and with the refresh off, against its plain version: bit for bit
+   but a refreshed upper bound (held to the expanded form's tolerance);
+   each case timed in turns with the plain version beside N (13 + 8 G)
+   bytes at the card's bandwidth, the refreshed rows' X reads on top,
+   and its launches counted; ``own_dists`` (the compact pass's in-pass
+   refresh) on a compact buffer of the half-refreshed rows at each
+   shape, bit for bit against ``bounds_upkeep``'s refresh and within
+   the expanded form's tolerance of its plain version, timed in turns
+   with it beside the buffer's bytes;
 2b. ``pairwise_sq_dists`` (uci-xlarge in fp32 and bf16, a ragged
    N = 100,003, D = 33, K = 77; D = 200 and an x at a 4-byte offset,
    which the entry point sends to the first kernel, its route checked)
@@ -52,7 +65,8 @@ the order they run:
 3. the main path at the paper suite's ``uci-xlarge`` problem
    (N = 2^20, D = 32, K = 256, G = 25): ``KMeans(algorithm="yinyang",
    engine="auto").fit`` and ``predict`` on the same points, with every
-   kernel's launch count reset just before and read just after; then
+   kernel's launch count reset just before and read just after
+   (``bounds_upkeep`` once a move); then
    the same fit with ``grouped_assign`` swapped for the port's first
    kernel, which must give the same labels, ``n_iters`` and
    ``distance_evals``; the block-skip kernels must not launch there;
@@ -2165,6 +2179,191 @@ def traced(fn, label):
                 phases=phases)
 
 
+# -- phase 2e: the bound upkeep of a move --------------------------------------
+
+def bounds_upkeep_inputs(dev, gen, n, d, k, g, all_maybe=False):
+    """``bounds_upkeep``'s inputs after a move, on the card, in its
+    argument order: points near their old centroid, centroids moved by
+    about 0.05 a coordinate, bounds that straddle each other (about half
+    the rows *maybe*; with ``all_maybe`` every row but the sentinels),
+    and every 97th row a sharded fit's sentinel (ub 0, lb +inf)."""
+    import torch
+    c = torch.randn((k, d), generator=gen, device=dev) * 3
+    new_c = c + torch.randn((k, d), generator=gen, device=dev) * 0.05
+    labels = torch.randint(0, k, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    x = c[labels.long()] + torch.randn((n, d), generator=gen,
+                                       device=dev) * 0.5
+    ub = torch.rand((n,), generator=gen, device=dev) * 4
+    if all_maybe:
+        ub.fill_(float("inf"))
+    lb = torch.rand((n, 1), generator=gen, device=dev) * 4 \
+        + torch.rand((n, g), generator=gen, device=dev)
+    ub[::97] = 0.0
+    lb[::97] = float("inf")
+    drift = torch.sqrt(torch.sum((new_c - c) ** 2, dim=-1))
+    groups = torch.arange(k, device=dev) % g
+    gdrift = torch.full((g,), float("-inf"), device=dev).scatter_reduce_(
+        0, groups, drift, "amax")
+    return (x, torch.sum(x * x, dim=-1), new_c,
+            torch.sum(new_c * new_c, dim=-1), labels, ub, lb.contiguous(),
+            drift, gdrift)
+
+
+def bounds_upkeep_phase(dev, bw):
+    """``bounds_upkeep`` at uci-xlarge's and uci-highk's shapes against
+    its plain version: bit for bit in ``lb_dec`` and ``tightened``, and in
+    ``ub_t`` and ``need`` on every row the refresh did not touch (every
+    row with the refresh off); a refreshed ``ub_t`` squared within 1e-5
+    of ``||x||^2 + ||c_a||^2``, ``need`` equal where the plain ``ub_t``
+    stands farther from ``glb`` than the root of that. Each case timed
+    by CUDA events in turns with the plain version (plain, kernel,
+    kernel, plain), its device time by kernel under the profiler, and
+    the least time the card could take: N (13 + 8 G) bytes, and each
+    refreshed row's X row and x2 on top. Then ``own_dists`` on each
+    shape's compact buffer (:func:`own_dists_case`). Returns the cases,
+    each named by its ``kernel``; the first is ``bounds_upkeep`` at
+    uci-xlarge with about half the rows refreshed."""
+    import torch
+    import repro_torch.kernels as kernels
+    bu_mod = kernel_module("bounds_upkeep")
+    wrapper = kernels.bounds_upkeep
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = []
+    for label, prob in (("uci-xlarge", XLARGE), ("uci-highk", HIGHK)):
+        n, d, k = prob["n"], prob["d"], prob["k"]
+        g = max(k // 10, 1)
+        for all_maybe in (False, True):
+            args = bounds_upkeep_inputs(dev, gen, n, d, k, g, all_maybe)
+            ub_p, _, maybe, _ = bu_mod.bounds_upkeep_plain(*args,
+                                                           refresh=False)
+            rows_maybe = int(maybe.sum())
+            for refresh in ((True,) if all_maybe else (True, False)):
+                case = (f"{label} N={n} D={d} K={k} G={g}, "
+                        f"{'all' if all_maybe else 'half'} maybe, refresh "
+                        f"{'on' if refresh else 'off'}")
+                before = wrapper.launches
+                got = wrapper(*args, refresh=refresh)
+                sync()
+                check(wrapper.launches == before + 1,
+                      f"bounds_upkeep {case}: not one launch")
+                want = bu_mod.bounds_upkeep_plain(*args, refresh=refresh)
+                check(torch.equal(got[1], want[1])
+                      and torch.equal(got[3], want[3]),
+                      f"bounds_upkeep {case}: lb_dec or tightened differ")
+                kept = ~maybe if refresh else torch.ones_like(maybe)
+                check(torch.equal(got[0][kept], want[0][kept])
+                      and torch.equal(got[2][kept], want[2][kept]),
+                      f"bounds_upkeep {case}: ub_t or need differ on rows "
+                      f"the refresh did not touch")
+                x2, c2, a = args[1], args[3], args[4].long()
+                tol = 1e-5 * (x2 + c2[a])
+                err2 = (got[0] ** 2 - want[0] ** 2).abs()
+                check(bool(((err2 <= tol) | kept).all()),
+                      f"bounds_upkeep {case}: a refreshed ub_t beyond "
+                      f"the expanded form's tolerance")
+                glb = want[1].min(dim=1).values
+                clear = (want[0] - glb).abs() > tol.sqrt()
+                check(bool((got[2] == want[2])[clear].all()),
+                      f"bounds_upkeep {case}: need differs off a tie")
+                again = wrapper(*args, refresh=refresh)
+                check(all(torch.equal(p, q) for p, q in zip(got, again)),
+                      f"bounds_upkeep {case}: a second call's bits differ")
+                nbytes = n * (13 + 8 * g) \
+                    + (rows_maybe * (4 * d + 4) if refresh else 0)
+                bound_ms = nbytes / bw * 1e3
+
+                def kernel():
+                    return wrapper(*args, refresh=refresh)
+
+                def plain():
+                    return bu_mod.bounds_upkeep_plain(*args,
+                                                      refresh=refresh)
+                turns = {"plain": [median_ms(plain)],
+                         "kernel": [median_ms(kernel), median_ms(kernel)]}
+                turns["plain"].append(median_ms(plain))
+                rows, smem = bu_mod.plan(g)
+                entry = dict(
+                    kernel="bounds_upkeep", case=case, n=n, d=d, k=k, g=g,
+                    refresh=refresh,
+                    maybe_rows=rows_maybe,
+                    need_diffs=int((got[2] != want[2]).sum()),
+                    max_abs_err=float((got[0] - want[0]).abs().max()),
+                    ms=statistics.mean(turns["kernel"]),
+                    plain_ms=statistics.mean(turns["plain"]),
+                    turns_ms=turns, bytes=nbytes, bound_ms=bound_ms,
+                    bound_by="bytes", library_ms=None,
+                    device_ms=device_ms_by_kernel(kernel),
+                    rows_a_block=rows, smem=smem,
+                    launches=wrapper.launches - before)
+                log(f"bounds_upkeep {json.dumps(entry)}")
+                cases.append(entry)
+                if refresh and not all_maybe:
+                    cases.append(own_dists_case(label, args, got[0], maybe,
+                                                bw))
+            del args, ub_p, maybe
+            torch.cuda.empty_cache()
+    return cases
+
+
+def own_dists_case(label, args, ub_t, maybe, bw):
+    """``own_dists`` on the compact buffer the pass would gather for the
+    ``maybe`` rows of ``bounds_upkeep``'s inputs ``args``: the rows'
+    indices padded to a power of two (at most N) with row 0, as the
+    pass pads its buffer, and their X rows, x2 and labels gathered. On
+    the buffer's rows the bits of the move's refresh ``ub_t``; every
+    slot squared within 1e-5 of ``||x||^2 + ||c_a||^2`` of
+    :func:`own_dists_plain`; the same bits again on a second call.
+    Timed in turns with the plain version beside the buffer's bytes
+    (an X row, x2 and a label read and a distance written a slot; the
+    centroids stay in L2)."""
+    import torch
+    import repro_torch.kernels as kernels
+    bu_mod = kernel_module("bounds_upkeep")
+    own = bu_mod.own_dists
+    x, x2, c, c2, labels = args[:5]
+    n, d = x.shape
+    k = c.shape[0]
+    idx = torch.nonzero(maybe).flatten()
+    rows = idx.numel()
+    cap = min(1 << (rows - 1).bit_length(), n)
+    idx = torch.cat([idx, idx.new_zeros(cap - rows)])
+    cpts, c_x2, c_as = x[idx], x2[idx], labels[idx]
+    case = f"{label} compact buffer {cap} rows ({rows} live) D={d} K={k}"
+    before = own.launches
+    got = kernels.own_dists(cpts, c_x2, c, c2, c_as)
+    sync()
+    check(own.launches == before + 1, f"own_dists {case}: not one launch")
+    check(torch.equal(got[:rows], ub_t[idx[:rows]]),
+          f"own_dists {case}: not the bits of bounds_upkeep's refresh")
+    want = bu_mod.own_dists_plain(cpts, c_x2, c, c2, c_as)
+    tol = 1e-5 * (c_x2 + c2[c_as.long()])
+    check(bool(((got ** 2 - want ** 2).abs() <= tol).all()),
+          f"own_dists {case}: beyond the expanded form's tolerance")
+    check(torch.equal(kernels.own_dists(cpts, c_x2, c, c2, c_as), got),
+          f"own_dists {case}: a second call's bits differ")
+    nbytes = cap * (4 * d + 12)
+
+    def kernel():
+        return kernels.own_dists(cpts, c_x2, c, c2, c_as)
+
+    def plain():
+        return bu_mod.own_dists_plain(cpts, c_x2, c, c2, c_as)
+    turns = {"plain": [median_ms(plain)],
+             "kernel": [median_ms(kernel), median_ms(kernel)]}
+    turns["plain"].append(median_ms(plain))
+    entry = dict(
+        kernel="own_dists", case=case, n=cap, d=d, k=k, live_rows=rows,
+        max_abs_err=float((got - want).abs().max()),
+        ms=statistics.mean(turns["kernel"]),
+        plain_ms=statistics.mean(turns["plain"]), turns_ms=turns,
+        bytes=nbytes, bound_ms=nbytes / bw * 1e3, bound_by="bytes",
+        library_ms=None, device_ms=device_ms_by_kernel(kernel),
+        launches=own.launches - before)
+    log(f"own_dists {json.dumps(entry)}")
+    return entry
+
+
 # -- phases 11-13: observability, tuning, the k-means serving index ----------
 
 def _quantile(sorted_vals, q):
@@ -3123,7 +3322,9 @@ def sharded_rank(rank, world, job):
         "cuda", rank % torch.cuda.device_count())
     mesh = make_mesh(world)
     wrappers = {"grouped_assign": kernels.grouped_assign,
-                "centroid_update": kernels.centroid_update}
+                "centroid_update": kernels.centroid_update,
+                "bounds_upkeep": kernels.bounds_upkeep,
+                "own_dists": kernels.own_dists}
 
     def sync():
         if torch.device(dev).type == "cuda":
@@ -3183,8 +3384,8 @@ def sharded_rank(rank, world, job):
         fit("compress", pts, init, backend="compact", compress=True, **kw)
         if job.get("search"):
             search(rank, world, mesh, pts, init, kw, job, out)
-            fit("auto", pts, init, backend="compact", tune="auto",
-                return_stats=True, **kw)
+            fit("auto", pts, init, count=True, backend="compact",
+                tune="auto", return_stats=True, **kw)
         del pts
     if "wide" in job:
         pts = np.load(job["wide"])
@@ -3352,6 +3553,22 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
           "not adopt the search's winner")
     check(np.array_equal(auto["labels"], main["labels"]),
           "phase 16: tune='auto' moved the labels")
+    # the tuned fit's kernels, counted on every rank from just before it
+    # to just after it: a bound upkeep a move, and the refresh in the
+    # pass (own_dists) exactly where the config puts it there
+    in_pass = bool(auto["config"].get("refresh_in_pass"))
+    auto_launches = {nm: sum(r["auto"]["launches"][nm] for r in ranks)
+                     for nm in ("bounds_upkeep", "own_dists")}
+    log(f"phase 16 (a) tune='auto' launches over {world} ranks: "
+        f"{auto_launches}, refresh_in_pass {in_pass}, n_iters "
+        f"{auto['n_iters']}")
+    check(auto_launches["bounds_upkeep"] == world * auto["n_iters"],
+          f"phase 16: bounds_upkeep launched "
+          f"{auto_launches['bounds_upkeep']} times in the tuned fit over "
+          f"{world} ranks, not a launch a rank a move")
+    check((auto_launches["own_dists"] > 0) == in_pass,
+          f"phase 16: own_dists launched {auto_launches['own_dists']} "
+          f"times in the tuned fit with refresh_in_pass {in_pass}")
     skew = np.asarray(main["shard_skew"])
     ms_iter = got["compact_warm"]["seconds"] * 1e3 / (main["n_iters"] + 1)
     warm = [r["compact_warm"] for r in ranks]
@@ -3381,7 +3598,7 @@ def sharded_phase(dev, xl_np, xl_init, main_fit, compact_s, wide_np,
         search=dict(srch, auto_s=auto["seconds"]),
         shard_skew_mean=float(skew.mean()), shard_skew_max=float(skew.max())),
         all_reduce_ms=ar_ms, all_reduce_share=share, iteration_ms=ms_iter,
-        launches=launches)
+        launches=launches, auto_launches=auto_launches)
 
     # (b) uci-wide in the same world
     wc = got["wide/compact"]
@@ -4625,6 +4842,7 @@ def main() -> None:
     # modules, with the plain versions, come from importlib
     cu_mod = kernel_module("centroid_update")
     ga_mod = kernel_module("grouped_assign")
+    bu_mod = kernel_module("bounds_upkeep")
     psd_mod = kernel_module("distance")
     fa_mod = kernel_module("filtered_assign")
 
@@ -4660,6 +4878,7 @@ def main() -> None:
 
     wrappers = {"grouped_assign": kernels.grouped_assign,
                 "centroid_update": kernels.centroid_update,
+                "bounds_upkeep": kernels.bounds_upkeep,
                 "pairwise_sq_dists": kernels.pairwise_sq_dists,
                 "filtered_assign": kernels.filtered_assign,
                 # each counts both its wrappers' launches (the entry
@@ -4678,11 +4897,15 @@ def main() -> None:
         # there reaches every caller
         kernels.grouped_assign = ga_mod.grouped_assign_plain
         kernels.centroid_update = cu_mod.centroid_update_plain
+        kernels.bounds_upkeep = bu_mod.bounds_upkeep_plain
+        kernels.own_dists = bu_mod.own_dists_plain
         try:
             yield
         finally:
             kernels.grouped_assign = wrappers["grouped_assign"]
             kernels.centroid_update = wrappers["centroid_update"]
+            kernels.bounds_upkeep = wrappers["bounds_upkeep"]
+            kernels.own_dists = bu_mod.own_dists
 
     # -- the problem: uci-xlarge ------------------------------------------
     n, d, k = XLARGE["n"], XLARGE["d"], XLARGE["k"]
@@ -4927,6 +5150,11 @@ def main() -> None:
                            dtype=torch.int32)
     cu_case("ragged N=100003 D=33 K=77 weighted, -1 labels", rg, rg_lab, 77,
             torch.rand(100_003, generator=gen, device=dev))
+
+    # -- 2e. the bound upkeep of a move ----------------------------------
+    report["bounds_upkeep"] = bu_cases = bounds_upkeep_phase(dev, bw)
+    bu_main = bu_cases[0]
+    own_main = next(c for c in bu_cases if c["kernel"] == "own_dists")
 
     # -- 2b. the block-skip entry point's kernels ------------------------
     def norm_atol(x, c):
@@ -5208,6 +5436,10 @@ def main() -> None:
     for nm in ("grouped_assign", "centroid_update"):
         check(launches[nm] >= n_iters, f"{nm} launched {launches[nm]} "
               f"times on the main path, fewer than n_iters={n_iters}")
+    # one bound upkeep a move
+    check(launches["bounds_upkeep"] == n_iters,
+          f"bounds_upkeep launched {launches['bounds_upkeep']} times on the "
+          f"main path for n_iters={n_iters}")
     for nm in ("pairwise_sq_dists", "filtered_assign"):
         check(launches[nm] == 0, f"{nm} launched {launches[nm]} times on "
               f"the main path, which runs the kernel backend only")
@@ -5818,6 +6050,20 @@ def main() -> None:
         row("centroid_update", cu_main,
             "src/repro_torch/kernels/csrc/centroid_update.cu",
             "src/repro/kernels/centroid_update.py:39", kmeans_paths),
+        # no TPU counterpart: the move's bound upkeep, array code in
+        # repro/core/engine.py that XLA fuses; the sharded drivers'
+        # ranks count their own
+        row("bounds_upkeep", bu_main,
+            "src/repro_torch/kernels/csrc/bounds_upkeep.cu",
+            "none (repro/core/engine.py move_and_bounds, fused by XLA)",
+            {"fit": launches, "stream": stream_launches,
+             "resilient_stream": resilient_launches}),
+        # the compact pass's in-pass refresh in the same order, run by
+        # phase 16's tuned sharded fit (summed over its ranks)
+        row("own_dists", own_main,
+            "src/repro_torch/kernels/csrc/bounds_upkeep.cu",
+            "none (repro/core/engine.py compact_candidate_pass, fused by "
+            "XLA)", {"sharded_auto": report["sharded"]["auto_launches"]}),
         # launched by the block-skip entry point's path (phase 4c)
         row("pairwise_sq_dists", psd_main,
             "src/repro_torch/kernels/csrc/pairwise_sq_dists.cu",

@@ -300,8 +300,11 @@ def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
     streaming step, whose refresh belongs to the next visit's
     :func:`stream_bounds`) skips the own-distance refresh: the returned
     ``ub`` is the drift-inflated bound and ``need`` the *maybe* mask.
-    ``tightened`` counts the *maybe* rows either way."""
-    a = assignments.long()
+    ``tightened`` counts the *maybe* rows either way.
+
+    The bounds' upkeep and the refresh after the drift are one call,
+    :func:`repro_torch.kernels.bounds_upkeep`: one kernel on the card,
+    the plain version on the CPU."""
     sums, bcounts = centroid_sums(points, assignments, k, weights=weights)
     if not reducer.is_local:
         with phase("kpynq/reduce", points.is_cuda):
@@ -314,23 +317,11 @@ def move_and_bounds(points, centroids, assignments, ub, lb, groups, *,
     if update.clamp_gdrift:
         group_drift = torch.clamp_min(group_drift, 0.0)
     shift = torch.max(drift)
-    ub = ub + drift[a]
-    lb_dec = torch.clamp_min(lb - group_drift[None, :], 0.0)
-    glb = torch.min(lb_dec, dim=1).values
-    maybe = ub > glb
-    if refresh:
-        if x2 is None:
-            d_own = rowwise_dists(points, new_c[a])
-        else:
-            d_own = torch.sqrt(torch.clamp_min(
-                x2 - 2.0 * torch.sum(points * new_c[a], dim=-1)
-                + new_c2[a], 0.0))
-        ub_t = torch.where(maybe, d_own, ub)
-        need = ub_t > glb
-    else:
-        ub_t, need = ub, maybe
+    ub_t, lb_dec, need, tightened = _kernels.bounds_upkeep(
+        points, x2, new_c, new_c2, assignments, ub, lb, drift, group_drift,
+        refresh=refresh)
     return MoveOut(new_c, new_c2, new_counts, ub_t, lb_dec, need, shift,
-                   maybe.sum(), drift, group_drift, bcounts)
+                   tightened, drift, group_drift, bcounts)
 
 
 def _left_at(changed, new_assign, old_assign, ub_t):
@@ -517,10 +508,9 @@ def compact_candidate_pass(points, new_c, assignments, ub_t, lb, groups,
         c2 = row_norms_sq(new_c)
     c_x2 = x2[idx] if x2 is not None else row_norms_sq(cpts)
     if refresh_ub:
-        # invalid slots compute garbage that the scatter drops
-        a = c_as.long()
-        c_ub = torch.sqrt(torch.clamp_min(
-            c_x2 - 2.0 * torch.sum(cpts * new_c[a], dim=-1) + c2[a], 0.0))
+        # invalid slots compute garbage that the scatter drops; the
+        # refresh in the move's order, so both placements agree in bits
+        c_ub = _kernels.own_dists(cpts, c_x2, new_c, c2, c_as)
     gneed = (c_lb < c_ub[:, None]) & valid[:, None]           # (cap, G)
     gmax_t = gneed.sum(dim=1).max()
     # rows that still need distance work: the dense branch's count

@@ -14,6 +14,7 @@ kernels have a second wrapper each for the model's own layout
 (``flash_attention_gqa``, ``ssd_intra_chunks``), counted on the entry
 point's wrapper (``flash_attention.launches``, ``ssd_intra.launches``).
 """
+from .bounds_upkeep import bounds_upkeep, own_dists
 from .centroid_update import centroid_update
 from .distance import pairwise_sq_dists
 from .filtered_assign import filtered_assign
@@ -24,6 +25,7 @@ from .ops import (build_block_mask, build_group_block_mask, compact_indices,
 from .ssd_intra import ssd_intra, ssd_intra_chunks
 
 __all__ = ["pairwise_sq_dists", "filtered_assign", "centroid_update",
-           "build_block_mask", "build_group_block_mask", "compact_indices",
-           "filtered_assign_auto", "grouped_assign", "flash_attention",
-           "flash_attention_gqa", "ssd_intra", "ssd_intra_chunks"]
+           "bounds_upkeep", "build_block_mask", "build_group_block_mask",
+           "compact_indices", "filtered_assign_auto", "grouped_assign",
+           "flash_attention", "flash_attention_gqa", "own_dists",
+           "ssd_intra", "ssd_intra_chunks"]

@@ -15,10 +15,10 @@ Two granularities:
   (the sharded fit's all-reduce), ``kpynq/ring_write``,
   ``kpynq/epilogue`` (the last pass, the inertia), ``kpynq/host_read``
   (each host read that ``EngineStats.host_syncs`` counts) and
-  ``kpynq/grouped_assign`` / ``kpynq/centroid_update`` (the kernels'
-  wrappers, checks and launch). :func:`profile` runs a callable under
-  ``torch.profiler`` and exports a Chrome/Perfetto trace (open at
-  https://ui.perfetto.dev).
+  ``kpynq/grouped_assign`` / ``kpynq/centroid_update`` /
+  ``kpynq/bounds_upkeep`` (the kernels' wrappers, checks and launch).
+  :func:`profile` runs a callable under ``torch.profiler`` and exports
+  a Chrome/Perfetto trace (open at https://ui.perfetto.dev).
 * **Host spans** — :func:`span` is a context manager timing a host
   region into a registry histogram + event (used by ``tune.autotune``
   around each measured candidate).

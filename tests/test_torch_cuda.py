@@ -16,7 +16,9 @@ scale), sums atol 1e-3 (the
 card adds in another order than the CPU); squared distances of the
 expanded form within 1e-5 of the norms they come from, bf16 inputs as
 fp32 (both sides widen the same bf16 values); ids, pair counts and
-counts exact; repeat and uniform-weight fits bit-identical. An argmin
+counts exact; ``bounds_upkeep`` bit for bit but a refreshed upper
+bound, whose square is such a squared distance; repeat and
+uniform-weight fits bit-identical. An argmin
 id may differ from the plain version's only at a tie: both ids'
 distances within the distance tolerance of each other.
 """
@@ -32,6 +34,7 @@ from repro_torch.data import make_points
 
 # the package exports the wrappers under the kernels' names: the
 # modules themselves, with the plain versions, come from importlib
+bu = importlib.import_module("repro_torch.kernels.bounds_upkeep")
 cu = importlib.import_module("repro_torch.kernels.centroid_update")
 fa = importlib.import_module("repro_torch.kernels.filtered_assign")
 ga = importlib.import_module("repro_torch.kernels.grouped_assign")
@@ -93,6 +96,21 @@ CU_DET_SHAPES = CU_SHAPES + [(1, 5, 3), (3000, 32, 256),
 SSD_CASES = [(4, 32, 16, 32), (2, 128, 8, 64), (1, 16, 128, 16),
              (5, 8, 8, 32), (3, 128, 16, 128), (2, 128, 128, 64),
              (2, 256, 33, 100), (3, 100, 16, 128)]
+# bounds_upkeep's (n, d, k, g): uci-xlarge's and uci-highk's shapes, a
+# ragged N at a D off a multiple of 4, one group (Hamerly) at D 7, and
+# a tiny case; BU_CPU_CASES are the CPU's share of them
+BU_CASES = [(1 << 20, 32, 256, 25), (1 << 18, 32, 1024, 102),
+            (100_003, 33, 77, 7), (4099, 7, 40, 1), (130, 3, 6, 6)]
+BU_CPU_CASES = [(3001, 32, 256, 25), (1030, 32, 1024, 102),
+                (4099, 7, 40, 1), (130, 3, 6, 6)]
+
+
+def bu_params(cases):
+    """(n, d, k, g, gdrift) params: every group-drift rule, "empty" only
+    where there is a second group."""
+    return [pytest.param(*c, gd, id="-".join(map(str, c + (gd,))))
+            for c in cases for gd in ("max", "empty", "clamped")
+            if gd != "empty" or c[3] > 1]
 
 
 def attn_inputs(b, s, h, kv, d, seed):
@@ -151,6 +169,38 @@ def ga_inputs(n, d, k, g, tile_n, density, seed, layout="tail"):
     c_grouped = c[np.maximum(members, 0)]
     mask = rng.random((-(-n // tile_n), members.shape[0])) < density
     return x, c_grouped, members, mask
+
+
+def bu_inputs(n, d, k, g, seed, gdrift="max"):
+    """``bounds_upkeep``'s inputs after a move, as CPU tensors in its
+    argument order: points, x2, new_c, new_c2, int32 labels, ub, lb,
+    drift, group_drift. Points lie near their old centroid and the
+    bounds straddle each other, so the rows split into *maybe* and not,
+    and refreshed rows into pending and not; every 97th row is a sharded
+    fit's sentinel (ub 0, lb +inf). ``gdrift``: "max" of the members'
+    drifts, "empty" a last group with no member (-inf, the batch fit's
+    rule; g > 1), "clamped" at 0 (the stream's rule)."""
+    rng = np.random.default_rng(seed)
+    c = (rng.standard_normal((k, d)) * 3).astype(np.float32)
+    new_c = (c + rng.standard_normal((k, d)) * 0.05).astype(np.float32)
+    labels = rng.integers(0, k, n).astype(np.int32)
+    x = (c[labels] + rng.standard_normal((n, d)) * 0.5).astype(np.float32)
+    ub = rng.uniform(0, 4, n).astype(np.float32)
+    lb = (rng.uniform(0, 4, (n, 1))
+          + rng.uniform(0, 1, (n, g))).astype(np.float32)
+    ub[::97] = 0.0
+    lb[::97] = np.inf
+    x, c, new_c, ub, lb = (torch.from_numpy(v) for v in (x, c, new_c, ub,
+                                                          lb))
+    drift = torch.sqrt(torch.sum((new_c - c) ** 2, dim=-1))
+    groups = torch.arange(k) % (g - 1 if gdrift == "empty" else g)
+    group_drift = torch.full((g,), float("-inf")).scatter_reduce_(
+        0, groups, drift, "amax")
+    if gdrift == "clamped":
+        group_drift = torch.clamp_min(group_drift, 0.0)
+    return (x, torch.sum(x * x, dim=-1), new_c,
+            torch.sum(new_c * new_c, dim=-1), torch.from_numpy(labels), ub,
+            lb, drift, group_drift)
 
 
 def fa_inputs(n, d, k, tile_n, tile_k, density, seed):
@@ -281,6 +331,154 @@ def test_centroid_update_kernel_is_deterministic(n, d, k):
     np.testing.assert_array_equal(first[1].cpu().numpy(), c_ref.numpy())
     none = cu.centroid_update(xc, torch.full_like(ac, -1), k)
     assert not bool(none[0].any()) and not bool(none[1].any())
+
+
+def _bu_counts():
+    return kernels.bounds_upkeep.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refresh", [True, False], ids=["refresh", "no"])
+@pytest.mark.parametrize("n,d,k,g,gdrift", bu_params(BU_CASES))
+def test_bounds_upkeep_kernel_matches_plain(n, d, k, g, gdrift, refresh):
+    """The kernel against the plain version on the same inputs: bit for
+    bit in ``lb_dec`` and ``tightened``, in ``ub_t`` and ``need`` on every
+    row the refresh did not touch and, with the refresh off, on every
+    row. A refreshed ``ub_t`` is the expanded form's distance in another
+    summation order: its square within 1e-5 of ``||x||^2 + ||c_a||^2``,
+    and ``need`` equal wherever the plain ``ub_t`` stands farther from
+    ``glb`` than the square root of that. The kernel gives its own bits
+    again on a second call."""
+    _need_card()
+    args = [t.cuda() for t in bu_inputs(n, d, k, g, seed=n + g,
+                                        gdrift=gdrift)]
+    before = _bu_counts()
+    got = kernels.bounds_upkeep(*args, refresh=refresh)
+    torch.cuda.synchronize()
+    assert _bu_counts() == before + 1
+    want = bu.bounds_upkeep_plain(*args, refresh=refresh)
+    ub_t, lb_dec, need, tightened = got
+    assert torch.equal(lb_dec, want[1])
+    assert tightened.dtype == torch.int64 and torch.equal(tightened, want[3])
+    assert need.dtype == torch.bool
+    again = kernels.bounds_upkeep(*args, refresh=refresh)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if not refresh:
+        assert torch.equal(ub_t, want[0]) and torch.equal(need, want[2])
+        return
+    ub_p, _, maybe, _ = bu.bounds_upkeep_plain(*args, refresh=False)
+    assert 0 < int(maybe.sum()) < n
+    kept = ~maybe
+    assert torch.equal(ub_t[kept], want[0][kept])
+    assert torch.equal(need[kept], want[2][kept])
+    x2, c2, a = args[1], args[3], args[4].long()
+    tol = 1e-5 * (x2 + c2[a])
+    assert bool((((ub_t ** 2 - want[0] ** 2).abs() <= tol) | kept).all())
+    glb = want[1].min(dim=1).values
+    clear = (want[0] - glb).abs() > tol.sqrt()
+    assert bool((need == want[2])[clear].all())
+    assert bool((maybe & ~want[2]).any()) and bool((maybe & want[2]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,g", BU_CASES)
+def test_own_dists_kernel_is_the_refresh_of_bounds_upkeep(n, d, k, g):
+    """``own_dists`` on the card gives, row for row, the bits of the
+    refresh inside ``bounds_upkeep`` (one order in both places), and
+    the plain version's distances within the expanded form's
+    tolerance."""
+    _need_card()
+    args = [t.cuda() for t in bu_inputs(n, d, k, g, seed=n + 1)]
+    points, x2, c, c2, labels = args[:5]
+    before = bu.own_dists.launches
+    got = kernels.own_dists(points, x2, c, c2, labels)
+    assert bu.own_dists.launches == before + 1
+    ub_t = kernels.bounds_upkeep(*args, refresh=True)[0]
+    maybe = bu.bounds_upkeep_plain(*args, refresh=False)[2]
+    assert torch.equal(got[maybe], ub_t[maybe])
+    want = bu.own_dists_plain(points, x2, c, c2, labels)
+    tol = 1e-5 * (x2 + c2[labels.long()])
+    assert bool(((got ** 2 - want ** 2).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_compact_fit_on_card_keeps_its_labels_with_the_refresh_in_the_pass():
+    """The refresh in the move or in the compact pass gives the same bits,
+    so the compact fit's labels and ``n_iters`` do not follow
+    ``refresh_in_pass``, a knob of dispatch only (``chip_smoke.py``
+    phase 16 holds the sharded fit's tuned config to the same)."""
+    _need_card()
+    pts, _, _ = make_points(30_000, 32, 64, seed=11)
+    init = pts[:: 30_000 // 64][:64].copy()
+    fits = [engine.fit(pts, init, n_groups=6, tol=1e-5, max_iters=40,
+                       backend="compact", tune="off", device="cuda",
+                       config=engine.EngineConfig(refresh_in_pass=rip))
+            for rip in (False, True)]
+    assert fits[0].n_iters == fits[1].n_iters
+    assert torch.equal(fits[0].assignments, fits[1].assignments)
+
+
+@pytest.mark.cuda
+def test_bounds_upkeep_routes_by_its_input():
+    """On the card the kernel takes every call: without ``x2`` where the
+    refresh is off; inputs it cannot take (no ``x2`` with the refresh,
+    int64 labels, a strided ``lb``, fp64 ``ub``) raise ``ValueError``
+    and launch nothing, in ``bounds_upkeep`` and in ``own_dists``."""
+    _need_card()
+    args = [t.cuda() for t in bu_inputs(4099, 32, 256, 25, seed=5)]
+    before = _bu_counts()
+    kernels.bounds_upkeep(*args[:1], None, *args[2:], refresh=False)
+    assert _bu_counts() == before + 1
+    odd = {
+        "no x2": (1, None),
+        "int64 labels": (4, args[4].long()),
+        "lb not contiguous": (6, args[6].t().contiguous().t()),
+        "fp64 ub": (5, args[5].double()),
+    }
+    for name, (at, value) in odd.items():
+        call = list(args)
+        call[at] = value
+        before = _bu_counts()
+        with pytest.raises(ValueError):
+            kernels.bounds_upkeep(*call, refresh=True)
+        assert _bu_counts() == before, name
+    points, x2, c, c2, labels = args[:5]
+    before = bu.own_dists.launches
+    for call in ((points, x2, c, c2, labels.long()),
+                 (points.double(), x2, c, c2, labels),
+                 (points.t().contiguous().t(), x2, c, c2, labels)):
+        with pytest.raises(ValueError):
+            kernels.own_dists(*call)
+    assert bu.own_dists.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,refresh_in_pass", [
+    ("kernel", False), ("oracle", False), ("compact", False),
+    ("compact", True)])
+def test_fit_on_card_upkeeps_the_bounds_in_one_launch_a_move(
+        backend, refresh_in_pass):
+    """Each move of a fit on the card is one ``bounds_upkeep`` launch;
+    the fit run twice, and with uniform weights of 1.0, gives the same
+    bits."""
+    _need_card()
+    pts, _, _ = make_points(20_000, 32, 128, seed=9)
+    init = pts[:: 20_000 // 128][:128].copy()
+    kw = dict(n_groups=13, tol=1e-5, max_iters=30, backend=backend,
+              tune="off", device="cuda", config=engine.EngineConfig(
+                  refresh_in_pass=refresh_in_pass))
+    before = _bu_counts()
+    first = engine.fit(pts, init, **kw)
+    assert _bu_counts() == before + first.n_iters
+    again = engine.fit(pts, init, **kw)
+    ones = engine.fit(pts, init, sample_weight=np.ones(20_000, np.float32),
+                      **kw)
+    for r in (again, ones):
+        assert r.n_iters == first.n_iters
+        for name in ("centroids", "assignments", "distance_evals",
+                     "inertia"):
+            assert torch.equal(getattr(r, name), getattr(first, name)), name
 
 
 @pytest.mark.cuda

@@ -24,12 +24,16 @@ from repro.kernels import (build_group_block_mask as jax_block_mask,
                            centroid_update as jax_centroid_update,
                            grouped_assign as jax_grouped_assign)
 from repro.kernels.ref import grouped_assign_ref
+from repro_torch.core import engine
+from repro_torch.core.kmeans import segment_max
 from repro_torch.kernels import _build, build_group_block_mask
-from test_torch_cuda import (CU_SHAPES, GA_CASES, GA_LAYOUT_CASES,
-                             assert_outputs, ga_inputs, ga_params)
+from test_torch_cuda import (BU_CPU_CASES, CU_SHAPES, GA_CASES,
+                             GA_LAYOUT_CASES, assert_outputs, bu_inputs,
+                             bu_params, ga_inputs, ga_params)
 
 # the package exports the wrappers under the kernels' names: the
 # modules themselves, with the plain versions, come from importlib
+bu = importlib.import_module("repro_torch.kernels.bounds_upkeep")
 cu = importlib.import_module("repro_torch.kernels.centroid_update")
 fa = importlib.import_module("repro_torch.kernels.filtered_assign")
 ga = importlib.import_module("repro_torch.kernels.grouped_assign")
@@ -198,7 +202,8 @@ def test_group_block_mask_matches_jax(n, tile_n):
 def test_kernel_sources_export_the_wrappers_entry_points():
     """Each wrapper binds ``<name>_launch`` and ``<name>_error_string``
     from ``csrc/<name>.cu``; the build keys on the source's hash."""
-    assert set(_build.sources()) == {"centroid_update", "filtered_assign",
+    assert set(_build.sources()) == {"bounds_upkeep", "centroid_update",
+                                     "filtered_assign",
                                      "flash_attention", "flash_attention_bwd",
                                      "grouped_assign", "pairwise_sq_dists",
                                      "ssd_intra", "ssd_intra_bwd"}
@@ -273,3 +278,153 @@ def test_filtered_assign_variant_asks_the_library(monkeypatch, shape):
     monkeypatch.setattr(_build, "entry", entry)
     assert fa.variant(*shape) == (64, 2, 32)
     assert seen == [("filtered_assign", "filtered_assign_variant", shape)]
+
+
+def _frozen_upkeep(points, x2, new_c, new_c2, assignments, ub, lb, drift,
+                   group_drift, refresh):
+    """The bounds' upkeep and refresh of ``engine.move_and_bounds`` as
+    they were written before they became one call, kept as they were:
+    the CPU's yardstick."""
+    a = assignments.long()
+    ub = ub + drift[a]
+    lb_dec = torch.clamp_min(lb - group_drift[None, :], 0.0)
+    glb = torch.min(lb_dec, dim=1).values
+    maybe = ub > glb
+    if refresh:
+        if x2 is None:
+            diff = points.float() - new_c[a].float()
+            d_own = torch.sqrt(torch.clamp_min(torch.sum(diff * diff,
+                                                         dim=-1), 0.0))
+        else:
+            d_own = torch.sqrt(torch.clamp_min(
+                x2 - 2.0 * torch.sum(points * new_c[a], dim=-1)
+                + new_c2[a], 0.0))
+        ub_t = torch.where(maybe, d_own, ub)
+        need = ub_t > glb
+    else:
+        ub_t, need = ub, maybe
+    return ub_t, lb_dec, need, maybe.sum()
+
+
+@pytest.mark.parametrize("refresh,x2", [(True, True), (True, False),
+                                        (False, True), (False, False)],
+                         ids=["refresh", "refresh-direct", "no", "no-no-x2"])
+@pytest.mark.parametrize("n,d,k,g,gdrift", bu_params(BU_CPU_CASES))
+def test_bounds_upkeep_on_cpu_is_the_old_arithmetic(n, d, k, g, gdrift,
+                                                    refresh, x2):
+    """A CPU tensor takes the plain version, bit for bit the arithmetic
+    the move had before, and counts no launch."""
+    args = list(bu_inputs(n, d, k, g, seed=n + g, gdrift=gdrift))
+    if not x2:
+        args[1] = None
+    before = bu.bounds_upkeep.launches
+    got = bu.bounds_upkeep(*args, refresh=refresh)
+    assert bu.bounds_upkeep.launches == before
+    want = _frozen_upkeep(*args, refresh)
+    for name, a, b in zip(("ub_t", "lb_dec", "need", "tightened"), got,
+                          want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert 0 < int(want[3]) < n
+
+
+@pytest.mark.parametrize("n,d,k,g", BU_CPU_CASES)
+def test_own_dists_on_cpu_is_the_compact_pass_arithmetic(n, d, k, g):
+    """On the CPU ``own_dists`` is the expression the compact pass's
+    in-pass refresh had before, bit for bit, and the refresh's own
+    arithmetic inside ``bounds_upkeep_plain``; it counts no launch."""
+    points, x2, c, c2, labels = bu_inputs(n, d, k, g, seed=n)[:5]
+    before = bu.own_dists.launches
+    got = bu.own_dists(points, x2, c, c2, labels)
+    assert bu.own_dists.launches == before
+    a = labels.long()
+    want = torch.sqrt(torch.clamp_min(
+        x2 - 2.0 * torch.sum(points * c[a], dim=-1) + c2[a], 0.0))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("refresh", [True, False], ids=["refresh", "no"])
+@pytest.mark.parametrize("rule", ["batch", "ema"])
+@pytest.mark.parametrize("with_x2", [True, False], ids=["x2", "no-x2"])
+def test_move_and_bounds_on_cpu_keeps_its_bits(rule, refresh, with_x2):
+    """``engine.move_and_bounds`` on the CPU against the move written out
+    with the frozen upkeep: every field bit for bit, for the batch rule
+    (an empty group's -inf drift) and the stream's EMA (clamped), with
+    sentinel rows (ub 0, lb +inf) among the points."""
+    rng = np.random.default_rng(3)
+    n, d, k, g = 2000, 8, 40, 6
+    pts = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    cents = pts[::50][:k].clone()
+    groups = torch.from_numpy((np.arange(k) % (g - 1)).astype(np.int32))
+    assign = torch.from_numpy(rng.integers(0, k, n).astype(np.int32))
+    ub = torch.from_numpy(rng.uniform(0, 3, n).astype(np.float32))
+    lb = torch.from_numpy(rng.uniform(0, 3, (n, g)).astype(np.float32))
+    ub[::97], lb[::97] = 0.0, float("inf")
+    x2 = (pts * pts).sum(1) if with_x2 else None
+    update = engine.CONVERGENCE_UPDATE if rule == "batch" \
+        else engine.EMA_UPDATE
+    counts = torch.from_numpy(rng.uniform(0, 4, k).astype(np.float32))
+    decay = torch.tensor(0.9)
+    got = engine.move_and_bounds(pts, cents, assign, ub, lb, groups, k=k,
+                                 n_groups=g, update=update, counts=counts,
+                                 decay=decay, x2=x2, refresh=refresh)
+    sums, bcounts = cu.centroid_update(pts, assign, k)
+    new_c, new_counts = update.apply(sums, bcounts, cents, counts, decay)
+    new_c2 = (new_c * new_c).sum(-1)
+    drift = torch.sqrt(torch.sum((new_c - cents) ** 2, dim=-1))
+    gdrift = segment_max(drift, groups, g)
+    if update.clamp_gdrift:
+        gdrift = torch.clamp_min(gdrift, 0.0)
+    assert (float(gdrift[-1]) == 0.0) if rule == "ema" \
+        else (float(gdrift[-1]) == float("-inf"))
+    ub_t, lb_dec, need, tightened = _frozen_upkeep(
+        pts, x2, new_c, new_c2, assign, ub, lb, drift, gdrift, refresh)
+    want = engine.MoveOut(new_c, new_c2, new_counts, ub_t, lb_dec, need,
+                          torch.max(drift), tightened, drift, gdrift,
+                          bcounts)
+    for name in engine.MoveOut._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("g,rows", [(1, 256), (6, 256), (25, 256),
+                                    (102, 64), (1024, 4), (20_000, 1)])
+def test_bounds_upkeep_plan_follows_the_groups(g, rows):
+    """Points a block, a function of G alone: one a thread, a multiple
+    of 4 (each block's run of the N x G table starts on 16 bytes) while
+    eight blocks fit an SM; past that as many as one block holds."""
+    got, smem = bu.plan(g)
+    assert got == rows
+    assert smem == 4 * (bu.head_floats(g) + rows * g)
+    if rows >= 4:
+        assert rows % 4 == 0 and bu.BLOCKS_PER_SM * (
+            smem + bu.BLOCK_RESERVED) <= bu.SM_SMEM
+    assert smem <= bu.SMEM_LIMIT
+
+
+def test_bounds_upkeep_plan_refuses_a_row_too_wide():
+    with pytest.raises(ValueError, match="shared memory"):
+        bu.plan(60_000)
+
+
+def test_bounds_upkeep_source_keeps_its_contract():
+    """The kernels' names stay outside the rooflines' patterns of the
+    other two k-means kernels; the refresh's dot rounds each product
+    before it adds it (no fused multiply-add); no float is added
+    atomically, only the int64 count; the blocks an SM and the depth the
+    registers were tuned for are fixed in the source, not build
+    settings."""
+    src = (_build.CSRC / "bounds_upkeep.cu").read_text()
+    names = re.findall(r"__global__ void __launch_bounds__\([\w, ]+\)\n"
+                       r"(\w+)\(", src)
+    assert names == ["bu_upkeep_kernel", "bu_own_kernel"]
+    for pattern in (r"\b(cu_partial|cu_reduce)\b",
+                    r"\b(ga_kernel|ga_plan_kernel)\b"):
+        assert not re.search(pattern, src)
+    assert "fmaf(" not in src and "__fmaf" not in src
+    assert "__fadd_rn(acc[q], __fmul_rn(xv.x, cv.x))" in src
+    assert "__fmul_rn(__ldg(xr + j), __ldg(cr + j))" in src
+    assert re.findall(r"atomicAdd\((\w+), \(unsigned long long\)", src) == \
+        ["tightened"]
+    assert src.count("atomicAdd(") == 1
+    assert "#ifndef" not in src and "#define" not in src
+    assert "constexpr int kMinBlocks = 4;" in src
+    assert "constexpr int kDepth = 4;" in src

@@ -91,6 +91,10 @@ def test_fit_spans(data, case):
     assert len(passes) == iters + FITS
     assert sum(_inside(p, spans["kpynq/epilogue"]) for p in passes) == FITS
     assert len(spans["kpynq/move_and_bounds"]) == iters
+    # one bound upkeep a move, inside it
+    ups = spans["kpynq/bounds_upkeep"]
+    assert len(ups) == iters
+    assert all(_inside(s, spans["kpynq/move_and_bounds"]) for s in ups)
     # the kernels' wrappers under the phases that call them
     ga = spans["kpynq/grouped_assign"]
     assert len(ga) == (len(passes) if case == "kernel" else 0)
@@ -131,4 +135,4 @@ def test_phase_enters_record_function_only_under_an_active_profiler(
     assert {"kpynq/fit", "kpynq/init", "kpynq/host_read",
             "kpynq/candidate_pass", "kpynq/grouped_assign",
             "kpynq/move_and_bounds", "kpynq/centroid_update",
-            "kpynq/epilogue"} <= set(names)
+            "kpynq/bounds_upkeep", "kpynq/epilogue"} <= set(names)
