@@ -39,6 +39,13 @@ the order they run:
    shape, bit for bit against ``bounds_upkeep``'s refresh and within
    the expanded form's tolerance of its plain version, timed in turns
    with it beside the buffer's bytes;
+2f. ``candidate_mask`` and ``candidate_tail`` (the candidate pass's group
+   filter and tail around ``grouped_assign``, kernels with no TPU
+   counterpart) on the pending passes of kernel-backend fits at
+   uci-xlarge's and uci-highk's shapes after 2 and 10 iterations, bit
+   for bit against their plain versions, one launch a call, each timed
+   in turns with its plain version beside its bytes at the card's
+   bandwidth (``candidate_tail_phase``);
 2b. ``pairwise_sq_dists`` (uci-xlarge in fp32 and bf16, a ragged
    N = 100,003, D = 33, K = 77; D = 200 and an x at a 4-byte offset,
    which the entry point sends to the first kernel, its route checked)
@@ -66,7 +73,8 @@ the order they run:
    (N = 2^20, D = 32, K = 256, G = 25): ``KMeans(algorithm="yinyang",
    engine="auto").fit`` and ``predict`` on the same points, with every
    kernel's launch count reset just before and read just after
-   (``bounds_upkeep`` once a move); then
+   (``bounds_upkeep`` once a move; ``candidate_mask`` and
+   ``candidate_tail`` once a pass of the fit, ``n_iters`` + 1); then
    the same fit with ``grouped_assign`` swapped for the port's first
    kernel, which must give the same labels, ``n_iters`` and
    ``distance_evals``; the block-skip kernels must not launch there;
@@ -2362,6 +2370,110 @@ def own_dists_case(label, args, ub_t, maybe, bw):
         launches=own.launches - before)
     log(f"own_dists {json.dumps(entry)}")
     return entry
+
+
+# -- phase 2f: the candidate pass's group filter and tail -------------------
+
+def candidate_tail_phase(dev, bw):
+    """``candidate_mask`` and ``candidate_tail`` on the pending passes of
+    a kernel-backend fit at uci-xlarge's and uci-highk's shapes (G = K /
+    10; points from ``make_points`` seed 5, every (N/K)-th point a first
+    centroid), after 2 iterations (most blocks live) and after 10: each
+    bit for bit against its plain version on the pass's inputs
+    (``grouped_assign``'s outputs for the tail) and one launch a call;
+    each timed by CUDA events in turns with its plain version (plain,
+    kernel, kernel, plain), its device time by kernel under the
+    profiler, beside the least time the card could take by bytes. The
+    mask reads need, ub_t and lb and writes the mask: N (5 + 4 G) + G
+    ceil(N / 256) bytes. The tail reads best2, idx, the labels, ub_t and
+    need and writes the new labels and ub (25 bytes a point), reads lb
+    and writes the new lb (8 G), reads garg and gmin where a group is
+    computed (8) and gmin2 where that group holds the new label (4), and
+    the groups (4 K). Returns the cases; the first two are the mask and
+    the tail at uci-xlarge after 2 iterations."""
+    import torch
+    import repro_torch.kernels as kernels
+    from repro_torch.core import engine
+    from repro_torch.core.kmeans import group_centroids
+    from repro_torch.data import make_points
+    ct_mod = kernel_module("candidate_tail")
+    mask_k, tail_k = kernels.candidate_mask, kernels.candidate_tail
+    cases = []
+    for label, prob in (("uci-xlarge", XLARGE), ("uci-highk", HIGHK)):
+        n, d, k = prob["n"], prob["d"], prob["k"]
+        g = max(k // 10, 1)
+        pts = torch.from_numpy(make_points(n, d, k, seed=5)[0]).to(dev)
+        init = pts[:: n // k][:k].clone()
+        groups = group_centroids(init, g)
+        members, gsize = engine.build_group_tables(groups.cpu().numpy(), g,
+                                                   dev)
+        mem_s = members.clamp_min(0).long()
+        core = engine.PassCore(backend="kernel", k=k, n_groups=g)
+        body = engine._loop_body(core, pts, None, groups, members, gsize)
+        c = engine._init_carry(pts, init, groups, n_groups=g)
+        for it in range(1, 11):
+            c = body(c)
+            if it not in (2, 10):
+                continue
+            need, lb, ub = c.need, c.lb, c.ub
+            case = f"{label} N={n} D={d} K={k} G={g}, pass after " \
+                   f"iteration {it}"
+            before = (mask_k.launches, tail_k.launches)
+            mask = mask_k(need, lb, ub)
+            sync()
+            check(mask_k.launches == before[0] + 1,
+                  f"candidate_mask {case}: not one launch")
+            check(torch.equal(mask, ct_mod.candidate_mask_plain(need, lb,
+                                                                ub)),
+                  f"candidate_mask {case}: not the plain version's bits")
+            ga = kernels.grouped_assign(
+                pts, c.centroids[mem_s].contiguous(), members, mask,
+                tile_n=256, x2=c.x2, c2g=c.c2[mem_s].contiguous())
+            args = tuple(ga) + (c.assignments, ub, lb, need, groups)
+            got = tail_k(*args)
+            sync()
+            check(tail_k.launches == before[1] + 1,
+                  f"candidate_tail {case}: not one launch")
+            check(all(torch.equal(a, b) for a, b in zip(
+                got, ct_mod.candidate_tail_plain(*args))),
+                f"candidate_tail {case}: not the plain version's bits")
+            group_need = need[:, None] & (lb < ub[:, None])
+            computed = int(group_need.sum())
+            collisions = int((group_need & (ga[3] == got[0][:, None])).sum())
+            del group_need
+            common = dict(case=case, n=n, d=d, k=k, g=g, iteration=it,
+                          pending=int(need.sum()),
+                          live_blocks=float(mask.float().mean()),
+                          computed_groups=computed, collisions=collisions,
+                          max_abs_err=0.0, bound_by="bytes",
+                          library_ms=None)
+            for name, kernel, plain, nbytes in (
+                    ("candidate_mask", lambda: mask_k(need, lb, ub),
+                     lambda: ct_mod.candidate_mask_plain(need, lb, ub),
+                     n * (5 + 4 * g) + mask.numel()),
+                    ("candidate_tail", lambda: tail_k(*args),
+                     lambda: ct_mod.candidate_tail_plain(*args),
+                     n * (25 + 8 * g) + 8 * computed + 4 * collisions
+                     + 4 * k)):
+                before = getattr(kernels, name).launches
+                turns = {"plain": [median_ms(plain)],
+                         "kernel": [median_ms(kernel), median_ms(kernel)]}
+                turns["plain"].append(median_ms(plain))
+                entry = dict(
+                    common, kernel=name,
+                    ms=statistics.mean(turns["kernel"]),
+                    plain_ms=statistics.mean(turns["plain"]),
+                    turns_ms=turns, bytes=nbytes,
+                    bound_ms=nbytes / bw * 1e3,
+                    host_ms=host_ms(kernel),
+                    device_ms=device_ms_by_kernel(kernel),
+                    launches=getattr(kernels, name).launches - before)
+                log(f"{name} {json.dumps(entry)}")
+                cases.append(entry)
+            del ga, args, got, mask
+        del pts, c, body
+        torch.cuda.empty_cache()
+    return cases
 
 
 # -- phases 11-13: observability, tuning, the k-means serving index ----------
@@ -4843,6 +4955,7 @@ def main() -> None:
     cu_mod = kernel_module("centroid_update")
     ga_mod = kernel_module("grouped_assign")
     bu_mod = kernel_module("bounds_upkeep")
+    ct_mod = kernel_module("candidate_tail")
     psd_mod = kernel_module("distance")
     fa_mod = kernel_module("filtered_assign")
 
@@ -4899,6 +5012,8 @@ def main() -> None:
         kernels.centroid_update = cu_mod.centroid_update_plain
         kernels.bounds_upkeep = bu_mod.bounds_upkeep_plain
         kernels.own_dists = bu_mod.own_dists_plain
+        kernels.candidate_mask = ct_mod.candidate_mask_plain
+        kernels.candidate_tail = ct_mod.candidate_tail_plain
         try:
             yield
         finally:
@@ -4906,6 +5021,8 @@ def main() -> None:
             kernels.centroid_update = wrappers["centroid_update"]
             kernels.bounds_upkeep = wrappers["bounds_upkeep"]
             kernels.own_dists = bu_mod.own_dists
+            kernels.candidate_mask = ct_mod.candidate_mask
+            kernels.candidate_tail = ct_mod.candidate_tail
 
     # -- the problem: uci-xlarge ------------------------------------------
     n, d, k = XLARGE["n"], XLARGE["d"], XLARGE["k"]
@@ -5155,6 +5272,10 @@ def main() -> None:
     report["bounds_upkeep"] = bu_cases = bounds_upkeep_phase(dev, bw)
     bu_main = bu_cases[0]
     own_main = next(c for c in bu_cases if c["kernel"] == "own_dists")
+
+    # -- 2f. the candidate pass's group filter and tail -----------------
+    report["candidate_tail"] = ct_cases = candidate_tail_phase(dev, bw)
+    ct_mask_main, ct_tail_main = ct_cases[:2]
 
     # -- 2b. the block-skip entry point's kernels ------------------------
     def norm_atol(x, c):
@@ -5411,11 +5532,19 @@ def main() -> None:
                 max_iters=XLARGE["max_iters"], tol=XLARGE["tol"], seed=0,
                 device=dev)
     reset_launches(wrappers)
+    ct_before = (kernels.candidate_mask.launches,
+                 kernels.candidate_tail.launches)
     sync()
     t0 = time.perf_counter()
     km.fit(points)
     sync()
     fit_s = time.perf_counter() - t0
+    # the candidate pass's mask and tail, once a pass: n_iters bodies and
+    # the epilogue
+    ct_fit = {"candidate_mask": kernels.candidate_mask.launches
+              - ct_before[0],
+              "candidate_tail": kernels.candidate_tail.launches
+              - ct_before[1]}
     t0 = time.perf_counter()
     pred = km.predict(points)
     sync()
@@ -5440,6 +5569,10 @@ def main() -> None:
     check(launches["bounds_upkeep"] == n_iters,
           f"bounds_upkeep launched {launches['bounds_upkeep']} times on the "
           f"main path for n_iters={n_iters}")
+    log(f"candidate pass kernels on the main path's fit: {ct_fit}")
+    for nm, cnt in ct_fit.items():
+        check(cnt == n_iters + 1, f"{nm} launched {cnt} times in the main "
+              f"path's fit, not once a pass ({n_iters + 1})")
     for nm in ("pairwise_sq_dists", "filtered_assign"):
         check(launches[nm] == 0, f"{nm} launched {launches[nm]} times on "
               f"the main path, which runs the kernel backend only")
@@ -5490,7 +5623,8 @@ def main() -> None:
                           host_syncs=stats.host_syncs,
                           inertia=float(res.inertia), launches=launches,
                           predict_points_per_s=n / predict_s,
-                          first_kernel_fit_s=first_fit_s)
+                          first_kernel_fit_s=first_fit_s,
+                          candidate_launches=ct_fit)
 
     # -- 4. plain versions on the card: in lockstep, then a whole fit -----
     # In lockstep every pass runs twice on the same carry, once through
@@ -6058,6 +6192,17 @@ def main() -> None:
             "none (repro/core/engine.py move_and_bounds, fused by XLA)",
             {"fit": launches, "stream": stream_launches,
              "resilient_stream": resilient_launches}),
+        # no TPU counterpart: the candidate pass's group filter and tail
+        # around grouped_assign, array code in repro/core/engine.py that
+        # XLA fuses; launched once a pass of the main path's fit
+        row("candidate_mask", ct_mask_main,
+            "src/repro_torch/kernels/csrc/candidate_tail.cu",
+            "none (repro/core/engine.py pallas_candidate_pass, fused by "
+            "XLA)", {"fit": ct_fit}),
+        row("candidate_tail", ct_tail_main,
+            "src/repro_torch/kernels/csrc/candidate_tail.cu",
+            "none (repro/core/engine.py _finish_pass, fused by XLA)",
+            {"fit": ct_fit}),
         # the compact pass's in-pass refresh in the same order, run by
         # phase 16's tuned sharded fit (summed over its ranks)
         row("own_dists", own_main,

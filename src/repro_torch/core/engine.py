@@ -62,7 +62,7 @@ import torch
 
 from .. import kernels as _kernels
 from ..device import as_float32, resolve_device
-from ..kernels import build_group_block_mask, compact_indices
+from ..kernels import compact_indices
 from ..obs import ring as _obs_ring
 from ..obs.metrics import normalize_obs
 from ..obs.ring import (COL_CAP_G, COL_CAP_N, COL_EVALS, COL_GMAX,
@@ -378,25 +378,20 @@ def kernel_candidate_pass(points, new_c, assignments, ub_t, lb, groups,
                           members, gsize, need, *, tile_n: int = 256,
                           x2=None, c2=None):
     """Candidate pass through the ``grouped_assign`` kernel (port of
-    ``pallas_candidate_pass``). The pair count is
+    ``pallas_candidate_pass``): the group filter's block mask
+    (``kernels.candidate_mask``), the kernel, then the reassignment and
+    the bounds (``kernels.candidate_tail``). The pair count is
     ``tile_n * sum(mask * gsize)``, pad rows of the tail tile included,
     as the reference counts it."""
-    group_need = need[:, None] & (lb < ub_t[:, None])              # (N, G)
-    mask = build_group_block_mask(group_need, tile_n=tile_n)       # (gn, G)
+    mask = _kernels.candidate_mask(need, lb, ub_t, tile_n=tile_n)  # (gn, G)
     mem_s = members.clamp_min(0).long()
     c_grouped = new_c[mem_s].contiguous()                   # (G, Lmax, D)
     c2g = None if c2 is None else c2[mem_s].contiguous()
     best2, idx, gmin, garg, gmin2 = _kernels.grouped_assign(
         points, c_grouped, members, mask.contiguous(), tile_n=tile_n,
         x2=x2, c2g=c2g)
-    best_d = torch.sqrt(best2)
-    changed = best_d < ub_t
-    new_a = torch.where(changed, idx, assignments)
-    # the group argmin collides with the new assignment iff it came from
-    # that group; then the second min is the min excluding it
-    lb_comp = torch.sqrt(torch.where(garg == new_a[:, None], gmin2, gmin))
-    out = _finish_pass(best_d, idx, lb_comp, assignments, ub_t, lb, groups,
-                       group_need)
+    out = _kernels.candidate_tail(best2, idx, gmin, garg, gmin2, assignments,
+                                  ub_t, lb, need, groups)
     pairs = tile_n * (mask.long() * gsize[None, :]).sum()
     return out + (pairs,)
 

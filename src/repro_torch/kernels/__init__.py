@@ -15,6 +15,7 @@ kernels have a second wrapper each for the model's own layout
 point's wrapper (``flash_attention.launches``, ``ssd_intra.launches``).
 """
 from .bounds_upkeep import bounds_upkeep, own_dists
+from .candidate_tail import candidate_mask, candidate_tail
 from .centroid_update import centroid_update
 from .distance import pairwise_sq_dists
 from .filtered_assign import filtered_assign
@@ -26,6 +27,7 @@ from .ssd_intra import ssd_intra, ssd_intra_chunks
 
 __all__ = ["pairwise_sq_dists", "filtered_assign", "centroid_update",
            "bounds_upkeep", "build_block_mask", "build_group_block_mask",
+           "candidate_mask", "candidate_tail",
            "compact_indices", "filtered_assign_auto", "grouped_assign",
            "flash_attention", "flash_attention_gqa", "own_dists",
            "ssd_intra", "ssd_intra_chunks"]

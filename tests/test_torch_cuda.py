@@ -35,6 +35,7 @@ from repro_torch.data import make_points
 # the package exports the wrappers under the kernels' names: the
 # modules themselves, with the plain versions, come from importlib
 bu = importlib.import_module("repro_torch.kernels.bounds_upkeep")
+ct = importlib.import_module("repro_torch.kernels.candidate_tail")
 cu = importlib.import_module("repro_torch.kernels.centroid_update")
 fa = importlib.import_module("repro_torch.kernels.filtered_assign")
 ga = importlib.import_module("repro_torch.kernels.grouped_assign")
@@ -103,6 +104,18 @@ BU_CASES = [(1 << 20, 32, 256, 25), (1 << 18, 32, 1024, 102),
             (100_003, 33, 77, 7), (4099, 7, 40, 1), (130, 3, 6, 6)]
 BU_CPU_CASES = [(3001, 32, 256, 25), (1030, 32, 1024, 102),
                 (4099, 7, 40, 1), (130, 3, 6, 6)]
+
+# candidate_tail's (n, d, k, g, tile_n): uci-xlarge's and uci-highk's
+# groups at an N off a multiple of the tile, G above 32 at a tile of 64,
+# one group (Hamerly), and a tiny case at tiles of 32 and of 33 (a tile
+# whose run of the N x G table does not start on 16 bytes)
+CT_CASES = [(3001, 32, 256, 25, 256), (1030, 32, 1024, 102, 256),
+            (1000, 12, 160, 40, 64), (4099, 7, 40, 1, 256),
+            (130, 3, 6, 6, 32), (130, 3, 7, 7, 33)]
+
+
+def ct_params(cases):
+    return [pytest.param(*c, id="-".join(map(str, c))) for c in cases]
 
 
 def bu_params(cases):
@@ -201,6 +214,61 @@ def bu_inputs(n, d, k, g, seed, gdrift="max"):
     return (x, torch.sum(x * x, dim=-1), new_c,
             torch.sum(new_c * new_c, dim=-1), torch.from_numpy(labels), ub,
             lb, drift, group_drift)
+
+
+def ct_inputs(n, d, k, g, tile_n, seed):
+    """A candidate pass's inputs, as CPU tensors: points (N, D), centroids
+    (K, D), int32 labels (N,) and groups (K,), ub_t (N,), lb (N, G) and
+    bool need (N,). The bounds hold the exact distances: ub_t is the
+    distance to the label loosened by up to 25%, lb each group's least
+    distance past the label tightened by up to 40%, so rows are
+    candidates in some groups and some move. Groups differ in size (the
+    tables pad with -1); centroid K/2 repeats centroid 0 in its group
+    where K/2 >= G, and K/3 repeats centroid 1 (ties); every third tile from the second
+    has no pending row (fully skipped rows); every 97th row is a sharded
+    fit's sentinel (ub 0, lb +inf, not pending)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    groups = rng.integers(0, g, k).astype(np.int32)
+    groups[:g] = np.arange(g)
+    if k // 2 >= g:
+        c[k // 2], groups[k // 2] = c[0], groups[0]
+    c[k // 3] = c[1]
+    labels = rng.integers(0, k, n).astype(np.int32)
+    dist = np.sqrt(((x[:, None, :].astype(np.float64) - c[None]) ** 2)
+                   .sum(-1))
+    rows = np.arange(n)
+    ub = dist[rows, labels] * rng.uniform(1.0, 1.25, n)
+    dist[rows, labels] = np.inf
+    lb = np.stack([dist[:, groups == gg].min(1) for gg in range(g)], 1)
+    lb = lb * rng.uniform(0.6, 1.0, (n, g))
+    need = rng.random(n) < 0.5
+    for t in range(1, -(-n // tile_n), 3):
+        need[t * tile_n:(t + 1) * tile_n] = False
+    ub[::97], lb[::97], need[::97] = 0.0, np.inf, False
+    return (torch.from_numpy(x), torch.from_numpy(c),
+            torch.from_numpy(labels), torch.from_numpy(groups),
+            torch.from_numpy(ub.astype(np.float32)),
+            torch.from_numpy(lb.astype(np.float32)), torch.from_numpy(need))
+
+
+def ct_pass(x, c, labels, groups, ub, lb, need, g, tile_n, *,
+            mask=None, assign=None):
+    """The block mask (``kernels.candidate_mask`` unless given) and the
+    arguments of ``kernels.candidate_tail`` after ``assign`` (default
+    ``kernels.grouped_assign``) on the candidate pass's inputs, as
+    ``engine.kernel_candidate_pass`` forms them."""
+    members, _ = engine.build_group_tables(groups.cpu().numpy(), g,
+                                           x.device)
+    if mask is None:
+        mask = kernels.candidate_mask(need, lb, ub, tile_n=tile_n)
+    mem_s = members.clamp_min(0).long()
+    c2 = torch.sum(c * c, dim=-1)
+    outs = (assign or kernels.grouped_assign)(
+        x, c[mem_s].contiguous(), members, mask, tile_n=tile_n,
+        x2=torch.sum(x * x, dim=-1), c2g=c2[mem_s].contiguous())
+    return mask, tuple(outs) + (labels, ub, lb, need, groups)
 
 
 def fa_inputs(n, d, k, tile_n, tile_k, density, seed):
@@ -479,6 +547,175 @@ def test_fit_on_card_upkeeps_the_bounds_in_one_launch_a_move(
         for name in ("centroids", "assignments", "distance_evals",
                      "inertia"):
             assert torch.equal(getattr(r, name), getattr(first, name)), name
+
+
+def _ct_counts():
+    # the modules' wrappers: a test may swap the package's for the plain
+    # versions
+    return ct.candidate_mask.launches, ct.candidate_tail.launches
+
+
+def _off16(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary, so
+    that the kernels walk it by elements, not 16 bytes at a time."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["on16", "off16"])
+@pytest.mark.parametrize("n,d,k,g,tile_n", ct_params(CT_CASES))
+def test_candidate_kernels_match_plain(n, d, k, g, tile_n, aligned):
+    """Both kernels against their plain versions on the same inputs, bit
+    for bit (no value of either is a sum), one launch each, and the same
+    bits again on a second call; with the N x G tables off 16 bytes too,
+    where the kernels take them an element at a time."""
+    _need_card()
+    x, c, labels, groups, ub, lb, need = (
+        t.cuda() for t in ct_inputs(n, d, k, g, tile_n, seed=n + g))
+    if not aligned:
+        lb = _off16(lb)
+    before = _ct_counts()
+    mask = kernels.candidate_mask(need, lb, ub, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert _ct_counts()[0] == before[0] + 1
+    assert mask.dtype == torch.bool
+    assert torch.equal(mask, ct.candidate_mask_plain(need, lb, ub,
+                                                     tile_n=tile_n))
+    _, args = ct_pass(x, c, labels, groups, ub, lb, need, g, tile_n,
+                      mask=mask)
+    if not aligned:
+        args = tuple(_off16(a) if a.dim() == 2 else a for a in args)
+    got = kernels.candidate_tail(*args)
+    torch.cuda.synchronize()
+    assert _ct_counts()[1] == before[1] + 1
+    want = ct.candidate_tail_plain(*args)
+    for name, a, b in zip(("new_assign", "new_ub", "new_lb"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    again = kernels.candidate_tail(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(kernels.candidate_mask(need, lb, ub, tile_n=tile_n),
+                       mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1 << 20, 256), (1 << 18, 1024)],
+                         ids=["uci-xlarge", "uci-highk"])
+def test_candidate_kernels_match_plain_on_fit_states(n, k):
+    """Both kernels bit for bit against their plain versions on the
+    pending passes of a kernel-backend fit at the paper suite's
+    uci-xlarge and uci-highk shapes (D 32, G = K / 10), after 1, 2, 4
+    and 8 iterations."""
+    _need_card()
+    from repro_torch.core.kmeans import group_centroids
+    d, g = 32, k // 10
+    pts = torch.from_numpy(make_points(n, d, k, seed=5)[0]).cuda()
+    init = pts[:: n // k][:k].clone()
+    groups = group_centroids(init, g)
+    members, gsize = engine.build_group_tables(groups.cpu().numpy(), g,
+                                               pts.device)
+    core = engine.PassCore(backend="kernel", k=k, n_groups=g)
+    body = engine._loop_body(core, pts, None, groups, members, gsize)
+    carry = engine._init_carry(pts, init, groups, n_groups=g)
+    for it in range(1, 9):
+        carry = body(carry)
+        if it not in (1, 2, 4, 8):
+            continue
+        mask = kernels.candidate_mask(carry.need, carry.lb, carry.ub)
+        assert torch.equal(mask, ct.candidate_mask_plain(
+            carry.need, carry.lb, carry.ub)), it
+        assert bool(mask.any()), it
+        _, args = ct_pass(pts, carry.centroids, carry.assignments, groups,
+                          carry.ub, carry.lb, carry.need, g, 256, mask=mask)
+        got = kernels.candidate_tail(*args)
+        want = ct.candidate_tail_plain(*args)
+        for name, a, b in zip(("new_assign", "new_ub", "new_lb"), got,
+                              want):
+            assert torch.equal(a, b), (it, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,g", [(30_000, 128, 13), (1 << 18, 1024, 102)])
+def test_kernel_fit_on_card_keeps_its_bits_with_the_plain_candidate_pass(
+        monkeypatch, n, k, g):
+    """A kernel-backend fit launches each candidate kernel once a pass
+    (``n_iters`` bodies and the epilogue), and gives the labels,
+    ``n_iters``, ``distance_evals``, inertia and centroids of the same
+    fit with both swapped for their plain versions, bit for bit."""
+    _need_card()
+    pts, _, _ = make_points(n, 32, k, seed=12)
+    init = pts[:: n // k][:k].copy()
+    kw = dict(n_groups=g, tol=1e-5, max_iters=25, backend="kernel",
+              tune="off", device="cuda")
+    before = _ct_counts()
+    first = engine.fit(pts, init, **kw)
+    after = _ct_counts()
+    passes = first.n_iters + 1
+    assert after == (before[0] + passes, before[1] + passes)
+    monkeypatch.setattr(kernels, "candidate_mask", ct.candidate_mask_plain)
+    monkeypatch.setattr(kernels, "candidate_tail", ct.candidate_tail_plain)
+    plain = engine.fit(pts, init, **kw)
+    assert _ct_counts() == after
+    assert plain.n_iters == first.n_iters
+    for name in ("centroids", "assignments", "distance_evals", "inertia"):
+        assert torch.equal(getattr(plain, name), getattr(first, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["obs", "unit-weights"])
+def test_kernel_fit_on_card_keeps_its_bits_with_obs_or_unit_weights(variant):
+    """With the candidate kernels on the path, a kernel-backend fit gives
+    the same bits with obs on as off, and with weights of 1.0 as with
+    none, and a second fit repeats the first."""
+    _need_card()
+    from repro_torch.obs import MetricsRegistry, ObsConfig
+    pts, _, _ = make_points(1 << 17, 32, 256, seed=13)
+    init = pts[:: (1 << 17) // 256][:256].copy()
+    kw = dict(n_groups=25, tol=1e-5, max_iters=30, backend="kernel",
+              tune="off", device="cuda")
+    first = engine.fit(pts, init, **kw)
+    if variant == "obs":
+        other = engine.fit(pts, init, obs=ObsConfig(
+            registry=MetricsRegistry()), **kw)
+    else:
+        other = engine.fit(pts, init, sample_weight=np.ones(
+            1 << 17, np.float32), **kw)
+    again = engine.fit(pts, init, **kw)
+    for r in (other, again):
+        assert r.n_iters == first.n_iters
+        for name in ("centroids", "assignments", "distance_evals",
+                     "inertia"):
+            assert torch.equal(getattr(r, name), getattr(first, name)), name
+
+
+@pytest.mark.cuda
+def test_candidate_kernels_refuse_what_they_cannot_take():
+    """Inputs the kernels cannot take (a need that is not bool, a strided
+    or fp64 table, int64 labels or groups, a misshapen ub, a tensor on
+    another device) raise ``ValueError`` and launch nothing."""
+    _need_card()
+    x, c, labels, groups, ub, lb, need = (
+        t.cuda() for t in ct_inputs(1000, 12, 160, 40, 64, seed=3))
+    mask, args = ct_pass(x, c, labels, groups, ub, lb, need, 40, 64)
+    before = _ct_counts()
+    for call in ((need.to(torch.uint8), lb, ub),
+                 (need, lb.t().contiguous().t(), ub),
+                 (need, lb, ub.double()),
+                 (need, lb, ub[:-1]),
+                 (need, lb, ub.cpu())):
+        with pytest.raises(ValueError):
+            kernels.candidate_mask(*call, tile_n=64)
+    odd = {1: args[1].long(), 3: args[3].t().contiguous().t(),
+           4: args[4].double(), 5: args[5].long(), 8: args[8].int(),
+           9: args[9].long()}
+    for at, value in odd.items():
+        call = list(args)
+        call[at] = value
+        with pytest.raises(ValueError):
+            kernels.candidate_tail(*call)
+    assert _ct_counts() == before
 
 
 @pytest.mark.cuda

@@ -27,13 +27,15 @@ from repro.kernels.ref import grouped_assign_ref
 from repro_torch.core import engine
 from repro_torch.core.kmeans import segment_max
 from repro_torch.kernels import _build, build_group_block_mask
-from test_torch_cuda import (BU_CPU_CASES, CU_SHAPES, GA_CASES,
+from test_torch_cuda import (BU_CPU_CASES, CT_CASES, CU_SHAPES, GA_CASES,
                              GA_LAYOUT_CASES, assert_outputs, bu_inputs,
-                             bu_params, ga_inputs, ga_params)
+                             bu_params, ct_inputs, ct_params, ct_pass,
+                             ga_inputs, ga_params)
 
 # the package exports the wrappers under the kernels' names: the
 # modules themselves, with the plain versions, come from importlib
 bu = importlib.import_module("repro_torch.kernels.bounds_upkeep")
+ct = importlib.import_module("repro_torch.kernels.candidate_tail")
 cu = importlib.import_module("repro_torch.kernels.centroid_update")
 fa = importlib.import_module("repro_torch.kernels.filtered_assign")
 ga = importlib.import_module("repro_torch.kernels.grouped_assign")
@@ -202,8 +204,8 @@ def test_group_block_mask_matches_jax(n, tile_n):
 def test_kernel_sources_export_the_wrappers_entry_points():
     """Each wrapper binds ``<name>_launch`` and ``<name>_error_string``
     from ``csrc/<name>.cu``; the build keys on the source's hash."""
-    assert set(_build.sources()) == {"bounds_upkeep", "centroid_update",
-                                     "filtered_assign",
+    assert set(_build.sources()) == {"bounds_upkeep", "candidate_tail",
+                                     "centroid_update", "filtered_assign",
                                      "flash_attention", "flash_attention_bwd",
                                      "grouped_assign", "pairwise_sq_dists",
                                      "ssd_intra", "ssd_intra_bwd"}
@@ -428,3 +430,116 @@ def test_bounds_upkeep_source_keeps_its_contract():
     assert "#ifndef" not in src and "#define" not in src
     assert "constexpr int kMinBlocks = 4;" in src
     assert "constexpr int kDepth = 4;" in src
+
+
+def _frozen_tail(best2, idx, gmin, garg, gmin2, assignments, ub_t, lb, need,
+                 groups):
+    """The candidate pass after ``grouped_assign`` as
+    ``engine.kernel_candidate_pass`` and ``_finish_pass`` wrote it before
+    it became one call, kept as it was (``min_at`` and ``_left_at``
+    written out): the CPU's yardstick."""
+    group_need = need[:, None] & (lb < ub_t[:, None])
+    best_d = torch.sqrt(best2)
+    changed = best_d < ub_t
+    new_a = torch.where(changed, idx, assignments)
+    lb_comp = torch.sqrt(torch.where(garg == new_a[:, None], gmin2, gmin))
+    a = assignments.long()
+    new_assign = torch.where(changed, idx.long(), a)
+    new_ub = torch.minimum(ub_t, best_d)
+    new_lb = torch.where(group_need, lb_comp, lb)
+    moved = changed & (new_assign != a)
+    cap = torch.where(moved, ub_t, float("inf"))
+    cols = groups.long()[a][:, None]
+    cur = torch.gather(new_lb, 1, cols)
+    new_lb = new_lb.scatter(1, cols, torch.minimum(cur, cap[:, None]))
+    return new_assign.int(), new_ub, new_lb
+
+
+@pytest.mark.parametrize("n,d,k,g,tile_n", ct_params(CT_CASES))
+def test_candidate_mask_on_cpu_is_the_old_arithmetic(n, d, k, g, tile_n):
+    """A CPU tensor takes the plain version: the block mask of the group
+    filter as the pass formed it, as JAX's ``build_group_block_mask``
+    forms it, with every tile of no pending row dead; no launch."""
+    x, c, labels, groups, ub, lb, need = ct_inputs(n, d, k, g, tile_n,
+                                                   seed=n + g)
+    before = ct.candidate_mask.launches
+    got = ct.candidate_mask(need, lb, ub, tile_n=tile_n)
+    assert ct.candidate_mask.launches == before
+    group_need = need[:, None] & (lb < ub[:, None])
+    assert got.dtype == torch.bool
+    assert torch.equal(got, build_group_block_mask(group_need,
+                                                   tile_n=tile_n))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_block_mask(jnp.asarray(
+            group_need.numpy()), tile_n=tile_n)))
+    pending = torch.nn.functional.pad(need, (0, (-n) % tile_n))
+    dead = ~pending.reshape(-1, tile_n).any(1)
+    assert dead.any() and not got[dead].any() and got.any()
+
+
+@pytest.mark.parametrize("n,d,k,g,tile_n", ct_params(CT_CASES))
+def test_candidate_tail_on_cpu_is_the_old_arithmetic(n, d, k, g, tile_n):
+    """A CPU tensor takes the plain version, bit for bit the arithmetic
+    the pass had before, and counts no launch. The states hold every case
+    the kernel must take as the pass did: rows not pending in a live tile
+    that move all the same, fully skipped rows (best inf, idx -1), group
+    minima whose argmin is the new label (the second minimum taken) and
+    ties, -1 slots, G above 32 and N off a multiple of the tile."""
+    x, c, labels, groups, ub, lb, need = ct_inputs(n, d, k, g, tile_n,
+                                                   seed=n + g)
+    mask, args = ct_pass(x, c, labels, groups, ub, lb, need, g, tile_n)
+    before = ct.candidate_tail.launches
+    got = ct.candidate_tail(*args)
+    assert ct.candidate_tail.launches == before
+    want = _frozen_tail(*args)
+    for name, a, b in zip(("new_assign", "new_ub", "new_lb"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    best2, idx, gmin, garg = args[:4]
+    live = torch.repeat_interleave(mask.any(1), tile_n)[:n]
+    moved = got[0] != labels
+    assert bool((~need & live & moved).any())
+    assert bool(((idx == -1) & torch.isinf(best2)).any())
+    group_need = need[:, None] & (lb < ub[:, None])
+    assert bool((group_need & (garg == got[0][:, None])).any())
+    assert bool((moved & (got[1] < ub)).any())
+
+
+@pytest.mark.parametrize("n,d,k,g,tile_n", ct_params(CT_CASES[:3]))
+def test_kernel_candidate_pass_on_cpu_keeps_its_bits(n, d, k, g, tile_n):
+    """``engine.kernel_candidate_pass`` on the CPU against the pass
+    written out with the old mask and the frozen tail: labels, bounds and
+    the pair count bit for bit."""
+    x, c, labels, groups, ub, lb, need = ct_inputs(n, d, k, g, tile_n,
+                                                   seed=n)
+    members, gsize = engine.build_group_tables(groups.numpy(), g, "cpu")
+    got = engine.kernel_candidate_pass(
+        x, c, labels, ub, lb, groups, members, gsize, need, tile_n=tile_n,
+        x2=(x * x).sum(-1), c2=(c * c).sum(-1))
+    group_need = need[:, None] & (lb < ub[:, None])
+    mask = build_group_block_mask(group_need, tile_n=tile_n)
+    _, args = ct_pass(x, c, labels, groups, ub, lb, need, g, tile_n,
+                      mask=mask, assign=ga.grouped_assign_plain)
+    want = _frozen_tail(*args) + (
+        tile_n * (mask.long() * gsize[None, :]).sum(),)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_candidate_tail_source_keeps_its_contract():
+    """The kernels' names stay outside the rooflines' patterns of the
+    other k-means kernels; the root is IEEE's and no value is added, let
+    alone atomically; the mask's shared memory is the wrapper's
+    ``mask_smem``."""
+    src = (_build.CSRC / "candidate_tail.cu").read_text()
+    names = re.findall(r"__global__ void __launch_bounds__\([\w, ]+\)\n"
+                       r"(\w+)\(", src)
+    assert names == ["ct_mask_kernel", "ct_tail_kernel"]
+    for pattern in (r"\b(cu_partial|cu_reduce)\b",
+                    r"\b(ga_kernel|ga_plan_kernel)\b",
+                    r"\b(bu_upkeep_kernel|bu_own_kernel)\b"):
+        assert not re.search(pattern, src)
+    assert "__fsqrt_rn(" in src and "sqrtf(" not in src
+    assert not re.search(r"\batomic\w*\(", src) and "#define" not in src
+    assert "int mask_smem(int tile_n, int g) { return 4 * tile_n + g; }" \
+        in src
+    assert ct.mask_smem(256, 25) == 4 * 256 + 25

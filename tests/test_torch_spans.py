@@ -99,6 +99,10 @@ def test_fit_spans(data, case):
     ga = spans["kpynq/grouped_assign"]
     assert len(ga) == (len(passes) if case == "kernel" else 0)
     assert all(_inside(s, passes) for s in ga)
+    # the kernel pass's block mask and tail, one span each
+    tails = spans["kpynq/candidate_tail"]
+    assert len(tails) == (2 * len(passes) if case == "kernel" else 0)
+    assert all(_inside(s, passes) for s in tails)
     cu = spans["kpynq/centroid_update"]
     assert len(cu) > iters
     callers = spans["kpynq/move_and_bounds"] + spans["kpynq/init"]
@@ -135,4 +139,5 @@ def test_phase_enters_record_function_only_under_an_active_profiler(
     assert {"kpynq/fit", "kpynq/init", "kpynq/host_read",
             "kpynq/candidate_pass", "kpynq/grouped_assign",
             "kpynq/move_and_bounds", "kpynq/centroid_update",
-            "kpynq/bounds_upkeep", "kpynq/epilogue"} <= set(names)
+            "kpynq/bounds_upkeep", "kpynq/candidate_tail",
+            "kpynq/epilogue"} <= set(names)
